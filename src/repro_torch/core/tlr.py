@@ -1,0 +1,634 @@
+"""Tile Low-Rank (TLR) covariance computations (§5.3 of the paper).
+
+Counterpart of ``repro.core.tlr`` (its single-device, grid-form path).  The
+matrix is split into T x T tiles of size nb.  Diagonal tiles stay dense;
+each strict-lower tile A[i, j] is stored as U V^T with rank k(i, j) set by
+the accuracy threshold (TLR5/TLR7/TLR9 <-> 1e-5/1e-7/1e-9), zero-padded to
+a fixed kmax columns, in (T, T, nb, kmax) U and V arrays.
+
+The main path, ``tlr_loglik(from_tiles=True)``, runs
+
+    GEN        tiles straight from the Matérn generator (``generate_tiles``;
+               half-integer orders through the ``matern_tile`` kernel)
+    compress   truncated SVD of each strict-lower column panel
+    factorize  right-looking TLR Cholesky, per panel step POTRF, TRSM, SYRK
+               (the ``tlr_mm`` kernel) and GEMM + QR/SVD recompression
+    solve      forward substitution and the log-determinant
+
+and never forms the dense Sigma.  PyTorch runs eagerly, so the reference's
+``lax.scan`` panel loops are Python loops over a concrete step index, and
+each step touches only the live rows and pairs (see ``tlr_panel_body``).
+The factorization clones its input once and then updates in place.
+
+Given a ``times`` dict, ``tlr_loglik`` and the functions under it add the
+wall-clock seconds of each phase (``gen``, ``compress``, ``factorize``,
+``solve``) to it, synchronising the device at every phase boundary.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import as_tensor
+from ..distribution.compress_svd import svd_truncate_batch
+from ..kernels import ops
+from .covariance import MaternParams, build_sigma, build_sigma_panel
+from .likelihood import LoglikResult
+from .recovery import FactorStatus, cholesky_or_nan, init_status, sentinel_loglik
+
+
+def _lap(times: dict | None, key: str | None, t0: float, like) -> float:
+    """Add the seconds since ``t0`` to ``times[key]`` once the device that
+    holds ``like`` is idle, and return the new start; no-op without times."""
+    if times is None:
+        return t0
+    if isinstance(like, torch.Tensor) and like.device.type == "cuda":
+        torch.cuda.synchronize(like.device)
+    now = time.perf_counter()
+    if key is not None:
+        times[key] = times.get(key, 0.0) + (now - t0)
+    return now
+
+
+class TLRMatrix(NamedTuple):
+    """Symmetric positive-definite matrix in TLR form (lower storage).
+
+    ``u``/``v`` always carry kmax columns; columns at index >= ranks[i, j]
+    are zero.  All compute runs on the padded layout; ``ranks`` is
+    reporting metadata (memory_footprint / rank_distribution).
+    """
+
+    diag: torch.Tensor  # (T, nb, nb) dense diagonal tiles
+    u: torch.Tensor  # (T, T, nb, kmax); [i, j] valid for i > j
+    v: torch.Tensor  # (T, T, nb, kmax)
+    ranks: torch.Tensor  # (T, T) int32 actual ranks (0 outside strict lower)
+
+    @property
+    def n_tiles(self) -> int:
+        return self.diag.shape[0]
+
+    @property
+    def tile_size(self) -> int:
+        return self.diag.shape[1]
+
+    @property
+    def max_rank(self) -> int:
+        return self.u.shape[-1]
+
+    @property
+    def shape(self):
+        m = self.n_tiles * self.tile_size
+        return (m, m)
+
+
+def choose_tile_size(m: int, target: int = 0, multiple_of: int = 1) -> int:
+    """nb = O(sqrt(m)) per the paper's complexity trade-off, rounded to a
+    divisor of m that is a multiple of ``multiple_of``."""
+    if multiple_of > 1 and m % multiple_of:
+        raise ValueError(f"m={m} not divisible by multiple_of={multiple_of}")
+    if target <= 0:
+        target = max(32, int(math.sqrt(m)) // 32 * 32 or 32)
+    if 0 < target <= m and m % target == 0 and target % multiple_of == 0:
+        return target
+    divisors = []
+    i = 1
+    while i * i <= m:
+        if m % i == 0:
+            divisors.append(i)
+            divisors.append(m // i)
+        i += 1
+    best, best_gap = None, None
+    for nb in sorted(divisors):  # ascending: ties resolve to the smaller nb
+        if nb % multiple_of:
+            continue
+        gap = abs(nb - target)
+        if best is None or gap < best_gap:
+            best, best_gap = nb, gap
+    if best is None:
+        raise ValueError(
+            f"choose_tile_size: no divisor of m={m} is a multiple of "
+            f"multiple_of={multiple_of} (target={target}); pass a tile size "
+            "that divides m, or fix m/multiple_of"
+        )
+    return best
+
+
+def _threshold(tol, scale, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(tol * scale, dtype=like.dtype, device=like.device)
+
+
+def _svd_or_nan(a: torch.Tensor, cuda_driver: str | None = None):
+    """Reduced SVD of a batch; a member holding a non-finite value gets NaN
+    factors, as ``jnp.linalg.svd`` gives, where ``torch.linalg.svd`` would
+    raise.  No synchronisation: the check is a mask on the device.
+
+    ``cuda_driver`` names the cuSOLVER method for CUDA input (None: PyTorch's
+    default, Jacobi ``gesvdj``); it is ignored on the CPU."""
+    finite = torch.isfinite(a).all(-1).all(-1)
+    driver = cuda_driver if a.is_cuda else None
+    safe = torch.where(finite[..., None, None], a, 0.0)
+    u, s, vt = torch.linalg.svd(safe, full_matrices=False, driver=driver)
+    bad = ~finite
+    return (
+        torch.where(bad[..., None, None], math.nan, u),
+        torch.where(bad[..., None], math.nan, s),
+        torch.where(bad[..., None, None], math.nan, vt),
+    )
+
+
+def _truncate_svd(u, s, vt, tol: float, kmax: int, scale):
+    """Zero-pad a (batched) truncated SVD to kmax columns; (U, V, rank)."""
+    k = s.shape[-1]
+    keep = s > _threshold(tol, scale, s)
+    rank = torch.clamp(keep.sum(-1), max=kmax)
+    kk = min(k, kmax)
+    mask = torch.arange(kk, device=s.device) < rank[..., None]
+    uu = u[..., :kk] * torch.where(mask, s[..., :kk], 0.0)[..., None, :]
+    vv = torch.where(mask[..., None, :], vt[..., :kk, :].mT, 0.0)
+    pad = kmax - kk
+    if pad > 0:
+        uu = torch.nn.functional.pad(uu, (0, pad))
+        vv = torch.nn.functional.pad(vv, (0, pad))
+    return uu, vv, rank.to(torch.int32)
+
+
+def tlr_compress(
+    sigma: torch.Tensor,
+    tile_size: int = 0,
+    tol: float = 1e-7,
+    max_rank: int = 0,
+    scale=None,
+    multiple_of: int = 1,
+) -> TLRMatrix:
+    """Compress a dense SPD matrix to TLR (validation path)."""
+    m = sigma.shape[0]
+    nb = choose_tile_size(m, tile_size, multiple_of=multiple_of)
+    T = m // nb
+    if max_rank <= 0:
+        max_rank = max(8, nb // 4)
+    kmax = min(max_rank, nb)
+    if scale is None:
+        scale = torch.max(torch.abs(torch.diagonal(sigma)))
+    tiles = sigma.reshape(T, nb, T, nb).transpose(1, 2)  # (T, T, nb, nb)
+    diag = torch.stack([tiles[t, t] for t in range(T)])
+    kw = dict(dtype=sigma.dtype, device=sigma.device)
+    u = torch.zeros((T, T, nb, kmax), **kw)
+    v = torch.zeros((T, T, nb, kmax), **kw)
+    ranks = torch.zeros((T, T), dtype=torch.int32, device=sigma.device)
+    il, jl = np.tril_indices(T, k=-1)
+    if len(il):
+        U, V, R = svd_truncate_batch(tiles[il, jl], tol, kmax, scale)
+        u[il, jl] = U
+        v[il, jl] = V
+        ranks[il, jl] = R
+    return TLRMatrix(diag=diag, u=u, v=v, ranks=ranks)
+
+
+def apply_nugget(diag_tiles: torch.Tensor, nugget, dtype=None) -> torch.Tensor:
+    """Nugget on (..., nb, nb) diagonal tiles (where ``build_sigma`` puts it:
+    diagonal tiles only)."""
+    if nugget is None:
+        return diag_tiles
+    nb = diag_tiles.shape[-1]
+    dtype = diag_tiles.dtype if dtype is None else dtype
+    eye = torch.eye(nb, dtype=dtype, device=diag_tiles.device)
+    return diag_tiles + torch.as_tensor(nugget, dtype=dtype) * eye
+
+
+def generate_tiles(
+    locs,
+    params: MaternParams,
+    tile_size: int = 0,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    d_spatial: int = 2,
+    *,
+    device=None,
+):
+    """GEN phase: diagonal tiles and strict-lower column panels straight
+    from the Matérn generator.
+
+    Returns ``(diag, lower, nb, T)``: ``diag`` is (T, nb, nb) with the
+    nugget applied and ``lower`` a generator yielding the (T-1-j, nb, nb)
+    strict-lower tiles of column j in turn, so a consumer that drops each
+    panel keeps one live.  Locations must be Morton-ordered by the caller.
+    """
+    locs = as_tensor(locs, device=device)
+    n = locs.shape[0]
+    p = params.p
+    m = n * p
+    nb = choose_tile_size(m, tile_size, multiple_of=p)
+    nbl = nb // p  # locations per tile
+    T = m // nb
+    panels = [locs[t * nbl : (t + 1) * nbl] for t in range(T)]
+    diag = torch.stack(
+        [build_sigma_panel(b, b, params, d_spatial=d_spatial, gen=gen) for b in panels]
+    )
+    diag = apply_nugget(diag, nugget, diag.dtype)
+
+    def lower_panels():
+        for j in range(T - 1):
+            rows = locs[(j + 1) * nbl :]
+            blk = build_sigma_panel(
+                rows, panels[j], params, d_spatial=d_spatial, gen=gen
+            )
+            yield blk.reshape(T - 1 - j, nb, nb)
+
+    return diag, lower_panels(), nb, T
+
+
+def tlr_compress_tiles(
+    locs,
+    params: MaternParams,
+    tile_size: int = 0,
+    tol: float = 1e-7,
+    max_rank: int = 0,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    d_spatial: int = 2,
+    scale=None,
+    *,
+    device=None,
+    times: dict | None = None,
+) -> TLRMatrix:
+    """Generator-direct TLR compression (the production path, §5.3).
+
+    Equivalent to ``tlr_compress(build_sigma(locs, params, "I", nugget))``
+    to SVD tolerance, tile panel by tile panel, so the dense Sigma is never
+    formed.  ``scale`` (the threshold reference) defaults to
+    max(sigma2) + nugget, the dense path's max |diag(Sigma)|.
+    """
+    t0 = _lap(times, None, 0.0, params.sigma2)
+    diag, lower, nb, T = generate_tiles(
+        locs,
+        params,
+        tile_size=tile_size,
+        nugget=nugget,
+        gen=gen,
+        d_spatial=d_spatial,
+        device=device,
+    )
+    t0 = _lap(times, "gen", t0, diag)
+    if max_rank <= 0:
+        max_rank = max(8, nb // 4)
+    kmax = min(max_rank, nb)
+    if scale is None:
+        scale = torch.max(params.sigma2) + nugget
+    kw = dict(dtype=diag.dtype, device=diag.device)
+    u = torch.zeros((T, T, nb, kmax), **kw)
+    v = torch.zeros((T, T, nb, kmax), **kw)
+    ranks = torch.zeros((T, T), dtype=torch.int32, device=diag.device)
+    for j, tiles in enumerate(lower):
+        t0 = _lap(times, "gen", t0, tiles)
+        U, V, R = svd_truncate_batch(tiles, tol, kmax, scale)
+        u[j + 1 :, j] = U
+        v[j + 1 :, j] = V
+        ranks[j + 1 :, j] = R
+        t0 = _lap(times, "compress", t0, u)
+    return TLRMatrix(diag=diag, u=u, v=v, ranks=ranks)
+
+
+def tlr_to_dense(t: TLRMatrix, symmetric: bool = True) -> torch.Tensor:
+    T, nb = t.n_tiles, t.tile_size
+    out = torch.zeros((T * nb, T * nb), dtype=t.diag.dtype, device=t.diag.device)
+    for i in range(T):
+        ri = slice(i * nb, (i + 1) * nb)
+        out[ri, ri] = t.diag[i]
+        for j in range(i):
+            rj = slice(j * nb, (j + 1) * nb)
+            block = (t.u[i, j] @ t.v[i, j].mT).to(out.dtype)
+            out[ri, rj] = block
+            if symmetric:
+                out[rj, ri] = block.mT
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Recompression (the "GEMM + SVD" task of HiCMA)
+# ---------------------------------------------------------------------------
+
+
+def _recompress_parts(u1, v1, u2, v2, tol, scale):
+    """(B..., nb, k) pairs -> recompressed sum with rank <= kmax, batched.
+
+    QR(U')·QR(V') then SVD of the small core.  Returns (U, V, ranks, cs):
+    ranks counts the singular values kept (int32) and cs is the raw
+    spectrum (a NaN input tile surfaces there as non-finite values).  When
+    2 kmax > nb, R is wide (nb, 2k) and the core is (nb, nb), as in the
+    reference.
+    """
+    kmax = u1.shape[-1]
+    qu, ru = torch.linalg.qr(torch.cat([u1, u2], dim=-1))
+    qv, rv = torch.linalg.qr(torch.cat([v1, v2], dim=-1))
+    core = ru @ rv.mT
+    cu, cs, cvt = _svd_or_nan(core)
+    mask = cs[..., :kmax] > _threshold(tol, scale, cs)
+    s_m = torch.where(mask, cs[..., :kmax], 0.0)
+    unew = (qu @ cu[..., :kmax]) * s_m[..., None, :]
+    vnew = qv @ cvt[..., :kmax, :].mT
+    vnew = torch.where(mask[..., None, :], vnew, 0.0)
+    return unew, vnew, mask.sum(-1).to(torch.int32), cs
+
+
+def _batched_recompress(u1, v1, u2, v2, tol, scale):
+    """The 3-tuple form of ``_recompress_parts`` (no counting)."""
+    return _recompress_parts(u1, v1, u2, v2, tol, scale)[:3]
+
+
+def _batched_recompress_stat(u1, v1, u2, v2, tol, scale):
+    """As ``_batched_recompress`` plus an int32 count of non-finite singular
+    values (folded into ``FactorStatus.nonfinite_count``)."""
+    un, vn, rn, cs = _recompress_parts(u1, v1, u2, v2, tol, scale)
+    bad = torch.sum(~torch.isfinite(cs)).to(torch.int32)
+    return un, vn, rn, bad
+
+
+def recompress(u1, v1, u2, v2, tol: float, scale: float):
+    """(u1 v1^T + u2 v2^T) -> (U, V, rank) with rank <= kmax (= u1 cols)."""
+    return _batched_recompress(u1, v1, u2, v2, tol, scale)
+
+
+# ---------------------------------------------------------------------------
+# TLR Cholesky (right-looking; the paper's Fig. 1 dataflow on UV tiles)
+# ---------------------------------------------------------------------------
+
+
+class TLRCholesky(NamedTuple):
+    diag: torch.Tensor  # (T, nb, nb) lower Cholesky factors of diagonal tiles
+    u: torch.Tensor  # (T, T, nb, kmax) factor tiles  L[i,j] = u v^T
+    v: torch.Tensor
+    ranks: torch.Tensor
+    status: FactorStatus | None = None  # breakdown accounting (if tracked)
+
+
+def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs):
+    """One right-looking panel step k, updating ``diag``/``u``/``v``/
+    ``ranks`` in place (the reference's ``pairs=(il, jl)`` form):
+
+        POTRF — factor diagonal tile (k, k)
+        TRSM  — solve column k's V tiles of the rows i > k against it
+        SYRK  — D_i -= U_ik (V_ik^T V_ik) U_ik^T for i > k (``tlr_mm``)
+        GEMM  — A[i, j] += -U_ik (V_ik^T V_jk) U_jk^T for i > j > k, each
+                recompressed by QR + core SVD
+
+    The reference recompresses the whole static strict-lower pair list
+    every step and masks the pairs with j <= k, which keep their U, V and
+    rank.  Here only the active pairs (j > k) are gathered, recompressed and
+    scattered back, so every value equals the reference's and about a third
+    of the QR/SVD work is done.  One difference in accounting: a non-finite
+    singular value is counted only while its pair is active.
+
+    A non-SPD tile gives a NaN POTRF factor, as ``jnp.linalg.cholesky``
+    does.  Returns ``(diag, u, v, ranks)``, plus ``status`` when one is
+    passed.
+    """
+    T = diag.shape[0]
+    il, jl = (np.asarray(x) for x in pairs)
+    lkk = cholesky_or_nan(diag[k])
+    if status is not None:
+        status = status.update_potrf(lkk)
+    live = slice(k + 1, T)
+    if k + 1 < T:
+        # ---- TRSM on the live rows of panel column k (V only; §5.3).
+        vk = torch.linalg.solve_triangular(
+            lkk, v[live, k].to(lkk.dtype), upper=False, left=True
+        ).to(v.dtype)
+        v[live, k] = vk
+        uk = u[live, k].contiguous()
+        vk = vk.contiguous()
+        # ---- SYRK onto the trailing diagonal tiles.
+        diag[live] = ops.tlr_mm(uk, vk, uk, vk, diag[live])
+        # ---- GEMM + recompress on the active pairs i > j > k.
+        act = jl > k
+        if act.any():
+            ia, ja = il[act], jl[act]
+            li = torch.as_tensor(ia - (k + 1), device=u.device)
+            lj = torch.as_tensor(ja - (k + 1), device=u.device)
+            gi = torch.as_tensor(ia, device=u.device)
+            gj = torch.as_tensor(ja, device=u.device)
+            wij = vk[li].mT @ vk[lj]  # V_ik^T V_jk
+            du = uk[li] @ wij  # U_ik W
+            dv = -uk[lj]
+            un, vn, rn, bad = _batched_recompress_stat(
+                u[gi, gj], v[gi, gj], du, dv, tol, scale
+            )
+            u[gi, gj] = un
+            v[gi, gj] = vn
+            ranks[gi, gj] = rn
+            if status is not None:
+                status = status.add_nonfinite(bad)
+    diag[k] = lkk
+    if status is not None:
+        return diag, u, v, ranks, status
+    return diag, u, v, ranks
+
+
+def tlr_cholesky(
+    t: TLRMatrix,
+    tol: float = 1e-9,
+    scale=1.0,
+    track_status: bool = False,
+    times: dict | None = None,
+) -> TLRCholesky:
+    """Factor A = L L^T keeping off-diagonal tiles compressed.
+
+    The input is cloned once; the panel steps then update the copy in
+    place.  The last column needs only its POTRF.
+    """
+    T = t.n_tiles
+    diag, u, v, ranks = (x.clone() for x in (t.diag, t.u, t.v, t.ranks))
+    t0 = _lap(times, None, 0.0, diag)
+    status = init_status(diag.dtype, diag.device) if track_status else None
+    pairs = np.tril_indices(T, k=-1)
+    for k in range(T - 1):
+        out = tlr_panel_body(
+            k, diag, u, v, ranks, status, tol=tol, scale=scale, pairs=pairs
+        )
+        if track_status:
+            status = out[4]
+    lkk = cholesky_or_nan(diag[T - 1])  # last column: POTRF only
+    if track_status:
+        status = status.update_potrf(lkk)
+    diag[T - 1] = lkk
+    _lap(times, "factorize", t0, diag)
+    return TLRCholesky(diag=diag, u=u, v=v, ranks=ranks, status=status)
+
+
+def solve_lower_grid(diag_l, u, v, z) -> torch.Tensor:
+    """Forward substitution L alpha = z on grid-form TLR factors."""
+    T, nb = diag_l.shape[0], diag_l.shape[1]
+    z = z.reshape(T, nb).clone()
+    out = torch.empty_like(z)
+    for k in range(T):
+        ak = torch.linalg.solve_triangular(diag_l[k], z[k][:, None], upper=False)
+        out[k] = ak[:, 0]
+        if k + 1 < T:
+            # z_i -= U_ik (V_ik^T a_k) for i > k
+            wk = torch.einsum("tnk,n->tk", v[k + 1 :, k], out[k])
+            z[k + 1 :] -= torch.einsum("tnk,tk->tn", u[k + 1 :, k], wk)
+    return out.reshape(-1)
+
+
+def tlr_solve_lower(chol: TLRCholesky, z) -> torch.Tensor:
+    """Solve L alpha = z with L in TLR form (forward substitution)."""
+    z = as_tensor(z, device=chol.diag.device, dtype=chol.diag.dtype)
+    return solve_lower_grid(chol.diag, chol.u, chol.v, z)
+
+
+def tlr_logdet(chol: TLRCholesky) -> torch.Tensor:
+    diags = torch.diagonal(chol.diag, dim1=-2, dim2=-1)
+    return 2.0 * torch.sum(torch.log(diags))
+
+
+def tlr_matvec(t: TLRMatrix, x) -> torch.Tensor:
+    """y = A x with A symmetric in TLR form."""
+    T, nb = t.n_tiles, t.tile_size
+    x = as_tensor(x, device=t.diag.device, dtype=t.diag.dtype).reshape(T, nb)
+    y = torch.einsum("tnm,tm->tn", t.diag, x)
+    for k in range(T - 1):
+        uk, vk = t.u[k + 1 :, k], t.v[k + 1 :, k]
+        # strict-lower tiles of column k: y_i += U_ik (V_ik^T x_k)
+        w = torch.einsum("tnk,n->tk", vk, x[k])
+        y[k + 1 :] += torch.einsum("tnk,tk->tn", uk, w)
+        # their transposes (row k): y_k += sum_{i>k} V_ik (U_ik^T x_i)
+        wu = torch.einsum("tnk,tn->tk", uk, x[k + 1 :])
+        y[k] += torch.einsum("tnk,tk->n", vk, wu)
+    return y.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Log-likelihood through the TLR factorization (Eq. 1)
+# ---------------------------------------------------------------------------
+
+
+def tlr_loglik_from_matrix(
+    t: TLRMatrix,
+    z,
+    tol: float = 1e-9,
+    scale=1.0,
+    track_status: bool = True,
+    times: dict | None = None,
+) -> LoglikResult:
+    chol = tlr_cholesky(t, tol=tol, scale=scale, track_status=track_status, times=times)
+    t0 = _lap(times, None, 0.0, chol.diag)
+    alpha = tlr_solve_lower(chol, z)
+    quad = torch.sum(alpha * alpha)
+    logdet = tlr_logdet(chol)
+    m = t.shape[0]
+    ll = -0.5 * (m * math.log(2.0 * math.pi) + logdet + quad)
+    status = chol.status
+    if status is not None:
+        # Breakdown -> a well-defined finite sentinel, never NaN contagion.
+        status = status.add_nonfinite((~torch.isfinite(ll)).to(torch.int32))
+        ok = status.ok
+        ll = torch.where(ok, ll, sentinel_loglik(ll.dtype))
+        logdet = torch.where(ok, logdet, 0.0)
+        quad = torch.where(ok, quad, 0.0)
+    _lap(times, "solve", t0, ll)
+    return LoglikResult(ll, logdet, quad, None, status)
+
+
+def tlr_loglik(
+    dists,
+    z,
+    params: MaternParams,
+    tol: float = 1e-7,
+    max_rank: int = 64,
+    tile_size: int = 0,
+    nugget: float = 0.0,
+    *,
+    locs=None,
+    from_tiles: bool = False,
+    gen: str = "kernel",
+    track_status: bool = True,
+    device=None,
+    times: dict | None = None,
+) -> LoglikResult:
+    """End-to-end TLR likelihood: GEN -> compress -> TLR Cholesky -> solve.
+
+    Locations must be Morton-ordered by the caller.  With
+    ``from_tiles=True`` (the generator-direct production path) tiles come
+    from ``tlr_compress_tiles(locs, ...)``, ``dists`` may be None and the
+    dense Sigma is never formed.  ``gen`` is ``"kernel"`` (the reference's
+    ``"pallas"``) or ``"plain"`` (its ``"xla"``).  Otherwise the dense Sigma
+    is built from ``dists`` and compressed (validation / small n).  Numpy
+    inputs go to ``device``.
+    """
+    if from_tiles:
+        if locs is None:
+            raise ValueError("from_tiles=True requires locs (Morton-ordered)")
+        scale = torch.max(params.sigma2) + nugget
+        t = tlr_compress_tiles(
+            locs,
+            params,
+            tile_size=tile_size,
+            tol=tol,
+            max_rank=max_rank,
+            nugget=nugget,
+            gen=gen,
+            scale=scale,
+            device=device,
+            times=times,
+        )
+    else:
+        sigma = build_sigma(
+            None, params, representation="I", nugget=nugget, dists=dists, device=device
+        )
+        scale = torch.max(torch.abs(torch.diagonal(sigma)))
+        t = tlr_compress(
+            sigma,
+            tile_size=tile_size,
+            tol=tol,
+            max_rank=max_rank,
+            scale=scale,
+            multiple_of=params.p,
+        )
+        del sigma
+    z = as_tensor(z, device=t.diag.device, dtype=t.diag.dtype)
+    return tlr_loglik_from_matrix(
+        t, z, tol=tol, scale=scale, track_status=track_status, times=times
+    )
+
+
+# ---------------------------------------------------------------------------
+# Reports: memory footprint (Fig. 6) and rank distribution (Fig. 5)
+# ---------------------------------------------------------------------------
+
+
+def memory_footprint(t: TLRMatrix, itemsize: int | None = None) -> dict:
+    """Bytes for the TLR representation (actual ranks) vs dense."""
+    T, nb = t.n_tiles, t.tile_size
+    if itemsize is None:
+        itemsize = t.diag.element_size()
+    ranks = t.ranks.cpu().numpy()
+    il, jl = np.tril_indices(T, k=-1)
+    lowrank_entries = int(2 * nb * ranks[il, jl].sum())
+    diag_entries = T * nb * nb
+    m = T * nb
+    tlr_bytes = (lowrank_entries + diag_entries) * itemsize
+    dense_bytes = m * m * itemsize
+    return dict(
+        tlr_bytes=tlr_bytes,
+        dense_bytes=dense_bytes,
+        ratio=dense_bytes / max(tlr_bytes, 1),
+        diag_bytes=diag_entries * itemsize,
+        lowrank_bytes=lowrank_entries * itemsize,
+    )
+
+
+def rank_distribution(t: TLRMatrix) -> np.ndarray:
+    """(T, T) array: off-diagonal actual ranks, diagonal = nb (dense)."""
+    ranks = t.ranks.cpu().numpy().copy()
+    ranks = ranks + ranks.T
+    np.fill_diagonal(ranks, t.tile_size)
+    return ranks
+
+
+def tlr_mm_flops(nb: int, k: int) -> int:
+    """The paper's §5.3 model: one TLR-MM costs 36 nb k^2 flops."""
+    return 36 * nb * k * k

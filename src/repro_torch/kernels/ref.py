@@ -1,0 +1,27 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Counterparts of ``repro.kernels.ref``.  A CPU tensor takes these in
+``kernels.ops``; on the card they are what each kernel is checked against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.matern import matern_correlation_halfint
+
+
+def matern_tile_ref(locs_a, locs_b, inv_range, amp, nu: float) -> torch.Tensor:
+    """Covariance tile C[r, c] = amp * M_nu(||a_r - b_c|| * inv_range).
+
+    nu is a half-integer in {0.5, 1.5, 2.5}.
+    """
+    d2 = torch.sum((locs_a[:, None, :] - locs_b[None, :, :]) ** 2, dim=-1)
+    u = torch.sqrt(torch.clamp(d2, min=0.0)) * inv_range
+    return amp * matern_correlation_halfint(u, nu)
+
+
+def tlr_mm_ref(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:
+    """acc - U_a (V_a^T V_b) U_b^T, batched over the leading dim."""
+    w = v_a.mT @ v_b
+    return acc - (u_a @ w) @ u_b.mT

@@ -1,0 +1,86 @@
+"""The port stands alone and runs on the card unless asked for the CPU.
+
+An AST walk of src/repro_torch/ and chip_smoke.py finds no import of jax or
+of the JAX package; entry points called without a device raise where there
+is no CUDA device instead of running on the CPU; chip_smoke.py exits
+non-zero without printing a result.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    assert len(PORT_FILES) > 10
+    banned = {"jax", "jaxlib", "repro"}
+    offenders = {}
+    for p in PORT_FILES:
+        found = sorted(set(_imported_roots(p)) & banned)
+        if found:
+            offenders[str(p.relative_to(ROOT))] = found
+    assert offenders == {}
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    from repro_torch.core.covariance import MaternParams, build_sigma
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.recovery import init_status
+    from repro_torch.core.tlr import tlr_loglik
+
+    locs = np.random.default_rng(0).uniform(size=(8, 2))
+    z = np.zeros(16)
+    params = MaternParams.bivariate(device="cpu")
+    calls = [
+        lambda: MaternParams.bivariate(),
+        lambda: init_status(),
+        lambda: build_sigma(locs, params),
+        lambda: exact_loglik(locs, z, params),
+        lambda: tlr_loglik(None, z, params, locs=locs, from_tiles=True, tile_size=8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    _no_cuda()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        capture_output=True,
+        text=True,
+        timeout=120,
+        env=env,
+        cwd=ROOT,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
