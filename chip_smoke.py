@@ -18,11 +18,23 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
             jittered grid, bivariate parsimonious Matérn (m = 2 n), tile 512,
             max rank 128, TLR7, float64; z is simulated on the card and the
-            dense exact log-likelihood is the reference.  It fails unless the
-            factorization status is ok, the relative gap to the exact value
-            is <= 1e-5 and every kernel was launched during the evaluation.
+            dense exact log-likelihood is the reference (its Cholesky factor
+            is kept as the dense cokriging oracle of the serve phase).  It
+            fails unless the factorization status is ok, the relative gap to
+            the exact value is <= 1e-5 and every kernel was launched during
+            the evaluation.
+4. serve    cokriging serving at the same configuration, locations and z:
+            ``fit_factor`` once (pair-major GEN + compress, TLR Cholesky,
+            both sweeps), then 8 ``predict_batch`` requests of 512 uniform
+            locations and one with 16 conditional draws.  It fails unless
+            the factor's status is ok, every served mean is within 1e-3
+            (max abs gap over max abs) of dense cokriging, variances are
+            finite and >= 0, lower <= mean <= upper, a request with a NaN
+            location is refused with ``nonfinite_locs``, and every kernel
+            was launched during the phase.
 
-Then a ``kernels`` JSON line (the per-kernel summary), the nvidia-smi line,
+Then a ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the
+main and serve runs, ``launches_by_path`` splits them), the nvidia-smi line,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
 CUDA device or a missing checkout around the script.
@@ -38,6 +50,8 @@ import subprocess
 import sys
 import time
 import traceback
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -68,7 +82,30 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/tlr_mm.cu",
         "src/repro/kernels/tlr_mm.py:41",
     ),
+    "potrf": (
+        "src/repro_torch/kernels/csrc/potrf.cu",
+        "src/repro/kernels/chol_tiles.py:52",
+    ),
+    "trsm": (
+        "src/repro_torch/kernels/csrc/trsm.cu",
+        "src/repro/kernels/chol_tiles.py:88",
+    ),
 }
+# The tolerances of tests/test_kernels.py::test_potrf_kernel and
+# ::test_trsm_kernel.
+CHOL_TOL = {
+    "potrf": {
+        "float64": dict(rtol=1e-9, atol=1e-11),
+        "float32": dict(rtol=5e-4, atol=5e-4),
+    },
+    "trsm": {
+        "float64": dict(rtol=1e-9, atol=1e-11),
+        "float32": dict(rtol=1e-3, atol=1e-3),
+    },
+}
+# The main configuration (PERF.md section 4).
+NUGGET, TOL_TLR, TILE, KMAX = 1e-8, 1e-7, 512, 128
+MATERN = dict(sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5)
 
 
 def emit(obj) -> None:
@@ -241,8 +278,164 @@ def check_tlr_mm(torch, gen, tag, dtype, timed):
     return rec
 
 
+def _spd(torch, gen, b, nb, dtype):
+    """a a^T + nb I, as tests/test_kernels.py::_spd_batch, made in float64."""
+    a = torch.randn((b, nb, nb), generator=gen, dtype=torch.float64, device="cuda")
+    return (a @ a.mT + nb * torch.eye(nb, dtype=torch.float64, device="cuda")).to(dtype)
+
+
+def _potrf_bound(b, nb, isz):
+    # read the tile once, write the factor once; nb^3/3 flops a tile
+    dname = "float64" if isz == 8 else "float32"
+    return bound(2 * b * nb * nb * isz, b * nb**3 / 3, "matmul", dname)
+
+
+def _trsm_bound(b, nb, r, lo_b, isz):
+    # read L (once if broadcast) and B, write X; nb^2 r flops a tile
+    dname = "float64" if isz == 8 else "float32"
+    nbytes = (lo_b * nb * nb + 2 * b * nb * r) * isz
+    return bound(nbytes, b * nb * nb * r, "matmul", dname)
+
+
+def check_potrf(torch, gen, tag, b, nb, dtype, timed):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chol_tiles import potrf_cuda
+
+    dname = str(dtype).split(".")[-1]
+    a = _spd(torch, gen, b, nb, dtype)
+    got = potrf_cuda(a)
+    want = ref.potrf_ref(a)
+    torch.cuda.synchronize()
+    tol = CHOL_TOL["potrf"][dname]
+    err, ok = max_err(torch, got, want, **tol)
+    b_ms, b_by = _potrf_bound(b, nb, a.element_size())
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "potrf",
+        "case": tag,
+        "shape": [b, nb, nb],
+        "dtype": dname,
+        "max_abs_err": err,
+        "ok": ok,
+        "tol": tol,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    if timed:
+        rec["ms"] = cuda_ms(torch, lambda: potrf_cuda(a))
+        rec["plain_ms"] = cuda_ms(torch, lambda: ref.potrf_ref(a))
+        rec["library_ms"] = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(a))
+    emit(rec)
+    return rec
+
+
+def check_potrf_failure(torch, gen):
+    """Two bad tiles (indefinite; a negative last pivot) between good ones:
+    the bad ones come back all NaN, the good ones as cholesky_ex gives."""
+    from repro_torch.kernels.chol_tiles import potrf_cuda
+
+    nb = 512
+    a = _spd(torch, gen, 4, nb, torch.float64)
+    a[1] -= 1e4 * torch.eye(nb, dtype=a.dtype, device="cuda")
+    a[2, nb - 1, nb - 1] = -1.0
+    got = potrf_cuda(a)
+    want, info = torch.linalg.cholesky_ex(a)
+    torch.cuda.synchronize()
+    nan_tiles = [bool(torch.isnan(got[t]).all()) for t in range(4)]
+    err, good = max_err(torch, got[0::3], want[0::3], **CHOL_TOL["potrf"]["float64"])
+    ok = nan_tiles == [False, True, True, False] and good
+    ok = ok and [int(x) for x in info.cpu()][1:3] != [0, 0]
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "potrf",
+        "case": "non_spd",
+        "shape": [4, nb, nb],
+        "dtype": "float64",
+        "all_nan_tiles": nan_tiles,
+        "max_abs_err_good_tiles": err,
+        "ok": ok,
+    }
+    emit(rec)
+    return rec
+
+
+def check_potrf_matern(torch, locs, params):
+    """One diagonal tile of the main configuration (the first 256 Morton
+    locations), judged by its residual and by cholesky_ex."""
+    from repro_torch.core.covariance import build_sigma_panel
+    from repro_torch.kernels.chol_tiles import potrf_cuda
+
+    blk = locs[: TILE // 2]
+    a = build_sigma_panel(blk, blk, params, gen="kernel")
+    a = a + NUGGET * torch.eye(TILE, dtype=a.dtype, device="cuda")
+    a = a[None].contiguous()
+    got = potrf_cuda(a)
+    want, info = torch.linalg.cholesky_ex(a)
+    torch.cuda.synchronize()
+    norm = torch.linalg.norm(a)
+    res = float(torch.linalg.norm(got @ got.mT - a) / norm)
+    res_lib = float(torch.linalg.norm(want @ want.mT - a) / norm)
+    agree = float((got - want).abs().max() / want.abs().max())
+    ok = bool(torch.isfinite(got).all()) and int(info[0]) == 0
+    # backward error of a stable Cholesky: a few ulp times nb; the factors
+    # themselves may differ by the tile's condition number times the ulp
+    ok = ok and res <= 1e-12 and agree <= 1e-4
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "potrf",
+        "case": "matern_diag_tile",
+        "shape": [1, TILE, TILE],
+        "dtype": "float64",
+        "residual": res,
+        "residual_cholesky_ex": res_lib,
+        "max_rel_diff_vs_cholesky_ex": agree,
+        "ok": ok,
+    }
+    emit(rec)
+    return rec
+
+
+def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chol_tiles import trsm_cuda
+
+    dname = str(dtype).split(".")[-1]
+    lo = torch.linalg.cholesky(_spd(torch, gen, lo_b, nb, torch.float64))
+    lo = lo.to(dtype).contiguous()
+    rhs = torch.randn((b, nb, r), generator=gen, dtype=torch.float64, device="cuda")
+    rhs = rhs.to(dtype)
+    got = trsm_cuda(lo, rhs)
+    want = ref.trsm_ref(lo, rhs)
+    torch.cuda.synchronize()
+    tol = CHOL_TOL["trsm"][dname]
+    err, ok = max_err(torch, got, want, **tol)
+    b_ms, b_by = _trsm_bound(b, nb, r, lo_b, rhs.element_size())
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "trsm",
+        "case": tag,
+        "shape": [b, nb, r],
+        "lo_batch": lo_b,
+        "dtype": dname,
+        "max_abs_err": err,
+        "ok": ok,
+        "tol": tol,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    if timed:
+        rec["ms"] = cuda_ms(torch, lambda: trsm_cuda(lo, rhs))
+        rec["plain_ms"] = cuda_ms(torch, lambda: ref.trsm_ref(lo, rhs))
+        # the plain version is this one library call
+        rec["library_ms"] = cuda_ms(
+            torch, lambda: torch.linalg.solve_triangular(lo, rhs, upper=False)
+        )
+    emit(rec)
+    return rec
+
+
 def phase_kernels(torch, st, n_side: int):
-    from repro_torch.core.covariance import morton_order
+    from repro_torch.core.covariance import MaternParams, morton_order
     from repro_torch.core.simulate import grid_locations
 
     gen = torch.Generator(device="cuda")
@@ -274,33 +467,85 @@ def phase_kernels(torch, st, n_side: int):
         records.append(rec)
         if timed:
             st.setdefault("summary", {})["tlr_mm"] = rec
+    # potrf: the panel-head tile of the main path, a batch, a ragged nb, the
+    # README's serving tile (2048), bad tiles and a real Matérn tile
+    cases = (
+        ("path", 1, 512),
+        ("batch", 8, 512),
+        ("ragged", 3, 200),
+        ("tile2048", 1, 2048),
+    )
+    for tag, b, nb in cases:
+        for dtype in (torch.float64, torch.float32):
+            timed = tag == "path" and dtype == torch.float64
+            rec = check_potrf(torch, gen, tag, b, nb, dtype, timed)
+            records.append(rec)
+            if timed:
+                st.setdefault("summary", {})["potrf"] = rec
+    records.append(check_potrf_failure(torch, gen))
+    params = MaternParams.bivariate(**MATERN, device="cuda")
+    records.append(check_potrf_matern(torch, locs, params))
+    # trsm: the panel TRSM (one L_kk for the 63 live V tiles of step 0:
+    # r = 63 x 128 = 8064 columns in all), the sweep for alpha (r = 1), the
+    # sweep of a 512-location request (r = 512 x 2), a ragged case and the
+    # README's serving tile
+    cases = (
+        ("panel", 63, 512, 128, 1),
+        ("wide", 1, 512, 8064, 1),
+        ("alpha", 1, 512, 1, 1),
+        ("predict", 1, 512, 1024, 1),
+        ("ragged", 3, 200, 37, 3),
+        ("tile2048", 4, 2048, 128, 1),
+    )
+    for tag, b, nb, r, lo_b in cases:
+        for dtype in (torch.float64, torch.float32):
+            timed = tag in ("panel", "wide", "alpha", "predict")
+            timed = timed and dtype == torch.float64
+            rec = check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed)
+            records.append(rec)
+            if tag == "panel" and timed:
+                st.setdefault("summary", {})["trsm"] = rec
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
+
+
+def serve_requests():
+    """The serve phase's 8 requests of 512 uniform locations, and one more
+    for the conditional draws."""
+    rng = np.random.default_rng(7)
+    return [rng.uniform(0.05, 0.95, size=(512, 2)) for _ in range(9)]
 
 
 def phase_main(torch, st, n_side: int):
     from repro_torch.core import tlr as tlr_module
     from repro_torch.core.covariance import MaternParams, morton_order
     from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.prediction import cokrige, dense_factor
     from repro_torch.core.simulate import grid_locations, simulate_mgrf
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda")
-    nugget, tol, tile, kmax = 1e-8, 1e-7, 512, 128
+    nugget, tol, tile, kmax = NUGGET, TOL_TLR, TILE, KMAX
     locs = grid_locations(n_side, jitter=0.3, seed=0)
     locs = locs[morton_order(locs)]
-    params = MaternParams.bivariate(
-        sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5, device=dev
-    )
+    params = MaternParams.bivariate(**MATERN, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
     z = simulate_mgrf(gen, locs, params, nugget=nugget, device=dev)[0]
-    exact = exact_loglik(locs, z, params, nugget=nugget, device=dev)
+    exact = exact_loglik(locs, z, params, nugget=nugget, keep_chol=True, device=dev)
     ll_exact = float(exact.loglik)
     exact_s = time.perf_counter() - t0
     peak_exact = torch.cuda.max_memory_allocated()
-    del exact
+    # the serve phase's inputs, and its dense cokriging oracle from Sigma's
+    # factor, made before the factor is freed
+    dense = dense_factor(locs, z, params, chol=exact.chol)
+    requests = serve_requests()
+    oracle = [cokrige(None, None, pred, factor=dense) for pred in requests]
+    st["serve_inputs"] = dict(
+        locs=locs, z=z, params=params, requests=requests, oracle=oracle
+    )
+    del exact, dense
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -346,7 +591,7 @@ def phase_main(torch, st, n_side: int):
 
     gap = abs(ll_tlr - ll_exact)
     rel = gap / abs(ll_exact)
-    st["launches"] = launches
+    st.setdefault("launches", {})["main"] = launches
     ok = status["ok"] and rel <= 1e-5 and math.isfinite(ll_tlr)
     ok = ok and all(v > 0 for v in launches.values())
     emit(
@@ -379,6 +624,128 @@ def phase_main(torch, st, n_side: int):
         raise AssertionError("main path failed its checks")
 
 
+def phase_serve(torch, st):
+    from repro_torch.core.covariance import build_c0_panels
+    from repro_torch.core.dist_tlr import dist_tlr_solve_lower_pairs
+    from repro_torch.distribution.block_cyclic import pair_layout
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cokrige_service import (
+        CokrigeServeConfig,
+        ServeError,
+        fit_factor,
+        predict_batch,
+    )
+
+    inputs = st.pop("serve_inputs")
+    locs, z, params = inputs["locs"], inputs["z"], inputs["params"]
+    dev = torch.device("cuda")
+    cfg = CokrigeServeConfig(
+        tile_size=TILE, max_rank=KMAX, tol=TOL_TLR, nugget=NUGGET, gen="kernel"
+    )
+    requests, oracle = inputs["requests"], inputs["oracle"]
+    batch, n_req, n_draws = 512, 8, 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = {}
+    t0 = time.perf_counter()
+    factor = fit_factor(locs, z, params, cfg, device=dev, times=times)
+    status = factor.status.as_dict()
+    fit_s = time.perf_counter() - t0
+    peak_fit = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    served, req_s = [], []
+    for pred in requests[:n_req]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = predict_batch(factor, pred, cfg)
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t0)
+        served.append(out)
+    peak_predict = torch.cuda.max_memory_allocated()
+    drawn = predict_batch(
+        factor, requests[n_req], cfg, generator=gen, n_draws=n_draws
+    )
+    bad = requests[0].copy()
+    bad[5, 1] = np.nan
+    try:
+        predict_batch(factor, bad, cfg)
+        refused = None
+    except ServeError as err:
+        refused = err.code
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["serve"] = launches
+
+    # where one request's time goes: the c0 panels, then the forward sweep
+    m, nb = factor.m, factor.diag_l.shape[1]
+    pred_t = torch.as_tensor(requests[0], device=dev)
+    breakdown = {}
+    t0 = time.perf_counter()
+    nbl = nb // params.p
+    c0 = build_c0_panels(factor.locs, pred_t, params, nbl=nbl, gen=cfg.gen)
+    torch.cuda.synchronize()
+    breakdown["c0_panels_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    layout = pair_layout(factor.diag_l.shape[0], 1)
+    dist_tlr_solve_lower_pairs(
+        factor.diag_l, factor.u, factor.v, c0.reshape(m, -1), layout=layout
+    )
+    torch.cuda.synchronize()
+    breakdown["forward_sweep_ms"] = 1e3 * (time.perf_counter() - t0)
+    del c0
+
+    rels, checks = [], []
+    for want, out in zip(oracle, served + [drawn]):
+        rels.append(float((out.mean - want).abs().max() / want.abs().max()))
+        var = out.variance
+        fine = bool(torch.isfinite(var).all() and (var >= 0).all())
+        fine = fine and bool((out.lower <= out.mean).all())
+        fine = fine and bool((out.mean <= out.upper).all())
+        checks.append(fine)
+    draws_ok = tuple(drawn.draws.shape) == (n_draws, batch, 2)
+    draws_ok = draws_ok and bool(torch.isfinite(drawn.draws).all())
+    ms = sorted(1e3 * t for t in req_s)
+    ok = status["ok"] and max(rels) <= 1e-3 and all(checks) and draws_ok
+    ok = ok and refused == "nonfinite_locs" and all(v > 0 for v in launches.values())
+    emit(
+        {
+            "phase": "serve",
+            "ok": ok,
+            "n": len(locs),
+            "m": int(factor.m),
+            "tile_size": TILE,
+            "max_rank": KMAX,
+            "tol": TOL_TLR,
+            "nugget": NUGGET,
+            "gen": cfg.gen,
+            "fit_factor_s": fit_s,
+            "phase_s": times,
+            "status": status,
+            "batch": batch,
+            "requests": n_req,
+            "predict_batch_ms": [1e3 * t for t in req_s],
+            "predict_batch_p50_ms": float(np.median(ms)),
+            "predict_batch_max_ms": ms[-1],
+            "predictions_per_sec": n_req * batch / sum(req_s),
+            "predictions_per_sec_p50": batch / (1e-3 * float(np.median(ms))),
+            "request_breakdown": breakdown,
+            "rel_err_vs_dense": rels,
+            "intervals_ok": checks,
+            "draws_ok": draws_ok,
+            "refused_nan_request": refused,
+            "launches": launches,
+            "peak_bytes_fit": peak_fit,
+            "peak_bytes_predict": peak_predict,
+        }
+    )
+    if not ok:
+        raise AssertionError("serve path failed its checks")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -402,6 +769,7 @@ def main() -> int:
         ("device", lambda: phase_device(torch, st)),
         ("kernels", lambda: phase_kernels(torch, st, args.n_side)),
         ("main", lambda: phase_main(torch, st, args.n_side)),
+        ("serve", lambda: phase_serve(torch, st)),
     )
     for name, fn in phases:
         try:
@@ -417,13 +785,15 @@ def main() -> int:
     kernels = []
     for name, rec in st["summary"].items():
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        by_path = {path: counts[name] for path, counts in st["launches"].items()}
         kernels.append(
             {
                 "name": name,
                 "route": "cuda",
                 "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1],
-                "launches": st["launches"][name],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 **{key: rec[key] for key in keys},
                 "library_ms": rec["library_ms"],
                 "shape": rec["shape"],

@@ -224,6 +224,71 @@ def build_sigma_panel(
     return blocks.permute(2, 0, 3, 1).reshape(R * p, C * p)
 
 
+def build_sigma_column(
+    locs, j: int, nbl: int, params: MaternParams, d_spatial: int = 2, gen: str = "plain"
+) -> torch.Tensor:
+    """One Representation-I tile-grid column panel, generator-direct: the
+    (m, nb) slice ``build_sigma(locs)[:, j*nb:(j+1)*nb]`` with nb = nbl * p,
+    without forming Sigma."""
+    locs = as_tensor(locs)
+    cols = locs[j * nbl : (j + 1) * nbl]
+    return build_sigma_panel(locs, cols, params, d_spatial=d_spatial, gen=gen)
+
+
+def build_c0(
+    pred_locs,
+    obs_locs,
+    params: MaternParams,
+    representation: str = "I",
+    d_spatial: int = 2,
+    *,
+    device=None,
+) -> torch.Tensor:
+    """Prediction cross-covariance (Eq. 4) for a batch of prediction points.
+
+    Returns (npred, p*n, p): c0 for each prediction location, rows ordered
+    to match ``build_sigma``'s representation.
+    """
+    pred_locs = as_tensor(pred_locs, device=device)
+    obs_locs = as_tensor(obs_locs, device=pred_locs.device)
+    dists = pairwise_distances(pred_locs, obs_locs)  # (npred, n)
+    p = params.p
+    npred, n = dists.shape
+    sig = torch.sqrt(params.sigma2)
+    amp = sig[:, None] * sig[None, :]
+    blocks = amp[:, :, None, None] * _pair_correlations(dists, params, d_spatial)
+    # entry (i, j, l, r) = C_ij(s0_l - s_r); c0 rows follow the observations
+    if representation.upper() == "I":
+        return blocks.permute(2, 3, 0, 1).reshape(npred, n * p, p)
+    return blocks.permute(2, 0, 3, 1).reshape(npred, n * p, p)
+
+
+def build_c0_panels(
+    obs_locs,
+    pred_locs,
+    params: MaternParams,
+    *,
+    nbl: int,
+    d_spatial: int = 2,
+    gen: str = "plain",
+) -> torch.Tensor:
+    """Prediction cross-covariance in tile-panel form, generator-direct.
+
+    Returns (T, nb, B*p) with T = n // nbl and nb = nbl * p: tile t is the
+    Representation-I panel between observation tile t and the whole
+    prediction batch, so ``out.reshape(m, B*p)`` equals
+    ``build_sigma_panel(obs_locs, pred_locs)``.  The reference maps
+    ``build_sigma_panel`` over the T observation tiles; one call over all
+    observations, reshaped, gives the same values.
+    """
+    obs_locs = as_tensor(obs_locs)
+    n = obs_locs.shape[0]
+    if n % nbl:
+        raise ValueError(f"nbl={nbl} must divide n={n}")
+    panel = build_sigma_panel(obs_locs, pred_locs, params, d_spatial=d_spatial, gen=gen)
+    return panel.reshape(n // nbl, nbl * params.p, panel.shape[1])
+
+
 def build_correlation_matrix(
     locs, a, nu, nugget: float | None = None, dists=None, *, device=None
 ) -> torch.Tensor:

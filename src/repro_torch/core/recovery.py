@@ -36,10 +36,13 @@ def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
     ``torch.linalg.cholesky`` raises on a matrix that is not positive
     definite; the reference's ``jnp.linalg.cholesky`` returns a NaN factor
     instead, which the status and the sentinel then turn into a finite
-    result.  ``cholesky_ex`` reports the failure without a synchronisation.
+    result.  A matrix fails where a pivot is not positive or not finite
+    (``cholesky_ex`` reports the first, a non-finite diagonal of its factor
+    the second), the rule of the CUDA ``potrf`` kernel; no synchronisation.
     """
     lo, info = torch.linalg.cholesky_ex(a)
-    bad = (info != 0)[..., None, None]
+    piv = torch.diagonal(lo, dim1=-2, dim2=-1)
+    bad = ((info != 0) | ~torch.isfinite(piv).all(-1))[..., None, None]
     return torch.where(bad, torch.full_like(lo, math.nan), lo)
 
 

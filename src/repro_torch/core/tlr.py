@@ -36,10 +36,11 @@ import torch
 
 from ..device import as_tensor
 from ..distribution.compress_svd import svd_truncate_batch
+from ..distribution.pair_qr import sharded_recompress
 from ..kernels import ops
 from .covariance import MaternParams, build_sigma, build_sigma_panel
 from .likelihood import LoglikResult
-from .recovery import FactorStatus, cholesky_or_nan, init_status, sentinel_loglik
+from .recovery import FactorStatus, init_status, sentinel_loglik
 
 
 def _lap(times: dict | None, key: str | None, t0: float, like) -> float:
@@ -242,6 +243,57 @@ def generate_tiles(
     return diag, lower_panels(), nb, T
 
 
+def compress_columns(
+    locs,
+    params: MaternParams,
+    tile_size: int = 0,
+    tol: float = 1e-7,
+    max_rank: int = 0,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    d_spatial: int = 2,
+    scale=None,
+    *,
+    device=None,
+    times: dict | None = None,
+):
+    """GEN + compress, one tile column at a time: the work every
+    generator-direct compression runs, whatever storage it fills.
+
+    Returns ``(diag, kmax, columns)``: ``diag`` is (T, nb, nb) with the
+    nugget applied, and ``columns`` yields ``(j, U, V, ranks)`` for each
+    column j < T - 1, the truncated SVD (``svd_truncate_batch``) of its
+    T-1-j strict-lower tiles only.  ``scale`` (the threshold reference)
+    defaults to max(sigma2) + nugget, the dense path's max |diag(Sigma)|.
+    """
+    t0 = _lap(times, None, 0.0, params.sigma2)
+    diag, lower, nb, T = generate_tiles(
+        locs,
+        params,
+        tile_size=tile_size,
+        nugget=nugget,
+        gen=gen,
+        d_spatial=d_spatial,
+        device=device,
+    )
+    t0 = _lap(times, "gen", t0, diag)
+    if max_rank <= 0:
+        max_rank = max(8, nb // 4)
+    kmax = min(max_rank, nb)
+    if scale is None:
+        scale = torch.max(params.sigma2) + nugget
+
+    def columns():
+        t = t0
+        for j, tiles in enumerate(lower):
+            t = _lap(times, "gen", t, tiles)
+            U, V, R = svd_truncate_batch(tiles, tol, kmax, scale)
+            t = _lap(times, "compress", t, U)
+            yield j, U, V, R
+
+    return diag, kmax, columns()
+
+
 def tlr_compress_tiles(
     locs,
     params: MaternParams,
@@ -260,36 +312,30 @@ def tlr_compress_tiles(
 
     Equivalent to ``tlr_compress(build_sigma(locs, params, "I", nugget))``
     to SVD tolerance, tile panel by tile panel, so the dense Sigma is never
-    formed.  ``scale`` (the threshold reference) defaults to
-    max(sigma2) + nugget, the dense path's max |diag(Sigma)|.
+    formed (``compress_columns``).
     """
-    t0 = _lap(times, None, 0.0, params.sigma2)
-    diag, lower, nb, T = generate_tiles(
+    diag, kmax, columns = compress_columns(
         locs,
         params,
-        tile_size=tile_size,
-        nugget=nugget,
-        gen=gen,
-        d_spatial=d_spatial,
+        tile_size,
+        tol,
+        max_rank,
+        nugget,
+        gen,
+        d_spatial,
+        scale,
         device=device,
+        times=times,
     )
-    t0 = _lap(times, "gen", t0, diag)
-    if max_rank <= 0:
-        max_rank = max(8, nb // 4)
-    kmax = min(max_rank, nb)
-    if scale is None:
-        scale = torch.max(params.sigma2) + nugget
+    T, nb = diag.shape[0], diag.shape[1]
     kw = dict(dtype=diag.dtype, device=diag.device)
     u = torch.zeros((T, T, nb, kmax), **kw)
     v = torch.zeros((T, T, nb, kmax), **kw)
     ranks = torch.zeros((T, T), dtype=torch.int32, device=diag.device)
-    for j, tiles in enumerate(lower):
-        t0 = _lap(times, "gen", t0, tiles)
-        U, V, R = svd_truncate_batch(tiles, tol, kmax, scale)
+    for j, U, V, R in columns:
         u[j + 1 :, j] = U
         v[j + 1 :, j] = V
         ranks[j + 1 :, j] = R
-        t0 = _lap(times, "compress", t0, u)
     return TLRMatrix(diag=diag, u=u, v=v, ranks=ranks)
 
 
@@ -366,12 +412,43 @@ class TLRCholesky(NamedTuple):
     status: FactorStatus | None = None  # breakdown accounting (if tracked)
 
 
+def index_of(sel: np.ndarray, device):
+    """An index for the sorted positions ``sel``: a slice (a view, no copy)
+    where they are consecutive, else an index tensor."""
+    if len(sel) and sel[-1] - sel[0] == len(sel) - 1:
+        return slice(int(sel[0]), int(sel[-1]) + 1)
+    return torch.as_tensor(sel, device=device)
+
+
+def _gemm_recompress(u, v, ranks, dst, uk, vk, li, lj, status, *, tol, scale):
+    """The GEMM + recompress task on a batch of active pairs, in place:
+
+        A[i, j] += -U_ik (V_ik^T V_jk) U_jk^T,  recompressed by QR + core SVD
+
+    ``dst`` indexes the pairs' storage in ``u``, ``v``, ``ranks`` (a grid
+    index ``(gi, gj)`` or a pair-slot index); ``li``, ``lj`` index their
+    rows i and j in the panel column's live tiles ``uk``, ``vk``.  Returns
+    ``status`` with the non-finite singular values of these pairs added.
+    """
+    wij = vk[li].mT @ vk[lj]  # V_ik^T V_jk
+    du = uk[li] @ wij  # U_ik W
+    dv = -uk[lj]
+    un, vn, rn, bad = sharded_recompress(
+        u[dst], v[dst], du, dv, tol, scale, with_count=True
+    )
+    u[dst] = un
+    v[dst] = vn
+    ranks[dst] = rn
+    return None if status is None else status.add_nonfinite(bad)
+
+
 def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs):
     """One right-looking panel step k, updating ``diag``/``u``/``v``/
     ``ranks`` in place (the reference's ``pairs=(il, jl)`` form):
 
-        POTRF — factor diagonal tile (k, k)
-        TRSM  — solve column k's V tiles of the rows i > k against it
+        POTRF — factor diagonal tile (k, k) (the ``potrf`` kernel)
+        TRSM  — solve column k's V tiles of the rows i > k against it (the
+                ``trsm`` kernel, L_kk broadcast over the rows)
         SYRK  — D_i -= U_ik (V_ik^T V_ik) U_ik^T for i > k (``tlr_mm``)
         GEMM  — A[i, j] += -U_ik (V_ik^T V_jk) U_jk^T for i > j > k, each
                 recompressed by QR + core SVD
@@ -389,43 +466,99 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     """
     T = diag.shape[0]
     il, jl = (np.asarray(x) for x in pairs)
-    lkk = cholesky_or_nan(diag[k])
+    lkk = ops.potrf(diag[k : k + 1])
     if status is not None:
         status = status.update_potrf(lkk)
     live = slice(k + 1, T)
     if k + 1 < T:
         # ---- TRSM on the live rows of panel column k (V only; §5.3).
-        vk = torch.linalg.solve_triangular(
-            lkk, v[live, k].to(lkk.dtype), upper=False, left=True
-        ).to(v.dtype)
+        vk = ops.trsm(lkk, v[live, k])
         v[live, k] = vk
         uk = u[live, k].contiguous()
-        vk = vk.contiguous()
         # ---- SYRK onto the trailing diagonal tiles.
         diag[live] = ops.tlr_mm(uk, vk, uk, vk, diag[live])
         # ---- GEMM + recompress on the active pairs i > j > k.
         act = jl > k
         if act.any():
             ia, ja = il[act], jl[act]
-            li = torch.as_tensor(ia - (k + 1), device=u.device)
-            lj = torch.as_tensor(ja - (k + 1), device=u.device)
-            gi = torch.as_tensor(ia, device=u.device)
-            gj = torch.as_tensor(ja, device=u.device)
-            wij = vk[li].mT @ vk[lj]  # V_ik^T V_jk
-            du = uk[li] @ wij  # U_ik W
-            dv = -uk[lj]
-            un, vn, rn, bad = _batched_recompress_stat(
-                u[gi, gj], v[gi, gj], du, dv, tol, scale
+            dev = u.device
+            dst = (torch.as_tensor(ia, device=dev), torch.as_tensor(ja, device=dev))
+            li = torch.as_tensor(ia - (k + 1), device=dev)
+            lj = torch.as_tensor(ja - (k + 1), device=dev)
+            status = _gemm_recompress(
+                u, v, ranks, dst, uk, vk, li, lj, status, tol=tol, scale=scale
             )
-            u[gi, gj] = un
-            v[gi, gj] = vn
-            ranks[gi, gj] = rn
-            if status is not None:
-                status = status.add_nonfinite(bad)
-    diag[k] = lkk
+    diag[k] = lkk[0]
     if status is not None:
         return diag, u, v, ranks, status
     return diag, u, v, ranks
+
+
+def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, scale):
+    """One right-looking panel step k on pair-major strict-lower storage
+    (``distribution.block_cyclic.PairLayout``), updating ``diag``, ``up``,
+    ``vp``, ``ranks`` in place: the reference's ``tlr_panel_body_bc`` on one
+    device.
+
+    Panel column k is read through ``layout.pos[k+1:, k]``, the slots of
+    its rows i > k only; the reference instead gathers all T rows through
+    ``pos[:, k]`` with out-of-bounds sentinel slots for i <= k (filled with
+    zeros, writes dropped), which torch indexing would refuse.  The GEMM +
+    recompress runs on the active pairs (j > k) only, through the same
+    helper as the grid body, with the same values and status accounting.
+    With one shard the column's slots, and the active pairs', are
+    consecutive, so both are views of the storage.
+    """
+    T = diag.shape[0]
+    dev = up.device
+    lkk = ops.potrf(diag[k : k + 1])
+    if status is not None:
+        status = status.update_potrf(lkk)
+    if k + 1 < T:
+        col = index_of(layout.pos[k + 1 :, k], dev)
+        # ---- TRSM on panel column k (V only; U untouched, §5.3).
+        vk = ops.trsm(lkk, vp[col])
+        vp[col] = vk
+        uk = up[col]
+        # ---- SYRK onto the trailing diagonal tiles i > k.
+        diag[k + 1 :] = ops.tlr_mm(uk, vk, uk, vk, diag[k + 1 :])
+        # ---- GEMM + recompress over the active pairs (pads fail il > jl).
+        il, jl = layout.il, layout.jl
+        act = np.nonzero((il > jl) & (jl > k))[0]
+        if len(act):
+            li = torch.as_tensor(il[act] - (k + 1), device=dev)
+            lj = torch.as_tensor(jl[act] - (k + 1), device=dev)
+            status = _gemm_recompress(
+                up,
+                vp,
+                ranks,
+                index_of(act, dev),
+                uk,
+                vk,
+                li,
+                lj,
+                status,
+                tol=tol,
+                scale=scale,
+            )
+    diag[k] = lkk[0]
+    if status is not None:
+        return diag, up, vp, ranks, status
+    return diag, up, vp, ranks
+
+
+def pair_panel_loop(diag, up, vp, ranks, k_hi: int, *, layout, tol, scale, status=None):
+    """The pair body for k in [0, k_hi), in place; a ``status`` passed rides
+    along and the result is then a 5-tuple."""
+    for k in range(k_hi):
+        out = tlr_panel_body_bc(
+            k, diag, up, vp, ranks, status, layout=layout, tol=tol, scale=scale
+        )
+        if status is not None:
+            status = out[4]
+    if status is not None:
+        return diag, up, vp, ranks, status
+    return diag, up, vp, ranks
 
 
 def tlr_cholesky(
@@ -451,22 +584,22 @@ def tlr_cholesky(
         )
         if track_status:
             status = out[4]
-    lkk = cholesky_or_nan(diag[T - 1])  # last column: POTRF only
+    lkk = ops.potrf(diag[T - 1 :])  # last column: POTRF only
     if track_status:
         status = status.update_potrf(lkk)
-    diag[T - 1] = lkk
+    diag[T - 1] = lkk[0]
     _lap(times, "factorize", t0, diag)
     return TLRCholesky(diag=diag, u=u, v=v, ranks=ranks, status=status)
 
 
 def solve_lower_grid(diag_l, u, v, z) -> torch.Tensor:
-    """Forward substitution L alpha = z on grid-form TLR factors."""
+    """Forward substitution L alpha = z on grid-form TLR factors; each
+    diagonal tile's solve is the ``trsm`` kernel."""
     T, nb = diag_l.shape[0], diag_l.shape[1]
     z = z.reshape(T, nb).clone()
     out = torch.empty_like(z)
     for k in range(T):
-        ak = torch.linalg.solve_triangular(diag_l[k], z[k][:, None], upper=False)
-        out[k] = ak[:, 0]
+        out[k] = ops.trsm(diag_l[k : k + 1], z[k][None, :, None])[0, :, 0]
         if k + 1 < T:
             # z_i -= U_ik (V_ik^T a_k) for i > k
             wk = torch.einsum("tnk,n->tk", v[k + 1 :, k], out[k])

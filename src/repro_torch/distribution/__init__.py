@@ -1,1 +1,1 @@
-"""Batch primitives shared by the compression entry points."""
+"""Pair-major layout and the batch primitives of compression and recompression."""

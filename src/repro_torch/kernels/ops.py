@@ -13,10 +13,16 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .chol_tiles import potrf_cuda, trsm_cuda
 from .matern_tile import matern_tile_cuda
 from .tlr_mm import tlr_mm_cuda
 
-_WRAPPERS = {"matern_tile": matern_tile_cuda, "tlr_mm": tlr_mm_cuda}
+_WRAPPERS = {
+    "matern_tile": matern_tile_cuda,
+    "tlr_mm": tlr_mm_cuda,
+    "potrf": potrf_cuda,
+    "trsm": trsm_cuda,
+}
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -39,6 +45,21 @@ def tlr_mm(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:
     if _on_cpu(acc, "tlr_mm"):
         return ref.tlr_mm_ref(u_a, v_a, u_b, v_b, acc)
     return tlr_mm_cuda(u_a, v_a, u_b, v_b, acc)
+
+
+def potrf(a) -> torch.Tensor:
+    """Lower Cholesky factors of a (B, nb, nb) batch of SPD tiles; a tile
+    with a pivot that is not positive and finite comes back all NaN."""
+    if _on_cpu(a, "potrf"):
+        return ref.potrf_ref(a)
+    return potrf_cuda(a.contiguous())
+
+
+def trsm(lo, b) -> torch.Tensor:
+    """X = L^{-1} B for lower L: lo (B or 1, nb, nb), b (B, nb, r)."""
+    if _on_cpu(b, "trsm"):
+        return ref.trsm_ref(lo, b)
+    return trsm_cuda(lo.contiguous(), b.contiguous())
 
 
 def launch_counts() -> dict:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from ..core.matern import matern_correlation_halfint
+from ..core.recovery import cholesky_or_nan
 
 
 def matern_tile_ref(locs_a, locs_b, inv_range, amp, nu: float) -> torch.Tensor:
@@ -25,3 +26,18 @@ def tlr_mm_ref(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:
     """acc - U_a (V_a^T V_b) U_b^T, batched over the leading dim."""
     w = v_a.mT @ v_b
     return acc - (u_a @ w) @ u_b.mT
+
+
+def potrf_ref(a) -> torch.Tensor:
+    """Batched lower Cholesky factor of SPD tiles (B, nb, nb).
+
+    A tile whose factorization meets a pivot that is not positive and finite
+    comes back all NaN, as from ``jnp.linalg.cholesky``
+    (``core.recovery.cholesky_or_nan``).
+    """
+    return cholesky_or_nan(a)
+
+
+def trsm_ref(lo, b) -> torch.Tensor:
+    """X = L^{-1} B (batched, lower): lo (B or 1, nb, nb), b (B, nb, r)."""
+    return torch.linalg.solve_triangular(lo, b, upper=False, left=True)

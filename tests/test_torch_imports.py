@@ -53,8 +53,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     _no_cuda()
     from repro_torch.core.covariance import MaternParams, build_sigma
     from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.prediction import cokrige, dense_factor
     from repro_torch.core.recovery import init_status
     from repro_torch.core.tlr import tlr_loglik
+    from repro_torch.serving.cokrige_service import CokrigeServeConfig, fit_factor
 
     locs = np.random.default_rng(0).uniform(size=(8, 2))
     z = np.zeros(16)
@@ -65,6 +67,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: build_sigma(locs, params),
         lambda: exact_loglik(locs, z, params),
         lambda: tlr_loglik(None, z, params, locs=locs, from_tiles=True, tile_size=8),
+        lambda: fit_factor(locs, z, params, CokrigeServeConfig(tile_size=8)),
+        lambda: dense_factor(locs, z, params),
+        lambda: cokrige(locs, z, locs[:2], params),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.matern_tile import matern_tile as j_matern_tile  # noqa: E402
 from repro.kernels.tlr_mm import tlr_mm as j_tlr_mm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.chol_tiles import potrf_cuda, trsm_cuda  # noqa: E402
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
 from repro_torch.kernels.tlr_mm import tlr_mm_cuda  # noqa: E402
 
@@ -121,7 +122,11 @@ def test_ops_on_cpu_tensors_take_the_plain_version_and_count_nothing():
     acc = torch.as_tensor(rng.normal(size=(3, 16, 16)))
     got = ops.tlr_mm(u, v, u, v, acc)
     np.testing.assert_array_equal(got.numpy(), ref.tlr_mm_ref(u, v, u, v, acc))
-    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0}
+    spd = acc @ acc.mT + 16 * torch.eye(16, dtype=acc.dtype)
+    lo = ops.potrf(spd)
+    np.testing.assert_array_equal(lo.numpy(), ref.potrf_ref(spd).numpy())
+    np.testing.assert_array_equal(ops.trsm(lo, u).numpy(), ref.trsm_ref(lo, u).numpy())
+    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0, "potrf": 0, "trsm": 0}
 
 
 def test_ops_refuse_devices_without_a_kernel():
@@ -140,12 +145,21 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     acc = torch.zeros((2, 8, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tlr_mm_cuda(u, u, u, u, acc)
-    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        potrf_cuda(acc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trsm_cuda(acc, u)
+    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0, "potrf": 0, "trsm": 0}
 
 
 def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkeypatch):
     sources = sorted(_build.CSRC.glob("*.cu"))
-    assert {p.name for p in sources} == {"matern_tile.cu", "tlr_mm.cu"}
+    assert {p.name for p in sources} == {
+        "matern_tile.cu",
+        "potrf.cu",
+        "tlr_mm.cu",
+        "trsm.cu",
+    }
     copy = tmp_path / sources[0].name
     copy.write_bytes(sources[0].read_bytes() + b"\n")
     assert _build._digest(sources) != _build._digest([copy] + sources[1:])
