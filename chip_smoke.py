@@ -32,9 +32,28 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             finite and >= 0, lower <= mean <= upper, a request with a NaN
             location is refused with ``nonfinite_locs``, and every kernel
             was launched during the phase.
+5. exact    the exact blocked Cholesky in panel form through
+            ``dist_exact_loglik(pairwise_distances(locs), z, params,
+            panel=512)`` at the same configuration, locations and z (Sigma
+            from the distances, then per panel step POTRF, TRSM and the SYRK
+            kernel's trailing update).  It fails unless the loglik is finite,
+            within 1e-7 (relative) of the main phase's dense exact loglik,
+            and the phase launched syrk nk - 1, potrf nk and trsm 2 nk - 1
+            times (nk = m / 512).
+6. mle      Nelder–Mead estimation through ``fit`` with the generator-direct
+            TLR backend (tile 512, max rank 128, TLR7, all six parameters
+            free) on n = 48^2 locations of the same jittered grid (depth cut
+            for time: one evaluation at n = 16384 takes minutes), z simulated
+            on the card from the main Matérn truth, 3 iterations.  It fails
+            unless the fitted loglik is finite, no evaluation was clamped to
+            the penalty, the fitted objective is <= the objective at the
+            start, a fresh ``tlr_loglik`` at the fitted parameters equals the
+            fitted loglik to 1e-10 (relative), and tlr_mm, potrf and trsm
+            were launched during the fit.
 
 Then a ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the
-main and serve runs, ``launches_by_path`` splits them), the nvidia-smi line,
+main, serve, exact and mle runs, ``launches_by_path`` splits them), the
+nvidia-smi line,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
 CUDA device or a missing checkout around the script.
@@ -90,6 +109,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/trsm.cu",
         "src/repro/kernels/chol_tiles.py:88",
     ),
+    "syrk": (
+        "src/repro_torch/kernels/csrc/syrk.cu",
+        "src/repro/kernels/chol_tiles.py:117",
+    ),
 }
 # The tolerances of tests/test_kernels.py::test_potrf_kernel and
 # ::test_trsm_kernel.
@@ -106,6 +129,11 @@ CHOL_TOL = {
 # The main configuration (PERF.md section 4).
 NUGGET, TOL_TLR, TILE, KMAX = 1e-8, 1e-7, 512, 128
 MATERN = dict(sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5)
+# The kernels the main and serve paths run (the exact path adds syrk).
+TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
+# The mle phase: grid side (n = 48^2, m = 4608, 9 tiles of 512) and the
+# Nelder–Mead iterations.
+MLE_N_SIDE, MLE_ITERS = 48, 3
 
 
 def emit(obj) -> None:
@@ -434,6 +462,92 @@ def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed):
     return rec
 
 
+def _syrk_bound(b, nb, k, isz):
+    # read C and A once, write the square once; the lower triangle's
+    # nb (nb + 1) / 2 * k FMAs are the least work for the function
+    dname = "float64" if isz == 8 else "float32"
+    nbytes = (2 * b * nb * nb + b * nb * k) * isz
+    return bound(nbytes, 2 * b * nb * (nb + 1) / 2 * k, "matmul", dname)
+
+
+def check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout=False):
+    """syrk_cuda against syrk_ref.  With ``path_layout`` the operands come
+    as the exact path passes them: C the trailing block of a larger matrix
+    (rows strided) and A the transpose of the TRSM's (1, k, nb) output."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chol_tiles import syrk_cuda
+
+    dname = str(dtype).split(".")[-1]
+    kw = dict(generator=gen, dtype=dtype, device="cuda")
+    if path_layout:
+        c = torch.randn((b, nb + k, nb + k), **kw)[:, k:, k:]
+        a = torch.randn((b, k, nb), **kw).mT
+    else:
+        c = torch.randn((b, nb, nb), **kw)
+        a = torch.randn((b, nb, k), **kw)
+    got = syrk_cuda(c, a)
+    want = ref.syrk_ref(c, a)
+    torch.cuda.synchronize()
+    err, ok = max_err(torch, got, want, **TOL[dname])
+    del got, want
+    b_ms, b_by = _syrk_bound(b, nb, k, c.element_size())
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "syrk",
+        "case": tag,
+        "shape": [b, nb, k],
+        "dtype": dname,
+        "path_layout": path_layout,
+        "max_abs_err": err,
+        "ok": ok,
+        "tol": TOL[dname],
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    if timed:
+        rec["ms"] = cuda_ms(torch, lambda: syrk_cuda(c, a))
+        rec["plain_ms"] = cuda_ms(torch, lambda: ref.syrk_ref(c, a))
+        rec["library_ms"] = cuda_ms(
+            torch, lambda: torch.baddbmm(c, a, a.mT, alpha=-1.0)
+        )
+    emit(rec)
+    del c, a
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_syrk_64bit(torch, gen):
+    """nb = 46341 (nb^2 > 2^31 elements a matrix): the last rows (direct
+    writes) and the last columns (transposed writes) against the plain
+    version of those slices."""
+    from repro_torch.kernels.chol_tiles import syrk_cuda
+
+    nb, k, w = 46341, 64, 100
+    kw = dict(generator=gen, dtype=torch.float64, device="cuda")
+    c = torch.randn((1, nb, nb), **kw)
+    a = torch.randn((1, nb, k), **kw)
+    got = syrk_cuda(c, a)
+    rows = c[0, -w:] - a[0, -w:] @ a[0].mT
+    cols = c[0, :, -w:] - a[0] @ a[0, -w:].mT
+    torch.cuda.synchronize()
+    err_r, ok_r = max_err(torch, got[0, -w:], rows, **TOL["float64"])
+    err_c, ok_c = max_err(torch, got[0, :, -w:], cols, **TOL["float64"])
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "syrk",
+        "case": "offsets_past_2^31",
+        "shape": [1, nb, k],
+        "dtype": "float64",
+        "max_abs_err": max(err_r, err_c),
+        "ok": ok_r and ok_c,
+        "tol": TOL["float64"],
+    }
+    emit(rec)
+    del c, a, got
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(torch, st, n_side: int):
     from repro_torch.core.covariance import MaternParams, morton_order
     from repro_torch.core.simulate import grid_locations
@@ -496,15 +610,35 @@ def phase_kernels(torch, st, n_side: int):
         ("predict", 1, 512, 1024, 1),
         ("ragged", 3, 200, 37, 3),
         ("tile2048", 4, 2048, 128, 1),
+        ("panel4096", 1, 4096, 512, 1),
     )
     for tag, b, nb, r, lo_b in cases:
         for dtype in (torch.float64, torch.float32):
-            timed = tag in ("panel", "wide", "alpha", "predict")
+            timed = tag in ("panel", "wide", "alpha", "predict", "panel4096")
             timed = timed and dtype == torch.float64
             rec = check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed)
             records.append(rec)
             if tag == "panel" and timed:
                 st.setdefault("summary", {})["trsm"] = rec
+    # syrk: the first trailing update of the exact phase (m_k = 32256,
+    # panel 512) in the operands' path layout, a batch in both dtypes, the
+    # JAX test shapes, a ragged nb, k = 1, and offsets past 2^31
+    cases = (
+        ("path", 1, 32256, 512, True, (torch.float64,)),
+        ("batch", 4, 512, 128, False, (torch.float64, torch.float32)),
+        ("jax_2x64x64", 2, 64, 64, False, (torch.float64, torch.float32)),
+        ("jax_4x32x16", 4, 32, 16, False, (torch.float64, torch.float32)),
+        ("ragged", 2, 1000, 200, False, (torch.float64, torch.float32)),
+        ("k1", 2, 300, 1, False, (torch.float64,)),
+    )
+    for tag, b, nb, k, path_layout, dtypes in cases:
+        for dtype in dtypes:
+            timed = tag == "path" or (tag == "batch" and dtype == torch.float64)
+            rec = check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout)
+            records.append(rec)
+            if tag == "path":
+                st.setdefault("summary", {})["syrk"] = rec
+    records.append(check_syrk_64bit(torch, gen))
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -537,6 +671,15 @@ def phase_main(torch, st, n_side: int):
     ll_exact = float(exact.loglik)
     exact_s = time.perf_counter() - t0
     peak_exact = torch.cuda.max_memory_allocated()
+    # the exact phase's inputs and its reference (the dense Cholesky)
+    st["exact_ref"] = dict(
+        locs=locs,
+        z=z,
+        params=params,
+        loglik=ll_exact,
+        logdet=float(exact.logdet),
+        quad=float(exact.quad),
+    )
     # the serve phase's inputs, and its dense cokriging oracle from Sigma's
     # factor, made before the factor is freed
     dense = dense_factor(locs, z, params, chol=exact.chol)
@@ -593,7 +736,7 @@ def phase_main(torch, st, n_side: int):
     rel = gap / abs(ll_exact)
     st.setdefault("launches", {})["main"] = launches
     ok = status["ok"] and rel <= 1e-5 and math.isfinite(ll_tlr)
-    ok = ok and all(v > 0 for v in launches.values())
+    ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
     emit(
         {
             "phase": "main",
@@ -710,7 +853,8 @@ def phase_serve(torch, st):
     draws_ok = draws_ok and bool(torch.isfinite(drawn.draws).all())
     ms = sorted(1e3 * t for t in req_s)
     ok = status["ok"] and max(rels) <= 1e-3 and all(checks) and draws_ok
-    ok = ok and refused == "nonfinite_locs" and all(v > 0 for v in launches.values())
+    ok = ok and refused == "nonfinite_locs"
+    ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
     emit(
         {
             "phase": "serve",
@@ -746,6 +890,165 @@ def phase_serve(torch, st):
         raise AssertionError("serve path failed its checks")
 
 
+def phase_exact(torch, st):
+    from repro_torch.core.covariance import pairwise_distances
+    from repro_torch.core.dist_cholesky import dist_exact_loglik
+    from repro_torch.kernels import ops
+
+    ref = st.pop("exact_ref")
+    locs, z, params = ref["locs"], ref["z"], ref["params"]
+    dev = torch.device("cuda")
+    panel = TILE
+    m = z.shape[-1]
+    nk = m // panel
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dists = pairwise_distances(torch.as_tensor(locs, device=dev))
+    torch.cuda.synchronize()
+    dists_s = time.perf_counter() - t0
+    times = {}
+    t0 = time.perf_counter()
+    res = dist_exact_loglik(
+        dists, z, params, nugget=NUGGET, panel=panel, times=times
+    )
+    ll = float(res.loglik)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["exact"] = launches
+    peak = torch.cuda.max_memory_allocated()
+    del dists
+    rel = abs(ll - ref["loglik"]) / abs(ref["loglik"])
+    logdet_gap = abs(float(res.logdet) - ref["logdet"]) / abs(ref["logdet"])
+    quad_gap = abs(float(res.quad) - ref["quad"]) / abs(ref["quad"])
+    want = {"syrk": nk - 1, "potrf": nk, "trsm": 2 * nk - 1}
+    ok = math.isfinite(ll) and rel <= 1e-7
+    ok = ok and all(launches[name] == count for name, count in want.items())
+    emit(
+        {
+            "phase": "exact",
+            "ok": ok,
+            "n": len(locs),
+            "m": m,
+            "panel": panel,
+            "panel_steps": nk,
+            "nugget": NUGGET,
+            "exact_panel_loglik_s": total_s,
+            "phase_s": times,
+            "dists_s": dists_s,
+            "loglik_panel": ll,
+            "loglik_dense": ref["loglik"],
+            "rel_gap": rel,
+            "logdet_rel_gap": logdet_gap,
+            "quad_rel_gap": quad_gap,
+            "launches": launches,
+            "launches_expected": want,
+            "peak_bytes": peak,
+        }
+    )
+    if not ok:
+        raise AssertionError("exact panel path failed its checks")
+
+
+def phase_mle(torch, st, n_side: int):
+    from repro_torch.core.covariance import MaternParams
+    from repro_torch.core.mle import (
+        MLEConfig,
+        apply_morton,
+        fit,
+        initial_guess,
+        make_objective,
+    )
+    from repro_torch.core.simulate import grid_locations, simulate_mgrf
+    from repro_torch.core.tlr import tlr_loglik
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    side = min(MLE_N_SIDE, n_side)
+    locs = grid_locations(side, jitter=0.3, seed=0)
+    truth = MaternParams.bivariate(**MATERN, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    z = simulate_mgrf(gen, locs, truth, nugget=NUGGET, device=dev)[0]
+    cfg = MLEConfig(
+        p=2,
+        backend="tlr",
+        tlr_from_tiles=True,
+        profile=False,
+        tile_size=TILE,
+        tlr_max_rank=KMAX,
+        tlr_tol=TOL_TLR,
+        nugget=NUGGET,
+        max_iters=MLE_ITERS,
+    )
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fit(locs, z, cfg, device=dev)
+    ll = float(res.loglik)
+    mle_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["mle"] = launches
+    peak = torch.cuda.max_memory_allocated()
+
+    # the objective at the start, and a fresh evaluation at the fitted point
+    locs_m, z_m = apply_morton(locs, z, 2)
+    objective, _ = make_objective(locs_m, z_m, cfg, device=dev)
+    f_start = float(objective(initial_guess(2, False)))
+    fresh = tlr_loglik(
+        None,
+        z_m,
+        res.params,
+        tol=TOL_TLR,
+        max_rank=KMAX,
+        tile_size=TILE,
+        nugget=NUGGET,
+        locs=locs_m,
+        from_tiles=True,
+        gen=cfg.gen,
+        device=dev,
+    )
+    fresh_rel = abs(float(fresh.loglik) - ll) / abs(ll)
+    clamped = int(res.clamped_evals)
+    ok = math.isfinite(ll) and clamped == 0 and -ll <= f_start
+    ok = ok and fresh_rel <= 1e-10
+    ok = ok and all(launches[name] > 0 for name in ("tlr_mm", "potrf", "trsm"))
+    fitted = {key: getattr(res.params, key).tolist() for key in res.params._fields}
+    emit(
+        {
+            "phase": "mle",
+            "ok": ok,
+            "n": len(locs),
+            "m": 2 * len(locs),
+            "tile_size": TILE,
+            "max_rank": KMAX,
+            "tol": TOL_TLR,
+            "nugget": NUGGET,
+            "max_iters": MLE_ITERS,
+            "mle_s": mle_s,
+            "n_evals": res.n_evals,
+            "n_iters": res.n_iters,
+            "s_per_eval": mle_s / res.n_evals,
+            "loglik": ll,
+            "objective_start": f_start,
+            "objective_fitted": -ll,
+            "fresh_loglik_rel_gap": fresh_rel,
+            "clamped_evals": clamped,
+            "recovery_retries": int(res.recovery_retries),
+            "fitted_params": fitted,
+            "truth": MATERN,
+            "launches": launches,
+            "peak_bytes": peak,
+        }
+    )
+    if not ok:
+        raise AssertionError("mle path failed its checks")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -770,6 +1073,8 @@ def main() -> int:
         ("kernels", lambda: phase_kernels(torch, st, args.n_side)),
         ("main", lambda: phase_main(torch, st, args.n_side)),
         ("serve", lambda: phase_serve(torch, st)),
+        ("exact", lambda: phase_exact(torch, st)),
+        ("mle", lambda: phase_mle(torch, st, args.n_side)),
     )
     for name, fn in phases:
         try:

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .core.covariance import MaternParams
+from .core.optimize import NMState
 from .core.prediction import CokrigeFactor
 from .core.tlr import TLRMatrix
 from .device import resolve_device
@@ -70,3 +71,15 @@ def cokrige_factor_from_numpy(
         n_shards=n_shards,
         z=None if z is None else t(z),
     )
+
+
+def nm_state_from_numpy(simplex, values, n_evals, n_iters, aux) -> NMState:
+    """A Nelder–Mead ``NMState`` from the reference's state arrays, to resume
+    its run: simplex (m+1, m), values (m+1,), the two counters and the
+    running aux sum (an int array for a run without aux).  The optimizer's
+    state lives on the CPU."""
+
+    def t(x):
+        return torch.as_tensor(np.array(x))
+
+    return NMState(t(simplex), t(values), int(n_evals), int(n_iters), t(aux))

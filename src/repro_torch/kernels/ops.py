@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .chol_tiles import potrf_cuda, trsm_cuda
+from .chol_tiles import potrf_cuda, syrk_cuda, trsm_cuda
 from .matern_tile import matern_tile_cuda
 from .tlr_mm import tlr_mm_cuda
 
@@ -22,6 +22,7 @@ _WRAPPERS = {
     "tlr_mm": tlr_mm_cuda,
     "potrf": potrf_cuda,
     "trsm": trsm_cuda,
+    "syrk": syrk_cuda,
 }
 
 
@@ -60,6 +61,18 @@ def trsm(lo, b) -> torch.Tensor:
     if _on_cpu(b, "trsm"):
         return ref.trsm_ref(lo, b)
     return trsm_cuda(lo.contiguous(), b.contiguous())
+
+
+def syrk(c, a) -> torch.Tensor:
+    """C - A A^T for a batch: c (B, nb, nb), a (B, nb, k).  On the card a
+    ``c`` whose rows are strided is read in place, not copied."""
+    if _on_cpu(c, "syrk"):
+        return ref.syrk_ref(c, a)
+    if c.dim() == 3 and c.stride(-1) != 1:
+        c = c.contiguous()
+    if a.dim() == 3 and a.stride(-1) != 1 and a.stride(-2) != 1:
+        a = a.contiguous()
+    return syrk_cuda(c, a)
 
 
 def launch_counts() -> dict:

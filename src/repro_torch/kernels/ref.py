@@ -41,3 +41,8 @@ def potrf_ref(a) -> torch.Tensor:
 def trsm_ref(lo, b) -> torch.Tensor:
     """X = L^{-1} B (batched, lower): lo (B or 1, nb, nb), b (B, nb, r)."""
     return torch.linalg.solve_triangular(lo, b, upper=False, left=True)
+
+
+def syrk_ref(c, a) -> torch.Tensor:
+    """C - A A^T (batched trailing symmetric update): c (B, nb, nb), a (B, nb, k)."""
+    return c - a @ a.mT

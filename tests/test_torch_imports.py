@@ -52,7 +52,9 @@ def _no_cuda():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     _no_cuda()
     from repro_torch.core.covariance import MaternParams, build_sigma
+    from repro_torch.core.dist_cholesky import dist_exact_loglik
     from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.mle import MLEConfig, fit
     from repro_torch.core.prediction import cokrige, dense_factor
     from repro_torch.core.recovery import init_status
     from repro_torch.core.tlr import tlr_loglik
@@ -70,6 +72,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: fit_factor(locs, z, params, CokrigeServeConfig(tile_size=8)),
         lambda: dense_factor(locs, z, params),
         lambda: cokrige(locs, z, locs[:2], params),
+        lambda: dist_exact_loglik(np.zeros((8, 8)), z, params, panel=8),
+        lambda: fit(locs, z, MLEConfig(max_iters=1)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -20,7 +20,11 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.matern_tile import matern_tile as j_matern_tile  # noqa: E402
 from repro.kernels.tlr_mm import tlr_mm as j_tlr_mm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.chol_tiles import potrf_cuda, trsm_cuda  # noqa: E402
+from repro_torch.kernels.chol_tiles import (  # noqa: E402
+    potrf_cuda,
+    syrk_cuda,
+    trsm_cuda,
+)
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
 from repro_torch.kernels.tlr_mm import tlr_mm_cuda  # noqa: E402
 
@@ -126,7 +130,15 @@ def test_ops_on_cpu_tensors_take_the_plain_version_and_count_nothing():
     lo = ops.potrf(spd)
     np.testing.assert_array_equal(lo.numpy(), ref.potrf_ref(spd).numpy())
     np.testing.assert_array_equal(ops.trsm(lo, u).numpy(), ref.trsm_ref(lo, u).numpy())
-    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0, "potrf": 0, "trsm": 0}
+    got = ops.syrk(acc, u)
+    np.testing.assert_array_equal(got.numpy(), ref.syrk_ref(acc, u).numpy())
+    assert ops.launch_counts() == {
+        "matern_tile": 0,
+        "tlr_mm": 0,
+        "potrf": 0,
+        "trsm": 0,
+        "syrk": 0,
+    }
 
 
 def test_ops_refuse_devices_without_a_kernel():
@@ -149,7 +161,15 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         potrf_cuda(acc)
     with pytest.raises(ValueError, match="CUDA tensor"):
         trsm_cuda(acc, u)
-    assert ops.launch_counts() == {"matern_tile": 0, "tlr_mm": 0, "potrf": 0, "trsm": 0}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        syrk_cuda(acc, u)
+    assert ops.launch_counts() == {
+        "matern_tile": 0,
+        "tlr_mm": 0,
+        "potrf": 0,
+        "trsm": 0,
+        "syrk": 0,
+    }
 
 
 def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkeypatch):
@@ -157,6 +177,7 @@ def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkey
     assert {p.name for p in sources} == {
         "matern_tile.cu",
         "potrf.cu",
+        "syrk.cu",
         "tlr_mm.cu",
         "trsm.cu",
     }
