@@ -9,10 +9,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 1. device   the card's name and power limit; the CUDA kernels under
             src/repro_torch/kernels/csrc are built from source (into
             src/repro_torch/kernels/build/) and the build time printed.
-2. kernels  each hand-written kernel against its plain PyTorch version on
-            the card, at the shapes the main path gives it, with its time,
-            the plain version's, a library yardstick where one exists, and
-            the least time the card could take (bound).
+2. kernels  each of the six hand-written kernels against its plain
+            PyTorch version on the card, at the shapes the main path gives
+            it, with its time, the plain version's, a library yardstick
+            where one exists, and the least time the card could take
+            (bound).
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
             TLR Cholesky -> solve) through ``tlr_loglik(from_tiles=True,
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
@@ -50,9 +51,26 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             start, a fresh ``tlr_loglik`` at the fitted parameters equals the
             fitted loglik to 1e-10 (relative), and tlr_mm, potrf and trsm
             were launched during the fit.
+7. lm       LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
+            dim 128, vocab 151936), random weights from a seeded generator.
+            First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
+            against ``attn_impl="naive"`` on (1, 4096) tokens, relative gap
+            (max abs difference over max abs) <= 1e-4.  Then the full
+            36-layer bf16 model (its parameter count must be the reference's,
+            4,022,468,096): the prefill forward on (2, 4096) tokens through
+            the flash kernel (one warm-up, one run timed by CUDA events),
+            finite, within 5e-2 of the naive path and with exactly 36 flash
+            launches a forward (0 on the naive path); then the engine,
+            ``generate`` on (8, 512) prompts for 64 greedy steps (cached
+            attention: 0 flash launches), its prefill and each decode step
+            timed, and the last step's logits within 5e-2 of a cacheless
+            naive forward over prompt plus generated tokens.
 
-Then a ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the
-main, serve, exact and mle runs, ``launches_by_path`` splits them), the
+Before each path runs, every kernel's launch count is set to 0, and read
+after it: the kernels of a path must have launched during it.  Then a
+``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
+serve, exact, mle and lm runs, where lm is the timed prefill forward and the
+engine's ``generate``, and ``launches_by_path`` splits them), the
 nvidia-smi line,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
@@ -77,13 +95,14 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense):
 # HBM3 3.35 TB/s, FP64 34 TFLOP/s on the CUDA cores and 67 TFLOP/s on the
-# tensor cores, FP32 67 TFLOP/s.
+# tensor cores, FP32 67 TFLOP/s, BF16 989 TFLOP/s on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {
     ("elementwise", "float64"): 34e12,
     ("elementwise", "float32"): 67e12,
     ("matmul", "float64"): 67e12,
     ("matmul", "float32"): 67e12,
+    ("matmul", "bfloat16"): 989e12,
 }
 # Arithmetic operations per matern_tile element (exp and sqrt counted as one).
 MATERN_OPS = {0.5: 10, 1.5: 12, 2.5: 15}
@@ -113,6 +132,16 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/syrk.cu",
         "src/repro/kernels/chol_tiles.py:117",
     ),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:82",
+    ),
+}
+# The tolerances of tests/test_kernels.py's flash attention tests: _tol for
+# bf16, the window and decode tests' for f32.
+ATTN_TOL = {
+    "bfloat16": dict(rtol=2e-2, atol=2e-2),
+    "float32": dict(rtol=2e-5, atol=2e-5),
 }
 # The tolerances of tests/test_kernels.py::test_potrf_kernel and
 # ::test_trsm_kernel.
@@ -134,6 +163,13 @@ TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
 # The mle phase: grid side (n = 48^2, m = 4608, 9 tiles of 512) and the
 # Nelder–Mead iterations.
 MLE_N_SIDE, MLE_ITERS = 48, 3
+# The lm phase (PERF.md section 4): qwen3-4b at full width and depth, bf16;
+# its parameter count as the reference's init_model makes it; prefill batch
+# and length; the engine's prompts and greedy steps; the gates.
+LM_ARCH, LM_PARAMS = "qwen3-4b", 4_022_468_096
+LM_PREFILL = (2, 4096)
+LM_PROMPTS, LM_STEPS = (8, 512), 64
+LM_F32_GAP, LM_BF16_GAP, LM_DECODE_GAP = 1e-4, 5e-2, 5e-2
 
 
 def emit(obj) -> None:
@@ -548,6 +584,79 @@ def check_syrk_64bit(torch, gen):
     return rec
 
 
+def attention_pairs(sq: int, skv: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention with queries
+    right-aligned to the keys and an optional window."""
+    qpos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros_like(qpos)
+    return int((qpos - lo + 1).sum())
+
+
+def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, timed):
+    """flash_attention_cuda against attention_ref (causal), and SDPA on the
+    same tensors as the library yardstick."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    dname = str(dtype).split(".")[-1]
+    kw = dict(generator=gen, device="cuda")
+    q = torch.randn((bh, sq, d), **kw).to(dtype)
+    k = torch.randn((bkv, skv, d), **kw).to(dtype)
+    v = torch.randn((bkv, skv, d), **kw).to(dtype)
+    got = flash_attention_cuda(q, k, v, window=window)
+    want = ref.attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err, ok = max_err(torch, got.float(), want.float(), **ATTN_TOL[dname])
+    del got, want
+    isz = q.element_size()
+    nbytes = (2 * bh * sq * d + 2 * bkv * skv * d) * isz
+    flops = 4 * d * attention_pairs(sq, skv, window) * bh
+    b_ms, b_by = bound(nbytes, flops, "matmul", dname)
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "flash_attention",
+        "case": tag,
+        "shape": [bh, bkv, sq, skv, d],
+        "window": window,
+        "dtype": dname,
+        "max_abs_err": err,
+        "ok": ok,
+        "tol": ATTN_TOL[dname],
+        "flops": flops,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+    }
+    if timed:
+        import torch.nn.functional as F
+
+        # SDPA on (1, H, S, D) views: query head b reads KV head b // group,
+        # as the kernel; top-left causality equals right-alignment only for
+        # square shapes, so the others take an explicit mask
+        q4, k4, v4 = q[None], k[None], v[None]
+        sdpa = dict(enable_gqa=True)
+        if sq == skv and window == 0:
+            sdpa["is_causal"] = True
+        else:
+            qpos = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+            kpos = torch.arange(skv, device="cuda")[None, :]
+            mask = kpos <= qpos
+            if window > 0:
+                mask &= kpos > qpos - window
+            sdpa["attn_mask"] = mask
+        rec["ms"] = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, window=window))
+        rec["plain_ms"] = cuda_ms(
+            torch, lambda: ref.attention_ref(q, k, v, window=window)
+        )
+        rec["library_ms"] = cuda_ms(
+            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
+        )
+        rec["tflops"] = flops / rec["ms"] / 1e9
+    emit(rec)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_kernels(torch, st, n_side: int):
     from repro_torch.core.covariance import MaternParams, morton_order
     from repro_torch.core.simulate import grid_locations
@@ -639,6 +748,31 @@ def phase_kernels(torch, st, n_side: int):
             if tag == "path":
                 st.setdefault("summary", {})["syrk"] = rec
     records.append(check_syrk_64bit(torch, gen))
+    # flash_attention: qwen3-4b prefill at B = 2, S = 4096 (the path's shape,
+    # timed), the f32 shape of the lm phase's depth-4 check, a window, right-
+    # aligned decode and a short query block against a long cache, a ragged
+    # length at phi3's head dim, and the other head-dim instances
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (
+        ("path", 64, 16, 4096, 4096, 128, bf16, 0),
+        ("depth4_f32", 32, 8, 4096, 4096, 128, f32, 0),
+        ("window1024", 64, 16, 4096, 4096, 128, bf16, 1024),
+        ("decode", 64, 16, 1, 4096, 128, f32, 0),
+        ("decode", 64, 16, 1, 4096, 128, bf16, 0),
+        ("q128_kv4096", 64, 16, 128, 4096, 128, f32, 0),
+        ("q128_kv4096", 64, 16, 128, 4096, 128, bf16, 0),
+        ("ragged_d96_mha", 32, 32, 1000, 1000, 96, f32, 0),
+        ("d64_gqa", 8, 2, 300, 300, 64, f32, 0),
+        ("d32_window", 8, 8, 200, 333, 32, f32, 50),
+    )
+    for tag, bh, bkv, sq, skv, d, dtype, window in cases:
+        timed = tag == "path"
+        rec = check_flash_attention(
+            torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, timed
+        )
+        records.append(rec)
+        if timed:
+            st.setdefault("summary", {})["flash_attention"] = rec
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -1049,6 +1183,153 @@ def phase_mle(torch, st, n_side: int):
         raise AssertionError("mle path failed its checks")
 
 
+def rel_gap(torch, got, want) -> float:
+    """max |got - want| over max |want|, in f32, a batch row at a time."""
+    diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    return diff / max(float(w.float().abs().max()) for w in want)
+
+
+def phase_lm(torch, st):
+    """qwen3-4b serving at full width: the prefill forward through the flash
+    kernel against the naive path, and the engine's cached greedy decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward, init_model
+    from repro_torch.serving.engine import generate, make_serve_fns
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(LM_ARCH)
+    rng = np.random.default_rng(4)
+
+    def generator(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return gen
+
+    def tokens(shape):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=shape), device=dev)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+        return out, start.elapsed_time(stop)
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    rec = {"phase": "lm", "arch": LM_ARCH, "dtype": cfg.dtype}
+    with torch.inference_mode():
+        # depth 4 at full width in f32: the kernel against the naive path
+        # without bf16 rounding in between
+        cfg4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+        model4 = init_model(cfg4, generator=generator(5), device=dev)
+        t4 = tokens((1, LM_PREFILL[1]))
+        lk, c4 = counted(lambda: forward(model4, cfg4, t4, attn_impl="kernel").logits)
+        ln = forward(model4, cfg4, t4, attn_impl="naive").logits
+        rec["depth4_f32_rel_gap"] = rel_gap(torch, lk, ln)
+        rec["depth4_f32_launches"] = c4["flash_attention"]
+        del model4, lk, ln
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        model = init_model(cfg, generator=generator(0), device=dev)
+        torch.cuda.synchronize()
+        rec["init_model_s"] = time.perf_counter() - t0
+        rec["n_params"] = sum(p.numel() for p in model.parameters())
+        rec["param_bytes"] = sum(
+            p.numel() * p.element_size() for p in model.parameters()
+        )
+
+        # prefill forward, full depth: warm-up, timed, then the naive path
+        toks = tokens(LM_PREFILL)
+
+        def prefill_fwd(impl):
+            return lambda: forward(model, cfg, toks, attn_impl=impl).logits
+
+        _, c_warm = counted(prefill_fwd("kernel"))
+        (lk, ms), c_timed = counted(lambda: timed(prefill_fwd("kernel")))
+        (ln, naive_ms), c_naive = counted(lambda: timed(prefill_fwd("naive")))
+        st.setdefault("launches", {})["lm"] = c_timed
+        n_tok = LM_PREFILL[0] * LM_PREFILL[1]
+        rec.update(
+            prefill_shape=list(LM_PREFILL),
+            prefill_forward_ms=ms,
+            prefill_tokens_per_sec=n_tok / (ms / 1e3),
+            prefill_naive_ms=naive_ms,
+            prefill_rel_gap=rel_gap(torch, lk, ln),
+            prefill_finite=bool(torch.isfinite(lk).all()),
+            prefill_argmax_agreement=float(
+                (lk.argmax(-1) == ln.argmax(-1)).float().mean()
+            ),
+            prefill_launches={
+                "warmup": c_warm["flash_attention"],
+                "timed": c_timed["flash_attention"],
+                "naive": c_naive["flash_attention"],
+            },
+        )
+        del lk, ln
+        torch.cuda.empty_cache()
+
+        # the engine: cached prefill, then greedy decode
+        prompts = tokens(LM_PROMPTS)
+        gen_toks, c_gen = counted(lambda: generate(model, cfg, prompts, LM_STEPS))
+        prefill, serve_step = make_serve_fns(cfg, LM_PROMPTS[1] + LM_STEPS)
+        (state, _), prefill_ms = timed(lambda: prefill(model, prompts))
+        step_ms, outs = [], []
+        for _ in range(LM_STEPS):
+            outs.append(state.last_tokens)
+            (state, logits), ms_i = timed(lambda: serve_step(model, state))
+            step_ms.append(ms_i)
+        outs = torch.stack(outs, dim=1)
+        seq = torch.cat([prompts, outs], dim=1)
+        full = forward(model, cfg, seq, attn_impl="naive").logits[:, -1]
+        decode_gap = rel_gap(torch, logits, full)
+        launches = st["launches"]["lm"]
+        for name, count in c_gen.items():
+            launches[name] += count
+        ms_sorted = sorted(step_ms)
+        rec.update(
+            engine_prompts=list(LM_PROMPTS),
+            engine_steps=LM_STEPS,
+            engine_prefill_ms=prefill_ms,
+            decode_ms_per_token_p50=float(np.median(ms_sorted)),
+            decode_ms_per_token_max=ms_sorted[-1],
+            decode_tokens_per_sec=LM_PROMPTS[0] * LM_STEPS / (sum(step_ms) / 1e3),
+            decode_rel_gap=decode_gap,
+            engine_tokens_match_generate=bool(torch.equal(outs, gen_toks)),
+            engine_launches=c_gen["flash_attention"],
+            peak_bytes=torch.cuda.max_memory_allocated(),
+        )
+    ok = rec["n_params"] == LM_PARAMS
+    ok = ok and rec["depth4_f32_rel_gap"] <= LM_F32_GAP
+    ok = ok and rec["depth4_f32_launches"] == cfg4.num_layers
+    ok = ok and rec["prefill_finite"] and rec["prefill_rel_gap"] <= LM_BF16_GAP
+    ok = ok and rec["prefill_launches"] == {
+        "warmup": cfg.num_layers,
+        "timed": cfg.num_layers,
+        "naive": 0,
+    }
+    ok = ok and decode_gap <= LM_DECODE_GAP and rec["engine_launches"] == 0
+    rec["ok"] = ok
+    emit(rec)
+    del model, state
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("lm path failed its checks")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -1075,6 +1356,7 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, st)),
         ("exact", lambda: phase_exact(torch, st)),
         ("mle", lambda: phase_mle(torch, st, args.n_side)),
+        ("lm", lambda: phase_lm(torch, st)),
     )
     for name, fn in phases:
         try:

@@ -9,12 +9,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from .core.covariance import MaternParams
 from .core.optimize import NMState
 from .core.prediction import CokrigeFactor
 from .core.tlr import TLRMatrix
 from .device import resolve_device
+from .models.transformer import Model, init_model, layer_counts
 
 
 def params_from_numpy(
@@ -83,3 +85,65 @@ def nm_state_from_numpy(simplex, values, n_evals, n_iters, aux) -> NMState:
         return torch.as_tensor(np.array(x))
 
     return NMState(t(simplex), t(values), int(n_evals), int(n_iters), t(aux))
+
+
+def _field(node, name: str):
+    """``node[name]`` of a dict, ``node.name`` of anything else (the
+    reference's NamedTuples), None where it has no such field."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return node.get(name)
+    return getattr(node, name, None)
+
+
+_LINEARS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def _copy(param, arr, index=None, transpose=False) -> None:
+    a = np.array(arr, dtype=np.float32)  # a copy; bf16 arrays widen exactly
+    if index is not None:
+        a = a[index]
+    t = torch.as_tensor(a.T if transpose else a)
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(t)
+
+
+def lm_params_from_numpy(tree, cfg, *, device=None, dtype=None) -> Model:
+    """The port's model holding the weights of the reference's
+    ``init_model`` pytree, every leaf passed through ``np.asarray``.
+
+    ``params["blocks"]`` (one entry a pattern position, leaves stacked on a
+    leading block axis) and ``params["tail"]`` are unstacked into the
+    model's layers; the reference's (in, out) matrices become
+    ``nn.Linear``'s (out, in) weights.  ``dtype`` defaults to ``cfg.dtype``.
+    """
+    model = init_model(cfg, device=resolve_device(device))
+    if dtype is not None:
+        model = model.to(dtype)
+    nblocks = layer_counts(cfg)[0]
+    period = len(cfg.layer_pattern)
+    sources = [(tree["blocks"][j], b) for b in range(nblocks) for j in range(period)]
+    sources += [(layer, None) for layer in tree["tail"]]
+    if len(sources) != len(model.layers):
+        raise ValueError(f"{len(sources)} layers in the tree, {cfg.num_layers} in cfg")
+    for layer, (src, index) in zip(model.layers, sources):
+        for name in ("norm1", "norm2"):
+            _copy(getattr(layer, name), _field(src, name), index)
+        for part, names in _LINEARS.items():
+            src_part = _field(src, part)
+            for name in names:
+                lin = getattr(getattr(layer, part), name)
+                if isinstance(lin, nn.Linear):
+                    _copy(lin.weight, _field(src_part, name), index, transpose=True)
+        for name in ("q_norm", "k_norm"):
+            param = getattr(layer.attn, name)
+            if param is not None:
+                _copy(param, _field(_field(src, "attn"), name), index)
+    _copy(model.embed, tree["embed"])
+    _copy(model.final_norm, tree["final_norm"])
+    if model.lm_head is not None:
+        _copy(model.lm_head.weight, tree["lm_head"], transpose=True)
+    return model

@@ -1,0 +1,90 @@
+"""Wrapper of the hand-written CUDA kernel ``csrc/flash_attention.cu``.
+
+Counterpart of the Pallas kernel ``repro.kernels.flash_attention``: causal
+GQA attention with an online softmax, an optional sliding window and
+queries right-aligned to the keys.  The plain version is
+``kernels.ref.attention_ref``; ``kernels.ops`` chooses between the two by
+the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SYMBOLS = {
+    torch.bfloat16: "flash_attention_bf16",
+    torch.float32: "flash_attention_f32",
+}
+HEAD_DIMS = (32, 64, 96, 128)  # the kernel's template instances
+
+
+def _fn(dtype: torch.dtype):
+    fn = getattr(_build.library(), _SYMBOLS[dtype])
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_cuda(
+    q, k, v, *, causal: bool = True, window: int = 0, scale: float | None = None
+) -> torch.Tensor:
+    """Launch the CUDA kernel.
+
+    q: (BH, Sq, D); k, v: (BKV, Skv, D) with BH = BKV * group and Sq <= Skv;
+    all contiguous CUDA tensors of one dtype (bfloat16 or float32) on one
+    device, D in ``HEAD_DIMS``.  ``scale`` defaults to 1 / sqrt(D); a
+    ``window`` > 0 keeps only the last ``window`` keys of each query.
+    Returns a new (BH, Sq, D) tensor in q's dtype.  Raises on anything the
+    kernel does not take and if the launch fails.
+    """
+    dtype, device = q.dtype, q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != device:
+            raise ValueError(f"{name} lies on {t.device}, expected {device}")
+        if t.dtype != dtype or dtype not in _SYMBOLS:
+            raise ValueError("q, k and v must be bfloat16 or float32 of one dtype")
+        if t.dim() != 3:
+            raise ValueError(f"{name} must have 3 dimensions, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    bh, sq, d = q.shape
+    bkv, skv, _ = k.shape
+    if tuple(v.shape) != tuple(k.shape) or k.shape[2] != d:
+        raise ValueError(
+            f"k and v must have shape (BKV, Skv, {d}), got {tuple(k.shape)} "
+            f"and {tuple(v.shape)}"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {d}")
+    if bkv < 1 or bh % bkv:
+        raise ValueError(f"query heads {bh} must be a multiple of KV heads {bkv}")
+    if sq > skv:
+        raise ValueError(f"flash_attention needs Sq <= Skv, got {sq} > {skv}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if bh > 65535 or bh * skv * d >= 2**62:
+        raise ValueError(f"{bh} query heads of length {skv} are too many")
+    if scale is None:
+        scale = 1.0 / d**0.5
+    out = torch.empty_like(q)
+    if sq == 0:
+        return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in (q, k, v, out)]
+        rc = _fn(dtype)(
+            *ptrs, bh, sq, skv, d, bh // bkv, scale, int(causal), window, stream
+        )
+    _build.check(rc, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

@@ -14,6 +14,7 @@ import torch
 
 from . import ref
 from .chol_tiles import potrf_cuda, syrk_cuda, trsm_cuda
+from .flash_attention import flash_attention_cuda
 from .matern_tile import matern_tile_cuda
 from .tlr_mm import tlr_mm_cuda
 
@@ -23,6 +24,7 @@ _WRAPPERS = {
     "potrf": potrf_cuda,
     "trsm": trsm_cuda,
     "syrk": syrk_cuda,
+    "flash_attention": flash_attention_cuda,
 }
 
 
@@ -73,6 +75,15 @@ def syrk(c, a) -> torch.Tensor:
     if a.dim() == 3 and a.stride(-1) != 1 and a.stride(-2) != 1:
         a = a.contiguous()
     return syrk_cuda(c, a)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
+    """Causal GQA attention, queries right-aligned to the keys: q (BH, Sq, D),
+    k and v (BKV, Skv, D); an optional sliding ``window``."""
+    if _on_cpu(q, "attention"):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
 
 
 def launch_counts() -> dict:

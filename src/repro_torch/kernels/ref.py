@@ -46,3 +46,28 @@ def trsm_ref(lo, b) -> torch.Tensor:
 def syrk_ref(c, a) -> torch.Tensor:
     """C - A A^T (batched trailing symmetric update): c (B, nb, nb), a (B, nb, k)."""
     return c - a @ a.mT
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
+    """Multi-head attention: q (BH, Sq, D); k, v (BKV, Skv, D) with
+    BH = BKV * group.  Queries are right-aligned to the keys; f32 scores,
+    softmax and P V whatever the input dtype; returns (BH, Sq, D) in q's
+    dtype."""
+    bh, sq, d = q.shape
+    bkv, skv, _ = k.shape
+    group = bh // bkv
+    if scale is None:
+        scale = 1.0 / d**0.5
+    kq = k.repeat_interleave(group, dim=0).float()
+    vq = v.repeat_interleave(group, dim=0).float()
+    scores = (q.float() @ kq.mT) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window and window > 0:
+        mask &= kpos > qpos - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return (probs @ vq).to(q.dtype)

@@ -58,11 +58,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core.prediction import cokrige, dense_factor
     from repro_torch.core.recovery import init_status
     from repro_torch.core.tlr import tlr_loglik
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_caches, init_model
     from repro_torch.serving.cokrige_service import CokrigeServeConfig, fit_factor
+    from repro_torch.serving.engine import generate
 
     locs = np.random.default_rng(0).uniform(size=(8, 2))
     z = np.zeros(16)
     params = MaternParams.bivariate(device="cpu")
+    cfg = get_arch("qwen3-4b").reduced()
+    model = init_model(cfg, device="cpu")
     calls = [
         lambda: MaternParams.bivariate(),
         lambda: init_status(),
@@ -74,6 +79,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: cokrige(locs, z, locs[:2], params),
         lambda: dist_exact_loglik(np.zeros((8, 8)), z, params, panel=8),
         lambda: fit(locs, z, MLEConfig(max_iters=1)),
+        lambda: init_model(cfg),
+        lambda: init_caches(cfg, 1, 8),
+        lambda: generate(model, cfg, np.zeros((1, 4), np.int64), 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -138,6 +138,7 @@ def test_ops_on_cpu_tensors_take_the_plain_version_and_count_nothing():
         "potrf": 0,
         "trsm": 0,
         "syrk": 0,
+        "flash_attention": 0,
     }
 
 
@@ -169,12 +170,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         "potrf": 0,
         "trsm": 0,
         "syrk": 0,
+        "flash_attention": 0,
     }
 
 
 def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkeypatch):
     sources = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in sources} == {
+        "flash_attention.cu",
         "matern_tile.cu",
         "potrf.cu",
         "syrk.cu",
