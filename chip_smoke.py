@@ -8,12 +8,20 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 
 1. device   the card's name and power limit; the CUDA kernels under
             src/repro_torch/kernels/csrc are built from source (into
-            src/repro_torch/kernels/build/) and the build time printed.
+            src/repro_torch/kernels/build/) and the build time printed,
+            with the compiler's report of the two flash_attention
+            instances (registers, spills).  It fails unless the bf16
+            instance was compiled to the 168 registers a thread that its
+            setmaxnreg split assumes, and, where cuobjdump sits beside
+            nvcc, unless its SASS holds HGMMA (wgmma) and UTMALDG (TMA
+            loads).
 2. kernels  each of the six hand-written kernels against its plain
             PyTorch version on the card, at the shapes the main path gives
             it, with its time, the plain version's, a library yardstick
             where one exists, and the least time the card could take
-            (bound).
+            (bound).  flash_attention is held at every shape its two
+            instances take (bf16 on wgmma, f32 on FMAs), each record
+            naming its instance.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
             TLR Cholesky -> solve) through ``tlr_loglik(from_tiles=True,
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
@@ -60,7 +68,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             4,022,468,096): the prefill forward on (2, 4096) tokens through
             the flash kernel (one warm-up, one run timed by CUDA events),
             finite, within 5e-2 of the naive path and with exactly 36 flash
-            launches a forward (0 on the naive path); then the engine,
+            launches a forward, all of the bf16 instance (0 on the naive
+            path; the depth-4 f32 forward's are all of the f32 instance);
+            then the engine,
             ``generate`` on (8, 512) prompts for 64 greedy steps (cached
             attention: 0 flash launches), its prefill and each decode step
             timed, and the last step's logits within 5e-2 of a cacheless
@@ -111,6 +121,9 @@ TOL = {
     "float64": dict(rtol=1e-10, atol=1e-12),
     "float32": dict(rtol=2e-3, atol=1e-3),
 }
+# Registers a thread of the bf16 flash instance at launch: its setmaxnreg
+# split gives 2 x 128 consumers 240 and 128 producers 24.
+FLASH_WGMMA_REGS = (2 * 128 * 240 + 128 * 24) // 384
 SOURCES = {
     "matern_tile": (
         "src/repro_torch/kernels/csrc/matern_tile.cu",
@@ -227,14 +240,20 @@ def phase_device(torch, st):
     _build.library()
     build_s = time.perf_counter() - t0
     log = lib.with_suffix(".log")
-    report = []
-    if log.exists():
-        lines = log.read_text().splitlines()
-        report = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    text = log.read_text() if log.exists() else ""
+    lines = text.splitlines()
+    report = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
+    flash = flash_ptxas(text)
+    regs = [ln for ln in flash["wgmma_bf16"] if "registers" in ln]
+    want = f"Used {FLASH_WGMMA_REGS} registers"
+    regs_ok = len(regs) == 4 and all(want in ln for ln in regs)
+    sass = flash_sass(lib)
+    ok = regs_ok and sass.get("ok", True)
+    st["flash_ok"] = ok
     emit(
         {
             "phase": "device",
-            "ok": True,
+            "ok": ok,
             "nvidia_smi": st["smi"],
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
@@ -242,8 +261,51 @@ def phase_device(torch, st):
             "build_s": build_s,
             "library": lib.name,
             "ptxas": report,
+            "flash_ptxas": flash,
+            "flash_sass": sass,
         }
     )
+    if not ok:
+        raise AssertionError("the bf16 flash instance is not built as designed")
+
+
+def flash_ptxas(log_text: str) -> dict:
+    """The compiler's report lines of flash_attention.cu's entry functions,
+    by instance: ``flash_wgmma_kernel`` (bf16) and ``flash_kernel`` (f32)."""
+    section = log_text.split("== flash_attention.cu", 1)[-1].split("\n== ", 1)[0]
+    out = {"wgmma_bf16": [], "fma_f32": []}
+    key = None
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            key = "wgmma_bf16" if "flash_wgmma_kernel" in line else "fma_f32"
+            out[key].append(line.split("'")[1])
+        elif key and ("registers" in line or "spill" in line or "wgmma" in line):
+            out[key].append(line.strip())
+    return out
+
+
+def flash_sass(lib) -> dict:
+    """Counts of HGMMA, UTMALDG and UTMASTG in each bf16 flash kernel's SASS,
+    where cuobjdump sits beside nvcc; ok unless an HGMMA or UTMALDG count is
+    0."""
+    from repro_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"cuobjdump": None}
+    sass = subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300
+    ).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if "flash_wgmma_kernel" in name:
+            ops = ("HGMMA", "UTMALDG", "UTMASTG")
+            counts[name] = {op: part.count(op) for op in ops}
+    ok = len(counts) == 4 and all(
+        c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()
+    )
+    return {"cuobjdump": tool, "kernels": counts, "ok": ok}
 
 
 def check_matern(torch, tag, la, lb, nu, timed):
@@ -596,7 +658,7 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
     """flash_attention_cuda against attention_ref (causal), and SDPA on the
     same tensors as the library yardstick."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, instance
 
     dname = str(dtype).split(".")[-1]
     kw = dict(generator=gen, device="cuda")
@@ -607,7 +669,6 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
     want = ref.attention_ref(q, k, v, window=window)
     torch.cuda.synchronize()
     err, ok = max_err(torch, got.float(), want.float(), **ATTN_TOL[dname])
-    del got, want
     isz = q.element_size()
     nbytes = (2 * bh * sq * d + 2 * bkv * skv * d) * isz
     flops = 4 * d * attention_pairs(sq, skv, window) * bh
@@ -615,6 +676,7 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
     rec = {
         "phase": "kernel_check",
         "kernel": "flash_attention",
+        "instance": instance(dtype),
         "case": tag,
         "shape": [bh, bkv, sq, skv, d],
         "window": window,
@@ -626,6 +688,14 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+    if dname == "bfloat16":
+        # against the f32 result before its rounding to bf16: the kernel's
+        # error beside the error of that rounding alone
+        exact = ref.attention_ref(q.float(), k.float(), v.float(), window=window)
+        rec["max_abs_err_vs_f32"] = float((got.float() - exact).abs().max())
+        rec["bf16_rounding_err"] = float((want.float() - exact).abs().max())
+        del exact
+    del got, want
     if timed:
         import torch.nn.functional as F
 
@@ -651,6 +721,7 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
             torch, lambda: F.scaled_dot_product_attention(q4, k4, v4, **sdpa)
         )
         rec["tflops"] = flops / rec["ms"] / 1e9
+        rec["bound_share"] = b_ms / rec["ms"]
     emit(rec)
     del q, k, v
     torch.cuda.empty_cache()
@@ -748,10 +819,13 @@ def phase_kernels(torch, st, n_side: int):
             if tag == "path":
                 st.setdefault("summary", {})["syrk"] = rec
     records.append(check_syrk_64bit(torch, gen))
-    # flash_attention: qwen3-4b prefill at B = 2, S = 4096 (the path's shape,
-    # timed), the f32 shape of the lm phase's depth-4 check, a window, right-
-    # aligned decode and a short query block against a long cache, a ragged
-    # length at phi3's head dim, and the other head-dim instances
+    # flash_attention, both instances: qwen3-4b prefill at B = 2, S = 4096
+    # (the path's shape, timed), the f32 shape of the lm phase's depth-4
+    # check (timed), a window, right-aligned decode and a short query block
+    # against a long cache, a ragged length at phi3's head dim, the other
+    # head-dim instances, and a length that is not a multiple of 128
+    if not st.get("flash_ok"):
+        raise AssertionError("the bf16 flash instance failed the device phase")
     bf16, f32 = torch.bfloat16, torch.float32
     cases = (
         ("path", 64, 16, 4096, 4096, 128, bf16, 0),
@@ -762,17 +836,23 @@ def phase_kernels(torch, st, n_side: int):
         ("q128_kv4096", 64, 16, 128, 4096, 128, f32, 0),
         ("q128_kv4096", 64, 16, 128, 4096, 128, bf16, 0),
         ("ragged_d96_mha", 32, 32, 1000, 1000, 96, f32, 0),
+        ("ragged_d96_mha", 32, 32, 1000, 1000, 96, bf16, 0),
         ("d64_gqa", 8, 2, 300, 300, 64, f32, 0),
+        ("d64_gqa", 8, 2, 300, 300, 64, bf16, 0),
         ("d32_window", 8, 8, 200, 333, 32, f32, 50),
+        ("d32_window", 8, 8, 200, 333, 32, bf16, 50),
+        ("s4000", 64, 16, 4000, 4000, 128, bf16, 0),
     )
     for tag, bh, bkv, sq, skv, d, dtype, window in cases:
-        timed = tag == "path"
+        timed = tag in ("path", "depth4_f32")
         rec = check_flash_attention(
             torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, timed
         )
         records.append(rec)
-        if timed:
+        if tag == "path":
             st.setdefault("summary", {})["flash_attention"] = rec
+        elif timed:
+            st["flash_f32"] = rec
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -1196,9 +1276,12 @@ def phase_lm(torch, st):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models import forward, init_model
     from repro_torch.serving.engine import generate, make_serve_fns
 
+    if not st.get("flash_ok"):
+        raise AssertionError("the bf16 flash instance failed the device phase")
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1227,7 +1310,9 @@ def phase_lm(torch, st):
         ops.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        return out, ops.launch_counts()
+        counts = ops.launch_counts()
+        counts["flash_by_instance"] = dict(flash_attention_cuda.launches_by_instance)
+        return out, counts
 
     rec = {"phase": "lm", "arch": LM_ARCH, "dtype": cfg.dtype}
     with torch.inference_mode():
@@ -1240,6 +1325,7 @@ def phase_lm(torch, st):
         ln = forward(model4, cfg4, t4, attn_impl="naive").logits
         rec["depth4_f32_rel_gap"] = rel_gap(torch, lk, ln)
         rec["depth4_f32_launches"] = c4["flash_attention"]
+        rec["depth4_f32_launches_by_instance"] = c4["flash_by_instance"]
         del model4, lk, ln
         torch.cuda.empty_cache()
 
@@ -1261,6 +1347,7 @@ def phase_lm(torch, st):
         _, c_warm = counted(prefill_fwd("kernel"))
         (lk, ms), c_timed = counted(lambda: timed(prefill_fwd("kernel")))
         (ln, naive_ms), c_naive = counted(lambda: timed(prefill_fwd("naive")))
+        rec["prefill_timed_launches_by_instance"] = c_timed.pop("flash_by_instance")
         st.setdefault("launches", {})["lm"] = c_timed
         n_tok = LM_PREFILL[0] * LM_PREFILL[1]
         rec.update(
@@ -1298,7 +1385,8 @@ def phase_lm(torch, st):
         decode_gap = rel_gap(torch, logits, full)
         launches = st["launches"]["lm"]
         for name, count in c_gen.items():
-            launches[name] += count
+            if name in launches:
+                launches[name] += count
         ms_sorted = sorted(step_ms)
         rec.update(
             engine_prompts=list(LM_PROMPTS),
@@ -1315,6 +1403,14 @@ def phase_lm(torch, st):
     ok = rec["n_params"] == LM_PARAMS
     ok = ok and rec["depth4_f32_rel_gap"] <= LM_F32_GAP
     ok = ok and rec["depth4_f32_launches"] == cfg4.num_layers
+    ok = ok and rec["depth4_f32_launches_by_instance"] == {
+        "wgmma_bf16": 0,
+        "fma_f32": cfg4.num_layers,
+    }
+    ok = ok and rec["prefill_timed_launches_by_instance"] == {
+        "wgmma_bf16": cfg.num_layers,
+        "fma_f32": 0,
+    }
     ok = ok and rec["prefill_finite"] and rec["prefill_rel_gap"] <= LM_BF16_GAP
     ok = ok and rec["prefill_launches"] == {
         "warmup": cfg.num_layers,
@@ -1387,6 +1483,12 @@ def main() -> int:
                 "dtype": rec["dtype"],
             }
         )
+        if name == "flash_attention":
+            f32 = st["flash_f32"]
+            kernels[-1]["instance"] = rec["instance"]
+            kernels[-1]["f32_instance"] = {
+                key: f32[key] for key in ("instance", "shape", *keys, "library_ms")
+            }
     emit({"kernels": kernels})
     print(st["smi"], flush=True)
     device = {

@@ -4,7 +4,9 @@ Counterpart of the Pallas kernel ``repro.kernels.flash_attention``: causal
 GQA attention with an online softmax, an optional sliding window and
 queries right-aligned to the keys.  The plain version is
 ``kernels.ref.attention_ref``; ``kernels.ops`` chooses between the two by
-the tensors' device.
+the tensors' device.  The dtype picks one of the kernel's two instances:
+bfloat16 runs ``wgmma_bf16`` (Hopper's tensor cores, TMA, warp
+specialisation), float32 ``fma_f32`` (the FP32 CUDA cores).
 """
 
 from __future__ import annotations
@@ -15,15 +17,23 @@ import torch
 
 from . import _build
 
-_SYMBOLS = {
-    torch.bfloat16: "flash_attention_bf16",
-    torch.float32: "flash_attention_f32",
+# dtype -> (instance, its C symbol)
+_INSTANCES = {
+    torch.bfloat16: ("wgmma_bf16", "flash_attention_bf16"),
+    torch.float32: ("fma_f32", "flash_attention_f32"),
 }
 HEAD_DIMS = (32, 64, 96, 128)  # the kernel's template instances
 
 
+def instance(dtype: torch.dtype) -> str:
+    """Name of the kernel instance that takes ``dtype``; raises on any other."""
+    if dtype not in _INSTANCES:
+        raise ValueError(f"flash_attention takes bfloat16 or float32, got {dtype}")
+    return _INSTANCES[dtype][0]
+
+
 def _fn(dtype: torch.dtype):
-    fn = getattr(_build.library(), _SYMBOLS[dtype])
+    fn = getattr(_build.library(), _INSTANCES[dtype][1])
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, p, p, p, i, i, i, i, i, f, i, i, p]
     fn.restype = ctypes.c_int
@@ -37,23 +47,27 @@ def flash_attention_cuda(
 
     q: (BH, Sq, D); k, v: (BKV, Skv, D) with BH = BKV * group and Sq <= Skv;
     all contiguous CUDA tensors of one dtype (bfloat16 or float32) on one
-    device, D in ``HEAD_DIMS``.  ``scale`` defaults to 1 / sqrt(D); a
+    device, D in ``HEAD_DIMS``; bfloat16 ones 16-byte aligned (TMA reads
+    them).  ``scale`` defaults to 1 / sqrt(D); a
     ``window`` > 0 keeps only the last ``window`` keys of each query.
     Returns a new (BH, Sq, D) tensor in q's dtype.  Raises on anything the
     kernel does not take and if the launch fails.
     """
     dtype, device = q.dtype, q.device
+    name_of = instance(dtype)
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != dtype:
+            raise ValueError("q, k and v must be bfloat16 or float32 of one dtype")
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.device != device:
             raise ValueError(f"{name} lies on {t.device}, expected {device}")
-        if t.dtype != dtype or dtype not in _SYMBOLS:
-            raise ValueError("q, k and v must be bfloat16 or float32 of one dtype")
         if t.dim() != 3:
             raise ValueError(f"{name} must have 3 dimensions, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     bh, sq, d = q.shape
     bkv, skv, _ = k.shape
     if tuple(v.shape) != tuple(k.shape) or k.shape[2] != d:
@@ -82,9 +96,18 @@ def flash_attention_cuda(
         rc = _fn(dtype)(
             *ptrs, bh, sq, skv, d, bh // bkv, scale, int(causal), window, stream
         )
-    _build.check(rc, "flash_attention")
+    _build.check(rc, f"flash_attention ({name_of})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_instance[name_of] += 1
     return out
 
 
-flash_attention_cuda.launches = 0
+def reset_launches() -> None:
+    """Set the launch counts, in all and by instance, to 0."""
+    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches_by_instance = {
+        name: 0 for name, _ in _INSTANCES.values()
+    }
+
+
+reset_launches()

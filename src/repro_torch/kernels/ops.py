@@ -5,7 +5,8 @@ decides: a CUDA tensor launches the hand kernel, which raises if it cannot
 be built or launched; a CPU tensor takes the plain PyTorch version.  There
 is no fallback from one to the other.  Each CUDA wrapper counts its
 launches (``launch_counts``), so a run can show that it went through the
-kernels.
+kernels; the flash kernel also counts them by instance
+(``flash_attention_cuda.launches_by_instance``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from . import ref
 from .chol_tiles import potrf_cuda, syrk_cuda, trsm_cuda
-from .flash_attention import flash_attention_cuda
+from .flash_attention import flash_attention_cuda, reset_launches
 from .matern_tile import matern_tile_cuda
 from .tlr_mm import tlr_mm_cuda
 
@@ -92,5 +93,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Set every count to 0, the flash kernel's counts by instance too."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
+    reset_launches()

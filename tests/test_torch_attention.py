@@ -4,8 +4,10 @@ The plain version of the flash kernel (``repro_torch.kernels.ref.attention_ref``
 against the Pallas kernel in interpret mode and the reference's
 ``attention_ref``, at the shapes of tests/test_kernels.py; the attention
 layer (``multihead_attention``, qk-norm and RoPE) for each inner
-implementation; the ring-buffer cache through prefill and decode.  The CUDA
-kernel itself is held against ``attention_ref`` on the card by chip_smoke.py.
+implementation; the ring-buffer cache through prefill and decode; a plain
+emulation of the bf16 kernel instance's arithmetic (P rounded to bf16) against
+the Pallas kernel.  The CUDA kernel itself is held against ``attention_ref``
+on the card by chip_smoke.py.
 """
 
 import dataclasses
@@ -23,8 +25,11 @@ from repro.kernels import ref as j_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.models import attention as j_attn  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    instance,
+)
 from repro_torch.models import attention as t_attn  # noqa: E402
 
 # as tests/test_kernels.py: bf16 at 2e-2, f32 at the window and decode tests'
@@ -99,6 +104,77 @@ def test_flash_wrapper_refuses_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(*ts)
     assert flash_attention_cuda.launches == 0
+
+
+def test_flash_wrapper_picks_its_instance_by_dtype_and_refuses_others(monkeypatch):
+    assert instance(torch.bfloat16) == "wgmma_bf16"
+    assert instance(torch.float32) == "fma_f32"
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            instance(dtype)
+        ts = [torch.zeros((2, 64, 32), dtype=dtype) for _ in range(3)]
+        with pytest.raises(ValueError, match="bfloat16 or float32"):
+            flash_attention_cuda(*ts)
+    assert flash_attention_cuda.launches == 0
+    flash_attention_cuda.launches_by_instance["wgmma_bf16"] = 3
+    ops.reset_launch_counts()
+    assert flash_attention_cuda.launches_by_instance == {"wgmma_bf16": 0, "fma_f32": 0}
+
+
+def _emulate_wgmma_bf16(q, k, v, *, causal=True, window=0):
+    """The bf16 kernel instance's arithmetic in plain torch: 128-key tiles;
+    S in f32 from the bf16 inputs, in log2 units (scale * log2 e); -1e30 for
+    masked keys and as the running max's start; p = exp2(s - m); l summed
+    from the f32 p; P rounded to bf16 before P V; the output
+    acc / max(l, 1e-30) rounded to bf16.  Tiles the kernel skips are walked
+    here: the source note of csrc/flash_attention.cu says why that gives the
+    same result."""
+    bh, sq, d = q.shape
+    bkv, skv, _ = k.shape
+    group = bh // bkv
+    scale_log2 = d**-0.5 * 1.4426950408889634
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(group, dim=0) for t in (k, v))
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((bh, sq, 1), -1e30)
+    lsum = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    for k0 in range(0, skv, 128):
+        kt, vt = kf[:, k0 : k0 + 128], vf[:, k0 : k0 + 128]
+        s = (qf @ kt.mT) * scale_log2
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        keep = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window > 0:
+            keep &= kpos > qpos - window
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / lsum.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "bh,bkv,sq,skv,d,window",
+    [
+        (8, 2, 64, 256, 32, 0),  # causal GQA over two key tiles, Skv > Sq
+        (2, 2, 256, 256, 32, 32),  # window 32
+        (4, 2, 1, 512, 64, 0),  # a single decode query
+    ],
+)
+def test_wgmma_bf16_arithmetic_matches_flash_kernel(bh, bkv, sq, skv, d, window):
+    """P in bf16, the one rounding the bf16 instance adds, stays within the
+    bf16 tolerance of the Pallas kernel and the reference."""
+    js, ts = _qkv(10, bh, bkv, sq, skv, d, "bfloat16")
+    got = _emulate_wgmma_bf16(*ts, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
+    kw = dict(window=window) if window else {}
+    _check(got, js, "bfloat16", causal=True, **kw)
 
 
 # ---------------------------------------------------------------------------
