@@ -10,18 +10,26 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             src/repro_torch/kernels/csrc are built from source (into
             src/repro_torch/kernels/build/) and the build time printed,
             with the compiler's report of the two flash_attention
-            instances (registers, spills).  It fails unless the bf16
-            instance was compiled to the 168 registers a thread that its
-            setmaxnreg split assumes, and, where cuobjdump sits beside
-            nvcc, unless its SASS holds HGMMA (wgmma) and UTMALDG (TMA
-            loads).
+            instances (registers, spills) and of the f64 (dmma_f64)
+            instances of potrf and tlr_mm (registers, spills, and the DMMA
+            instructions in each kernel's SASS).  It fails unless the bf16
+            flash instance was compiled to the 168 registers a thread that
+            its setmaxnreg split assumes, unless, where cuobjdump sits
+            beside nvcc, its SASS holds HGMMA (wgmma) and UTMALDG (TMA
+            loads), and unless every product kernel of the dmma_f64
+            instances holds DMMA (the FP64 tensor cores).
 2. kernels  each of the six hand-written kernels against its plain
             PyTorch version on the card, at the shapes the main path gives
             it, with its time, the plain version's, a library yardstick
             where one exists, and the least time the card could take
             (bound).  flash_attention is held at every shape its two
-            instances take (bf16 on wgmma, f32 on FMAs), each record
-            naming its instance.
+            instances take (bf16 on wgmma, f32 on FMAs), potrf and tlr_mm
+            at the shapes of both of theirs (f64 on DMMA, f32 on FMAs),
+            each record naming its instance.  potrf is also timed at
+            (1, 2048, 2048) and (1, 4096, 4096), and failed on a bad pivot
+            in the first panel of a 4096 tile; tlr_mm at B = 8 and 1, with
+            out=acc (checked against the plain version on a copy), and
+            summed over a factorization's sweep of B = 63 down to 1.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
             TLR Cholesky -> solve) through ``tlr_loglik(from_tiles=True,
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
@@ -150,6 +158,16 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:82",
     ),
 }
+# The f64 instances' kernels carry this tag in their names; these of them
+# run products: each name must match a kernel of the SASS, and every kernel
+# it matches (a template may have several instances) must run DMMA.
+DMMA_KERNEL_TAG = "_f64"
+DMMA_PRODUCT_KERNELS = (
+    "potrf_panel_f64",
+    "potrf_update_f64",
+    "tlr_mm_w_f64",
+    "tlr_mm_out_f64",
+)
 # The tolerances of tests/test_kernels.py's flash attention tests: _tol for
 # bf16, the window and decode tests' for f32.
 ATTN_TOL = {
@@ -170,6 +188,8 @@ CHOL_TOL = {
 }
 # The main configuration (PERF.md section 4).
 NUGGET, TOL_TLR, TILE, KMAX = 1e-8, 1e-7, 512, 128
+# Live rows of the first TLR panel step there: T - 1 = 32768 / 512 - 1.
+SWEEP_B = 63
 MATERN = dict(sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5)
 # The kernels the main and serve paths run (the exact path adds syrk).
 TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
@@ -248,8 +268,9 @@ def phase_device(torch, st):
     want = f"Used {FLASH_WGMMA_REGS} registers"
     regs_ok = len(regs) == 4 and all(want in ln for ln in regs)
     sass = flash_sass(lib)
-    ok = regs_ok and sass.get("ok", True)
-    st["flash_ok"] = ok
+    dmma = dmma_report(text, lib)
+    st["flash_ok"] = regs_ok and sass.get("ok", True)
+    ok = st["flash_ok"] and dmma["ok"]
     emit(
         {
             "phase": "device",
@@ -263,10 +284,13 @@ def phase_device(torch, st):
             "ptxas": report,
             "flash_ptxas": flash,
             "flash_sass": sass,
+            "dmma_f64": dmma,
         }
     )
-    if not ok:
+    if not st["flash_ok"]:
         raise AssertionError("the bf16 flash instance is not built as designed")
+    if not dmma["ok"]:
+        raise AssertionError("a dmma_f64 product kernel has no DMMA in its SASS")
 
 
 def flash_ptxas(log_text: str) -> dict:
@@ -308,6 +332,44 @@ def flash_sass(lib) -> dict:
     return {"cuobjdump": tool, "kernels": counts, "ok": ok}
 
 
+def dmma_report(log_text: str, lib) -> dict:
+    """For each kernel of the dmma_f64 instances of potrf and tlr_mm: the
+    compiler's registers and spill lines, and the DMMA instructions in its
+    SASS (cuobjdump).  ok unless cuobjdump is missing or one of the product
+    kernels (potrf's panel and update, both tlr_mm stages) is missing or
+    has an instance without DMMA."""
+    from repro_torch.kernels import _build
+
+    report = {}
+    for src in ("potrf.cu", "tlr_mm.cu"):
+        section = log_text.split(f"== {src}", 1)[-1].split("\n== ", 1)[0]
+        name = None
+        for line in section.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                name = name if DMMA_KERNEL_TAG in name else None
+                if name:
+                    report[name] = {"ptxas": []}
+            elif name and ("registers" in line or "spill" in line):
+                report[name]["ptxas"].append(line.strip())
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"kernels": report, "cuobjdump": None, "ok": False}
+    sass = subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300
+    ).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if name in report:
+            report[name]["DMMA"] = part.count("DMMA")
+    ok = True
+    for product in DMMA_PRODUCT_KERNELS:
+        matches = [n for n in report if product in n]
+        ok = ok and bool(matches)
+        ok = ok and all(report[n].get("DMMA", 0) > 0 for n in matches)
+    return {"kernels": report, "cuobjdump": tool, "ok": ok}
+
+
 def check_matern(torch, tag, la, lb, nu, timed):
     from repro_torch.kernels import ref
     from repro_torch.kernels.matern_tile import matern_tile_cuda
@@ -347,60 +409,125 @@ def check_matern(torch, tag, la, lb, nu, timed):
     return rec
 
 
-def check_tlr_mm(torch, gen, tag, dtype, timed):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.tlr_mm import tlr_mm_cuda
-
-    # the largest SYRK of the main path: panel step 0, the T-1 = 63 live rows
-    # of (nb, kmax) = (512, 128) factors onto their diagonal tiles
-    B, nb, k = 63, 512, 128
+def _tlr_mm_inputs(torch, gen, B, dtype, padded=False, nb=TILE, k=KMAX):
+    """Factors and acc for B tile pairs, by default at the main path's SYRK
+    shape (nb, kmax) = (512, 128); with ``padded`` the upper half of the rank
+    columns is zero."""
     s = (math.sqrt(nb) * k) ** -0.25  # keeps the update of order one
     kw = dict(generator=gen, dtype=dtype, device="cuda")
     ua, va, ub, vb = (s * torch.randn((B, nb, k), **kw) for _ in range(4))
-    acc = torch.randn((B, nb, nb), **kw)
-    if tag == "padded":
+    if padded:
         for t in (ua, va, ub, vb):
             t[:, :, k // 2 :] = 0.0
+    return ua, va, ub, vb, torch.randn((B, nb, nb), **kw)
+
+
+def _tlr_mm_bound(B, nb, k, isz, dname):
+    nbytes = (4 * B * nb * k + 2 * B * nb * nb) * isz
+    flops = 2 * B * (2 * nb * k * k + nb * nb * k)
+    return bound(nbytes, flops, "matmul", dname)
+
+
+def _tlr_mm_library(torch, ua, va, ub, vb, acc):
+    return torch.baddbmm(acc, torch.bmm(ua, torch.bmm(va.mT, vb)), ub.mT, alpha=-1.0)
+
+
+def check_tlr_mm(torch, gen, tag, B, dtype, timed, nb=TILE, k=KMAX):
+    """tlr_mm_cuda against tlr_mm_ref.  ``tag`` "padded" zeroes half the
+    rank columns (they must add exact zeros); "out_acc" and "ragged_out_acc"
+    write the result into acc itself (out=acc), checked against the plain
+    version of a copy of acc; the timed f64 case also times out=acc beside
+    the new-tensor form."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.tlr_mm import instance, tlr_mm_cuda
+
+    padded = tag == "padded"
+    ua, va, ub, vb, acc = _tlr_mm_inputs(torch, gen, B, dtype, padded, nb, k)
+    if tag == "padded":
         short = [t[:, :, : k // 2] for t in (ua, va, ub, vb)]
         want = ref.tlr_mm_ref(*short, acc)
     else:
         want = ref.tlr_mm_ref(ua, va, ub, vb, acc)
-    got = tlr_mm_cuda(ua, va, ub, vb, acc)
+    scale = float(torch.maximum(acc.abs().max(), want.abs().max()))
+    in_place = tag.endswith("out_acc")
+    if in_place:
+        got = tlr_mm_cuda(ua, va, ub, vb, acc, out=acc)
+        same = got.data_ptr() == acc.data_ptr()
+    else:
+        got = tlr_mm_cuda(ua, va, ub, vb, acc)
+        same = True
     torch.cuda.synchronize()
     dname = str(dtype).split(".")[-1]
     # sums run in another order: atol scales with the largest value
-    scale = float(torch.maximum(acc.abs().max(), want.abs().max()))
     if dname == "float64":
         tol = dict(rtol=0.0, atol=1e-10 * scale)
     else:
         tol = dict(rtol=2e-3, atol=1e-3 * scale)
     err, ok = max_err(torch, got, want, **tol)
-    isz = acc.element_size()
-    nbytes = (4 * B * nb * k + 2 * B * nb * nb) * isz
-    flops = 2 * B * (2 * nb * k * k + nb * nb * k)
-    b_ms, b_by = bound(nbytes, flops, "matmul", dname)
+    b_ms, b_by = _tlr_mm_bound(B, nb, k, acc.element_size(), dname)
     rec = {
         "phase": "kernel_check",
         "kernel": "tlr_mm",
+        "instance": instance(dtype),
         "case": tag,
         "shape": [B, nb, k],
         "dtype": dname,
         "max_abs_err": err,
-        "ok": ok,
+        "ok": ok and same,
         "tol": tol,
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+    if in_place:
+        rec["wrote_into_acc"] = same
+    del got, want
     if timed:
+        acc0 = acc.clone()
         rec["ms"] = cuda_ms(torch, lambda: tlr_mm_cuda(ua, va, ub, vb, acc))
+        rec["ms_out_acc"] = cuda_ms(
+            torch, lambda: tlr_mm_cuda(ua, va, ub, vb, acc0, out=acc0)
+        )
         rec["plain_ms"] = cuda_ms(torch, lambda: ref.tlr_mm_ref(ua, va, ub, vb, acc))
         rec["library_ms"] = cuda_ms(
-            torch,
-            lambda: torch.baddbmm(
-                acc, torch.bmm(ua, torch.bmm(va.mT, vb)), ub.mT, alpha=-1.0
-            ),
+            torch, lambda: _tlr_mm_library(torch, ua, va, ub, vb, acc)
         )
+        rec["bound_share"] = b_ms / rec["ms"]
+        del acc0
     emit(rec)
+    del ua, va, ub, vb, acc
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_tlr_mm_sweep(torch, gen):
+    """The SYRK of every panel step of one TLR factorization at the main
+    configuration: B = 63 live rows down to 1, (512, 128) factors, in place
+    as the path calls it; the kernel's summed time beside the library's."""
+    from repro_torch.kernels.tlr_mm import tlr_mm_cuda
+
+    ua, va, ub, vb, acc = _tlr_mm_inputs(torch, gen, SWEEP_B, torch.float64)
+    ms = lib = bnd = 0.0
+    for B in range(ua.shape[0], 0, -1):
+        args = [t[:B] for t in (ua, va, ub, vb)]
+        a = acc[:B]
+        ms += cuda_ms(torch, lambda: tlr_mm_cuda(*args, a, out=a), reps=5)
+        lib += cuda_ms(torch, lambda: _tlr_mm_library(torch, *args, a), reps=5)
+        bnd += _tlr_mm_bound(B, TILE, KMAX, 8, "float64")[0]
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "tlr_mm",
+        "instance": "dmma_f64",
+        "case": "sweep_63_to_1",
+        "shapes": [[ua.shape[0], TILE, KMAX], [1, TILE, KMAX]],
+        "dtype": "float64",
+        "ms_sum": ms,
+        "library_ms_sum": lib,
+        "bound_ms_sum": bnd,
+        "ok": math.isfinite(ms) and bool(torch.isfinite(acc).all()),
+    }
+    emit(rec)
+    del ua, va, ub, vb, acc
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -425,7 +552,7 @@ def _trsm_bound(b, nb, r, lo_b, isz):
 
 def check_potrf(torch, gen, tag, b, nb, dtype, timed):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.chol_tiles import potrf_cuda
+    from repro_torch.kernels.chol_tiles import potrf_cuda, potrf_instance
 
     dname = str(dtype).split(".")[-1]
     a = _spd(torch, gen, b, nb, dtype)
@@ -438,6 +565,7 @@ def check_potrf(torch, gen, tag, b, nb, dtype, timed):
     rec = {
         "phase": "kernel_check",
         "kernel": "potrf",
+        "instance": potrf_instance(dtype),
         "case": tag,
         "shape": [b, nb, nb],
         "dtype": dname,
@@ -452,6 +580,8 @@ def check_potrf(torch, gen, tag, b, nb, dtype, timed):
         rec["plain_ms"] = cuda_ms(torch, lambda: ref.potrf_ref(a))
         rec["library_ms"] = cuda_ms(torch, lambda: torch.linalg.cholesky_ex(a))
     emit(rec)
+    del a, got, want
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -482,6 +612,35 @@ def check_potrf_failure(torch, gen):
         "ok": ok,
     }
     emit(rec)
+    return rec
+
+
+def check_potrf_failure_first_panel(torch, gen):
+    """A (1, 4096, 4096) tile whose pivot 10, in the first panel, is bad:
+    it comes back all NaN, and cholesky_ex reports the failure."""
+    from repro_torch.kernels.chol_tiles import potrf_cuda
+
+    nb = 4096
+    a = _spd(torch, gen, 1, nb, torch.float64)
+    a[0, 10, 10] = -5.0
+    got = potrf_cuda(a)
+    info = torch.linalg.cholesky_ex(a)[1]
+    torch.cuda.synchronize()
+    all_nan = bool(torch.isnan(got).all())
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "potrf",
+        "instance": "dmma_f64",
+        "case": "bad_pivot_first_panel_4096",
+        "shape": [1, nb, nb],
+        "dtype": "float64",
+        "all_nan": all_nan,
+        "cholesky_ex_info": int(info[0]),
+        "ok": all_nan and int(info[0]) != 0,
+    }
+    emit(rec)
+    del a, got
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -751,32 +910,60 @@ def phase_kernels(torch, st, n_side: int):
                 records.append(rec)
                 if timed:
                     st.setdefault("summary", {})["matern_tile"] = rec
-    for tag, dtype in (
-        ("full", torch.float64),
-        ("full", torch.float32),
-        ("padded", torch.float64),
-    ):
-        timed = tag == "full" and dtype == torch.float64
-        rec = check_tlr_mm(torch, gen, tag, dtype, timed)
-        records.append(rec)
-        if timed:
-            st.setdefault("summary", {})["tlr_mm"] = rec
-    # potrf: the panel-head tile of the main path, a batch, a ragged nb, the
-    # README's serving tile (2048), bad tiles and a real Matérn tile
+    # tlr_mm: the largest SYRK of the main path (panel step 0: the 63 live
+    # rows' (512, 128) factors onto their diagonal tiles) in both instances,
+    # with padded rank columns, written into acc, and at B = 8 and 1; then
+    # the summed sweep of one factorization
     cases = (
-        ("path", 1, 512),
-        ("batch", 8, 512),
-        ("ragged", 3, 200),
-        ("tile2048", 1, 2048),
+        ("full", 63, torch.float64, True),
+        ("full", 63, torch.float32, False),
+        ("padded", 63, torch.float64, False),
+        ("out_acc", 63, torch.float64, False),
+        ("b8", 8, torch.float64, True),
+        ("b1", 1, torch.float64, True),
     )
-    for tag, b, nb in cases:
-        for dtype in (torch.float64, torch.float32):
-            timed = tag == "path" and dtype == torch.float64
+    for tag, B, dtype, timed in cases:
+        rec = check_tlr_mm(torch, gen, tag, B, dtype, timed)
+        records.append(rec)
+        if tag == "full" and timed:
+            st.setdefault("summary", {})["tlr_mm"] = rec
+        elif timed:
+            st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
+    # odd nb and k (the 8-byte copy paths) and k > 128 (a second rank pass,
+    # which reads out back), in place, in both instances
+    for dtype in (torch.float64, torch.float32):
+        records.append(
+            check_tlr_mm(torch, gen, "ragged_out_acc", 3, dtype, False, nb=301, k=131)
+        )
+    rec = check_tlr_mm_sweep(torch, gen)
+    records.append(rec)
+    st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
+    # potrf: the panel-head tile of the main path, a batch, a ragged nb,
+    # nb = 1, the README's serving tile (2048) and the reference's default
+    # exact panel (4096), bad tiles and a real Matérn tile.  The two
+    # multiwave batches give the f64 panel launch more blocks than the card
+    # holds at once (about two a SM): 40 x 7 and 8 x 63 at the first panel.
+    cases = (
+        ("path", 1, 512, (torch.float64, torch.float32)),
+        ("batch", 8, 512, (torch.float64, torch.float32)),
+        ("multiwave", 40, 512, (torch.float64,)),
+        ("multiwave4096", 8, 4096, (torch.float64,)),
+        ("ragged", 3, 200, (torch.float64, torch.float32)),
+        ("nb1", 1, 1, (torch.float64, torch.float32)),
+        ("tile2048", 1, 2048, (torch.float64, torch.float32)),
+        ("tile4096", 1, 4096, (torch.float64,)),
+    )
+    for tag, b, nb, dtypes in cases:
+        for dtype in dtypes:
+            timed = tag in ("path", "tile2048", "tile4096") and dtype == torch.float64
             rec = check_potrf(torch, gen, tag, b, nb, dtype, timed)
             records.append(rec)
-            if timed:
+            if tag == "path" and timed:
                 st.setdefault("summary", {})["potrf"] = rec
+            elif timed:
+                st.setdefault("extra", {}).setdefault("potrf", []).append(rec)
     records.append(check_potrf_failure(torch, gen))
+    records.append(check_potrf_failure_first_panel(torch, gen))
     params = MaternParams.bivariate(**MATERN, device="cuda")
     records.append(check_potrf_matern(torch, locs, params))
     # trsm: the panel TRSM (one L_kk for the 63 live V tiles of step 0:
@@ -938,6 +1125,7 @@ def phase_main(torch, st, n_side: int):
         tlr_module.tlr_compress_tiles = compress
     total_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    instances = path_instances(ops, st, "main")
     peak_tlr = torch.cuda.max_memory_allocated()
     status = res.status.as_dict()
     t_mat = kept.pop("t")
@@ -951,6 +1139,7 @@ def phase_main(torch, st, n_side: int):
     st.setdefault("launches", {})["main"] = launches
     ok = status["ok"] and rel <= 1e-5 and math.isfinite(ll_tlr)
     ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
+    ok = ok and f64_only(instances)
     emit(
         {
             "phase": "main",
@@ -971,6 +1160,7 @@ def phase_main(torch, st, n_side: int):
             "rel_gap": rel,
             "status": status,
             "launches": launches,
+            "launches_by_instance": instances,
             "memory_footprint": foot,
             "ranks": {"max": float(ranks.max()), "mean": float(ranks.mean())},
             "peak_bytes_tlr": peak_tlr,
@@ -1036,6 +1226,7 @@ def phase_serve(torch, st):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     st.setdefault("launches", {})["serve"] = launches
+    instances = path_instances(ops, st, "serve")
 
     # where one request's time goes: the c0 panels, then the forward sweep
     m, nb = factor.m, factor.diag_l.shape[1]
@@ -1069,6 +1260,7 @@ def phase_serve(torch, st):
     ok = status["ok"] and max(rels) <= 1e-3 and all(checks) and draws_ok
     ok = ok and refused == "nonfinite_locs"
     ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
+    ok = ok and f64_only(instances)
     emit(
         {
             "phase": "serve",
@@ -1096,6 +1288,7 @@ def phase_serve(torch, st):
             "draws_ok": draws_ok,
             "refused_nan_request": refused,
             "launches": launches,
+            "launches_by_instance": instances,
             "peak_bytes_fit": peak_fit,
             "peak_bytes_predict": peak_predict,
         }
@@ -1132,6 +1325,7 @@ def phase_exact(torch, st):
     total_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     st.setdefault("launches", {})["exact"] = launches
+    instances = path_instances(ops, st, "exact")
     peak = torch.cuda.max_memory_allocated()
     del dists
     rel = abs(ll - ref["loglik"]) / abs(ref["loglik"])
@@ -1140,6 +1334,7 @@ def phase_exact(torch, st):
     want = {"syrk": nk - 1, "potrf": nk, "trsm": 2 * nk - 1}
     ok = math.isfinite(ll) and rel <= 1e-7
     ok = ok and all(launches[name] == count for name, count in want.items())
+    ok = ok and f64_only(instances)
     emit(
         {
             "phase": "exact",
@@ -1158,6 +1353,7 @@ def phase_exact(torch, st):
             "logdet_rel_gap": logdet_gap,
             "quad_rel_gap": quad_gap,
             "launches": launches,
+            "launches_by_instance": instances,
             "launches_expected": want,
             "peak_bytes": peak,
         }
@@ -1207,6 +1403,7 @@ def phase_mle(torch, st, n_side: int):
     mle_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     st.setdefault("launches", {})["mle"] = launches
+    instances = path_instances(ops, st, "mle")
     peak = torch.cuda.max_memory_allocated()
 
     # the objective at the start, and a fresh evaluation at the fitted point
@@ -1231,6 +1428,7 @@ def phase_mle(torch, st, n_side: int):
     ok = math.isfinite(ll) and clamped == 0 and -ll <= f_start
     ok = ok and fresh_rel <= 1e-10
     ok = ok and all(launches[name] > 0 for name in ("tlr_mm", "potrf", "trsm"))
+    ok = ok and f64_only(instances)
     fitted = {key: getattr(res.params, key).tolist() for key in res.params._fields}
     emit(
         {
@@ -1256,11 +1454,26 @@ def phase_mle(torch, st, n_side: int):
             "fitted_params": fitted,
             "truth": MATERN,
             "launches": launches,
+            "launches_by_instance": instances,
             "peak_bytes": peak,
         }
     )
     if not ok:
         raise AssertionError("mle path failed its checks")
+
+
+def path_instances(ops, st, path: str) -> dict:
+    """The launches of each kernel instance during a path, kept for the
+    summary line."""
+    counts = ops.instance_counts()
+    st.setdefault("instances", {})[path] = counts
+    return counts
+
+
+def f64_only(instances: dict) -> bool:
+    """The geostat paths run in f64: potrf and tlr_mm launch only their
+    dmma_f64 instance there."""
+    return all(instances[name]["fma_f32"] == 0 for name in ("potrf", "tlr_mm"))
 
 
 def rel_gap(torch, got, want) -> float:
@@ -1349,6 +1562,9 @@ def phase_lm(torch, st):
         (ln, naive_ms), c_naive = counted(lambda: timed(prefill_fwd("naive")))
         rec["prefill_timed_launches_by_instance"] = c_timed.pop("flash_by_instance")
         st.setdefault("launches", {})["lm"] = c_timed
+        st.setdefault("instances", {})["lm"] = {
+            "flash_attention": dict(rec["prefill_timed_launches_by_instance"])
+        }
         n_tok = LM_PREFILL[0] * LM_PREFILL[1]
         rec.update(
             prefill_shape=list(LM_PREFILL),
@@ -1387,6 +1603,9 @@ def phase_lm(torch, st):
         for name, count in c_gen.items():
             if name in launches:
                 launches[name] += count
+        by_inst = st["instances"]["lm"]["flash_attention"]
+        for inst, count in c_gen["flash_by_instance"].items():
+            by_inst[inst] += count
         ms_sorted = sorted(step_ms)
         rec.update(
             engine_prompts=list(LM_PROMPTS),
@@ -1483,12 +1702,27 @@ def main() -> int:
                 "dtype": rec["dtype"],
             }
         )
+        if "ms_out_acc" in rec:
+            kernels[-1]["ms_out_acc"] = rec["ms_out_acc"]
+        if "instance" in rec:
+            kernels[-1]["instance"] = rec["instance"]
+            by_inst = {}
+            for counts in st["instances"].values():
+                for inst, count in counts.get(name, {}).items():
+                    by_inst[inst] = by_inst.get(inst, 0) + count
+            kernels[-1]["launches_by_instance"] = by_inst
         if name == "flash_attention":
             f32 = st["flash_f32"]
-            kernels[-1]["instance"] = rec["instance"]
             kernels[-1]["f32_instance"] = {
                 key: f32[key] for key in ("instance", "shape", *keys, "library_ms")
             }
+        extra_keys = ("case", "shape", "ms", "ms_out_acc", "plain_ms", "library_ms")
+        extra_keys += ("bound_ms", "ms_sum", "library_ms_sum", "bound_ms_sum")
+        if name in st.get("extra", {}):
+            kernels[-1]["other_shapes"] = [
+                {key: r[key] for key in extra_keys if key in r}
+                for r in st["extra"][name]
+            ]
     emit({"kernels": kernels})
     print(st["smi"], flush=True)
     device = {

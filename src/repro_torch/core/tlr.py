@@ -475,8 +475,8 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
         vk = ops.trsm(lkk, v[live, k])
         v[live, k] = vk
         uk = u[live, k].contiguous()
-        # ---- SYRK onto the trailing diagonal tiles.
-        diag[live] = ops.tlr_mm(uk, vk, uk, vk, diag[live])
+        # ---- SYRK onto the trailing diagonal tiles, in place.
+        ops.tlr_mm(uk, vk, uk, vk, diag[live], out=diag[live])
         # ---- GEMM + recompress on the active pairs i > j > k.
         act = jl > k
         if act.any():
@@ -520,8 +520,8 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
         vk = ops.trsm(lkk, vp[col])
         vp[col] = vk
         uk = up[col]
-        # ---- SYRK onto the trailing diagonal tiles i > k.
-        diag[k + 1 :] = ops.tlr_mm(uk, vk, uk, vk, diag[k + 1 :])
+        # ---- SYRK onto the trailing diagonal tiles i > k, in place.
+        ops.tlr_mm(uk, vk, uk, vk, diag[k + 1 :], out=diag[k + 1 :])
         # ---- GEMM + recompress over the active pairs (pads fail il > jl).
         il, jl = layout.il, layout.jl
         act = np.nonzero((il > jl) & (jl > k))[0]

@@ -5,7 +5,9 @@ of the blocked Cholesky.
 Counterparts of the Pallas kernels ``repro.kernels.chol_tiles.potrf``,
 ``.trsm`` and ``.syrk``.  The plain versions are ``kernels.ref.potrf_ref``,
 ``trsm_ref`` and ``syrk_ref``; ``kernels.ops`` chooses by the tensors'
-device.
+device.  The dtype picks one of potrf's two instances: float64 runs
+``dmma_f64`` (blocked over the card, the trailing update on the FP64 tensor
+cores), float32 ``fma_f32`` (one block a tile on the FP32 CUDA cores).
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import torch
 
 from . import _build
 
-_POTRF = {torch.float64: "potrf_f64", torch.float32: "potrf_f32"}
+# dtype -> (potrf instance, its C symbol)
+_POTRF = {
+    torch.float64: ("dmma_f64", "potrf_f64"),
+    torch.float32: ("fma_f32", "potrf_f32"),
+}
 _TRSM = {torch.float64: "trsm_f64", torch.float32: "trsm_f32"}
 _SYRK = {torch.float64: "syrk_f64", torch.float32: "syrk_f32"}
 SYRK_TILE = 64  # output tile edge of one syrk block
@@ -24,13 +30,20 @@ SYRK_TILE = 64  # output tile edge of one syrk block
 # columns (the card allows 227 KB a block; the kernel's static part is 8 KB).
 TRSM_SMEM_BYTES = 200 * 1024
 TRSM_MAX_COLS = 32
-_SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+
+
+def potrf_instance(dtype: torch.dtype) -> str:
+    """Name of the potrf instance that takes ``dtype``; raises on any other."""
+    if dtype not in _POTRF:
+        raise ValueError(f"potrf takes float32 or float64, got {dtype}")
+    return _POTRF[dtype][0]
 
 
 def _potrf_fn(dtype: torch.dtype):
-    fn = getattr(_build.library(), _POTRF[dtype])
+    fn = getattr(_build.library(), _POTRF[dtype][1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, p]
+    # the f64 instance takes its scratch (failure flags, tickets) after out
+    fn.argtypes = [p, p, p, i, i, p] if dtype == torch.float64 else [p, p, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,39 +81,50 @@ def potrf_cuda(a: torch.Tensor) -> torch.Tensor:
     ``a`` is a contiguous float32 or float64 CUDA tensor; only its lower
     triangle is read.  Returns a new tensor holding the lower factors,
     zeros above the diagonal; a tile whose factorization meets a pivot that
-    is not positive and finite comes back all NaN.  Raises on anything the
-    kernel does not take and if the launch fails.
+    is not positive and finite comes back all NaN.  The f64 instance issues
+    its whole sequence of launches in one call, on the current stream,
+    without a host sync.  Raises on anything the kernel does not take and if
+    a launch fails.
     """
     _check_cuda("a", a, None, None, _POTRF)
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"a must have shape (B, nb, nb), got {tuple(a.shape)}")
     b, nb, _ = a.shape
-    if nb * nb >= 2**31:
-        raise ValueError(f"tile size {nb} is too large")
+    if nb * nb >= 2**31 or b > 65535:
+        raise ValueError(f"a batch of {b} tiles of size {nb} is too large")
     out = torch.empty_like(a)
     if b == 0 or nb == 0:
         return out
+    name = potrf_instance(a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _potrf_fn(a.dtype)(a.data_ptr(), out.data_ptr(), b, nb, stream)
-    _build.check(code, "potrf")
+        ptrs = [a.data_ptr(), out.data_ptr()]
+        if a.dtype == torch.float64:
+            # per tile: its failure flag, then its panel launches' ticket
+            scratch = torch.zeros(2 * b, dtype=torch.int32, device=a.device)
+            ptrs.append(scratch.data_ptr())
+        code = _potrf_fn(a.dtype)(*ptrs, b, nb, stream)
+    _build.check(code, f"potrf ({name})")
     potrf_cuda.launches += 1
+    potrf_cuda.launches_by_instance[name] += 1
     return out
 
 
 potrf_cuda.launches = 0
+potrf_cuda.launches_by_instance = {name: 0 for name, _ in _POTRF.values()}
 
 
-def trsm_cols(nb: int, r: int, batch: int, itemsize: int) -> int:
+def trsm_cols(nb: int, r: int, batch: int, itemsize: int, sms: int) -> int:
     """Right-hand-side columns one trsm block solves: at most 32, a power of
     two, no more than ``r`` needs, halved while the nb x rc block does not fit
-    in shared memory or (down to 8) while the grid leaves SMs idle."""
+    in shared memory or (down to 8) while the grid leaves some of the card's
+    ``sms`` streaming multiprocessors idle."""
     rc = TRSM_MAX_COLS
     while rc > 1 and rc // 2 >= r:
         rc //= 2
     while rc > 1 and nb * rc * itemsize > TRSM_SMEM_BYTES:
         rc //= 2
-    while rc > 8 and -(-r // rc) * batch < _SM_COUNT:
+    while rc > 8 and -(-r // rc) * batch < sms:
         rc //= 2
     if nb * rc * itemsize > TRSM_SMEM_BYTES:
         raise ValueError(
@@ -132,7 +156,8 @@ def trsm_cuda(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(b)
     if batch == 0 or nb == 0 or r == 0:
         return out
-    rc = trsm_cols(nb, r, batch, b.element_size())
+    sms = torch.cuda.get_device_properties(b.device).multi_processor_count
+    rc = trsm_cols(nb, r, batch, b.element_size(), sms)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (lo.data_ptr(), b.data_ptr(), out.data_ptr())

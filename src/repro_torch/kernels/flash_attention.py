@@ -102,12 +102,5 @@ def flash_attention_cuda(
     return out
 
 
-def reset_launches() -> None:
-    """Set the launch counts, in all and by instance, to 0."""
-    flash_attention_cuda.launches = 0
-    flash_attention_cuda.launches_by_instance = {
-        name: 0 for name, _ in _INSTANCES.values()
-    }
-
-
-reset_launches()
+flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_instance = {name: 0 for name, _ in _INSTANCES.values()}

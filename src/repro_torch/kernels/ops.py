@@ -5,8 +5,8 @@ decides: a CUDA tensor launches the hand kernel, which raises if it cannot
 be built or launched; a CPU tensor takes the plain PyTorch version.  There
 is no fallback from one to the other.  Each CUDA wrapper counts its
 launches (``launch_counts``), so a run can show that it went through the
-kernels; the flash kernel also counts them by instance
-(``flash_attention_cuda.launches_by_instance``).
+kernels; the kernels with more than one instance (flash_attention, potrf,
+tlr_mm) also count them by instance (``instance_counts``).
 """
 
 from __future__ import annotations
@@ -15,9 +15,9 @@ import torch
 
 from . import ref
 from .chol_tiles import potrf_cuda, syrk_cuda, trsm_cuda
-from .flash_attention import flash_attention_cuda, reset_launches
+from .flash_attention import flash_attention_cuda
 from .matern_tile import matern_tile_cuda
-from .tlr_mm import tlr_mm_cuda
+from .tlr_mm import check_out, tlr_mm_cuda
 
 _WRAPPERS = {
     "matern_tile": matern_tile_cuda,
@@ -44,11 +44,18 @@ def matern_tile(locs_a, locs_b, inv_range, amp, *, nu: float) -> torch.Tensor:
     return matern_tile_cuda(locs_a, locs_b, inv_range, amp, nu=nu)
 
 
-def tlr_mm(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:
-    """acc - U_a (V_a^T V_b) U_b^T for a batch of tile pairs."""
+def tlr_mm(u_a, v_a, u_b, v_b, acc, *, out=None) -> torch.Tensor:
+    """acc - U_a (V_a^T V_b) U_b^T for a batch of tile pairs.  With ``out``
+    the result is written there and returned; ``out`` may be ``acc``
+    itself (the update in place) and may share memory with nothing else."""
     if _on_cpu(acc, "tlr_mm"):
-        return ref.tlr_mm_ref(u_a, v_a, u_b, v_b, acc)
-    return tlr_mm_cuda(u_a, v_a, u_b, v_b, acc)
+        res = ref.tlr_mm_ref(u_a, v_a, u_b, v_b, acc)
+        if out is None:
+            return res
+        factors = (("u_a", u_a), ("v_a", v_a), ("u_b", u_b), ("v_b", v_b))
+        check_out(out, acc, factors)
+        return out.copy_(res)
+    return tlr_mm_cuda(u_a, v_a, u_b, v_b, acc, out=out)
 
 
 def potrf(a) -> torch.Tensor:
@@ -92,8 +99,19 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def instance_counts() -> dict:
+    """Launches of each instance of the kernels that have more than one,
+    since the last reset."""
+    return {
+        name: dict(fn.launches_by_instance)
+        for name, fn in _WRAPPERS.items()
+        if hasattr(fn, "launches_by_instance")
+    }
+
+
 def reset_launch_counts() -> None:
-    """Set every count to 0, the flash kernel's counts by instance too."""
+    """Set every count to 0, the counts by instance too."""
     for fn in _WRAPPERS.values():
         fn.launches = 0
-    reset_launches()
+        for instance in getattr(fn, "launches_by_instance", {}):
+            fn.launches_by_instance[instance] = 0

@@ -39,6 +39,7 @@ TRSM_TOL = {
     "float32": dict(rtol=1e-3, atol=1e-3),
     "float64": dict(rtol=1e-9, atol=1e-11),
 }
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _spd_batch(b, nb, seed=0):
@@ -132,14 +133,14 @@ def test_tile_cholesky_composition():
     ],
 )
 def test_trsm_block_columns(nb, r, batch, itemsize, want):
-    rc = trsm_cols(nb, r, batch, itemsize)
+    rc = trsm_cols(nb, r, batch, itemsize, H100_SMS)
     assert rc == want
     assert nb * rc * itemsize <= 200 * 1024
 
 
 def test_trsm_block_columns_refuse_a_column_too_tall():
     with pytest.raises(ValueError, match="shared memory"):
-        trsm_cols(40000, 1, 1, 8)
+        trsm_cols(40000, 1, 1, 8, H100_SMS)
 
 
 def test_tlr_path_runs_potrf_and_trsm_through_ops(monkeypatch):
@@ -167,3 +168,122 @@ def test_tlr_path_runs_potrf_and_trsm_through_ops(monkeypatch):
     dense = torch.linalg.cholesky(sigma)
     want = torch.linalg.solve_triangular(dense, z[:, None], upper=False)[:, 0]
     np.testing.assert_allclose(alpha.numpy(), want.numpy(), rtol=1e-8, atol=1e-8)
+
+
+# The f64 instance of the CUDA potrf (csrc/potrf.cu, dmma_f64): its panel
+# width, which is also the largest edge of a trailing-update tile, and the
+# half panel that one warp factors.
+PANEL, HALF = 64, 32
+
+
+def _factor_block(d, sinv, o):
+    """The kernel's warp-level factor of d[o:o+32, o:o+32], in place,
+    right-looking a pivot at a time: the reciprocal square root r of the
+    pivot p, the diagonal p r, the column below scaled by r, then
+    x[i][l] -= L[i][c] L[l][c].  Returns False on a pivot that is not
+    positive and finite."""
+    n = HALF
+    blk = d[o : o + n, o : o + n]
+    idx = torch.arange(n)
+    for c in range(n):
+        p = blk[c, c].clone()
+        if not (bool(p > 0) and bool(torch.isfinite(p))):
+            return False
+        rinv = torch.rsqrt(p)
+        sinv[o + c] = rinv
+        col = torch.where(idx > c, blk[:, c] * rinv, torch.zeros_like(p))
+        col[c] = p * rinv
+        blk[:, c] = col
+        upd = col[:, None] * col[None, :]
+        keep = (idx[None, :] > c) & (idx[None, :] <= idx[:, None])
+        blk.copy_(torch.where(keep, blk - upd, blk))
+    return True
+
+
+def _solve_rows(y, lo, sinv):
+    """y <- y L^{-T} row by row, right-looking: y[c] *= 1 / L[c][c], then
+    y[l] -= y[c] L[l][c] for l > c."""
+    for c in range(lo.shape[0]):
+        y[:, c] = y[:, c] * sinv[c]
+        y[:, c + 1 :] -= y[:, c : c + 1] * lo[c + 1 :, c][None, :]
+    return y
+
+
+def _emulate_potrf_dmma_f64(a):
+    """The dmma_f64 potrf instance's order of work in plain torch, in a's
+    dtype.
+
+    Per panel of 64 columns: the diagonal block, padded with the identity to
+    64, factored as the kernel's panel block does (the first 32 columns by
+    one warp, the rows below them solved, the rank-32 update of the second
+    half, which runs on DMMA, then its 32 columns); the rows below the panel
+    solved against it; then the trailing lower triangle updated one 64 x 64
+    tile at a time (the DMMA product; on the card the tiles are 32 x 32 while
+    the 64 x 64 ones would fill under two waves, the same sums).  A pivot
+    that is not positive and finite sets the tile's flag, ends its steps, and
+    the tile comes back all NaN.
+    """
+    b, nb, _ = a.shape
+    out = torch.tril(a).clone()
+    rows = torch.arange(nb)[:, None]
+    cols = torch.arange(nb)[None, :]
+    flag = torch.zeros(b, dtype=torch.bool)
+    for t in range(b):
+        lo = out[t]
+        for j0 in range(0, nb, PANEL):
+            w = min(PANEL, nb - j0)
+            t0 = j0 + w
+            d = torch.eye(PANEL, dtype=a.dtype)
+            d[:w, :w] = lo[j0:t0, j0:t0]
+            sinv = torch.empty(PANEL, dtype=a.dtype)
+            if not _factor_block(d, sinv, 0):
+                flag[t] = True
+                break
+            _solve_rows(d[HALF:, :HALF], d[:HALF, :HALF], sinv[:HALF])
+            d[HALF:, HALF:] -= torch.tril(d[HALF:, :HALF] @ d[HALF:, :HALF].mT)
+            if not _factor_block(d, sinv, HALF):
+                flag[t] = True
+                break
+            lo[j0:t0, j0:t0] = torch.tril(d[:w, :w])
+            lo[t0:, j0:t0] = _solve_rows(lo[t0:, j0:t0].clone(), d[:w, :w], sinv)
+            for r0 in range(t0, nb, PANEL):
+                for c0 in range(t0, r0 + 1, PANEL):
+                    rs, cs = slice(r0, r0 + PANEL), slice(c0, c0 + PANEL)
+                    upd = lo[rs, j0:t0] @ lo[cs, j0:t0].mT
+                    keep = rows[rs, :1] >= cols[:1, cs]
+                    lo[rs, cs] = torch.where(keep, lo[rs, cs] - upd, lo[rs, cs])
+    out[flag] = math.nan
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,nb",
+    [(1, 32), (4, 64), (2, 128), (3, 200), (1, 1)],
+)
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_dmma_potrf_step_order_matches_pallas(b, nb, dname):
+    """The f64 CUDA instance's arithmetic (panel 64, diagonal factor, panel
+    solve, tile-by-tile trailing update) against the Pallas potrf in
+    interpret mode, at the shapes and tolerances of
+    test_potrf_ref_matches_pallas, plus a ragged nb (200: three full panels
+    and one of 8), nb = 1 and a batch of 3."""
+    jd, td = DTYPES[dname]
+    a = _spd_batch(b, nb)
+    got = _emulate_potrf_dmma_f64(torch.as_tensor(a, dtype=td)).numpy()
+    want = np.asarray(j_potrf(jnp.asarray(a, jd), interpret=True))
+    np.testing.assert_allclose(got, want, **POTRF_TOL[dname])
+    assert np.all(np.triu(got, 1) == 0.0)
+
+
+def test_dmma_potrf_bad_pivot_in_a_later_panel_gives_an_all_nan_tile():
+    """A tile that turns indefinite only in its third panel comes back all
+    NaN from the emulation (its flag ends the steps), as from potrf_ref;
+    the good tiles beside it match the Pallas potrf."""
+    nb = 200
+    a = _spd_batch(3, nb, seed=1)
+    a[1, 150, 150] = -1e4  # a pivot of panel 2 (columns 128..191), second half
+    got = _emulate_potrf_dmma_f64(torch.as_tensor(a))
+    assert bool(torch.isnan(got[1]).all())
+    assert bool(torch.isnan(ref.potrf_ref(torch.as_tensor(a))[1]).all())
+    want = np.asarray(j_potrf(jnp.asarray(a[0::2]), interpret=True))
+    np.testing.assert_allclose(got[0::2].numpy(), want, **POTRF_TOL["float64"])

@@ -26,7 +26,7 @@ from repro_torch.kernels.chol_tiles import (  # noqa: E402
     trsm_cuda,
 )
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
-from repro_torch.kernels.tlr_mm import tlr_mm_cuda  # noqa: E402
+from repro_torch.kernels.tlr_mm import check_out, tlr_mm_cuda  # noqa: E402
 
 DTYPES = {
     "float32": (jnp.float32, torch.float32),
@@ -192,3 +192,117 @@ def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkey
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build()
         assert not (tmp_path / "build").exists()
+
+
+# The f64 instance of the CUDA tlr_mm (csrc/tlr_mm.cu, dmma_f64): rows of a
+# strip, columns of an output chunk, and rank columns of a pass.
+STRIP, RANK_PASS = 64, 128
+
+
+def _emulate_tlr_mm_dmma_f64(ua, va, ub, vb, acc):
+    """The dmma_f64 tlr_mm instance's order of work in plain torch: W = V_a^T
+    V_b; then per 64-row strip and per pass of 128 rank columns, T = U_a
+    W[:, pass] formed once, and out[strip, chunk] = src - T U_b[chunk,
+    pass]^T for 64-column chunks, src being acc in the first pass and out
+    after it."""
+    b, nb, k = ua.shape
+    w = va.mT @ vb
+    out = torch.empty_like(acc)
+    for r0 in range(0, nb, STRIP):
+        rs = slice(r0, r0 + STRIP)
+        for p0 in range(0, k, RANK_PASS):
+            ps = slice(p0, p0 + RANK_PASS)
+            t = ua[:, rs] @ w[:, :, ps]
+            src = acc if p0 == 0 else out
+            for c0 in range(0, nb, STRIP):
+                cs = slice(c0, c0 + STRIP)
+                out[:, rs, cs] = src[:, rs, cs] - t @ ub[:, cs, ps].mT
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,nb,k,padded",
+    [
+        (1, 64, 8, False),
+        (4, 40, 16, False),
+        (3, 64, 32, False),
+        (2, 130, 16, True),  # a ragged strip and chunk, half the rank zero
+        (2, 70, 200, False),  # two rank passes
+    ],
+)
+def test_dmma_tlr_mm_order_of_work_matches_pallas(b, nb, k, padded):
+    """The f64 CUDA instance's order of work against the Pallas tlr_mm in
+    interpret mode, at the tolerance of test_tlr_mm_ref_matches_pallas;
+    zero-padded rank columns add exact zeros (the result equals the one
+    from the unpadded factors to rounding)."""
+    rng = np.random.default_rng(6)
+    ua, va, ub, vb = (rng.normal(size=(b, nb, k)) for _ in range(4))
+    if padded:
+        for arr in (ua, va, ub, vb):
+            arr[:, :, k // 2 :] = 0.0
+    acc = rng.normal(size=(b, nb, nb))
+    args = (ua, va, ub, vb, acc)
+    got = _emulate_tlr_mm_dmma_f64(*(torch.as_tensor(x) for x in args))
+    want = j_tlr_mm(*(jnp.asarray(x) for x in args), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("float64"))
+    if padded:
+        short = [torch.as_tensor(x[:, :, : k // 2]) for x in (ua, va, ub, vb)]
+        plain = ref.tlr_mm_ref(*short, torch.as_tensor(acc))
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), **_tol("float64"))
+
+
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_ops_tlr_mm_in_place_equals_out_of_place_and_writes_acc(dname):
+    _, tdt = DTYPES[dname]
+    rng = np.random.default_rng(7)
+    u, v = (torch.as_tensor(rng.normal(size=(3, 24, 5)), dtype=tdt) for _ in range(2))
+    diag = torch.as_tensor(rng.normal(size=(5, 24, 24)), dtype=tdt)
+    want = ops.tlr_mm(u, v, u, v, diag[2:])
+    before = diag.clone()
+    got = ops.tlr_mm(u, v, u, v, diag[2:], out=diag[2:])
+    assert got.data_ptr() == diag[2:].data_ptr()
+    np.testing.assert_array_equal(diag[2:].numpy(), want.numpy())
+    np.testing.assert_array_equal(diag[:2].numpy(), before[:2].numpy())
+    other = torch.empty_like(want)
+    assert ops.tlr_mm(u, v, u, v, before[2:], out=other) is other
+    np.testing.assert_array_equal(other.numpy(), want.numpy())
+
+
+def test_tlr_mm_out_refuses_overlap_other_than_acc_itself():
+    u = torch.zeros((2, 8, 4), dtype=torch.float64)
+    big = torch.zeros((4, 8, 8), dtype=torch.float64)
+    acc, v = big[:2], big[2:]
+    with pytest.raises(ValueError, match="out overlaps u_a"):
+        check_out(acc, v, [("u_a", acc.reshape(2, 16, 4))])
+    with pytest.raises(ValueError, match="out must match acc"):
+        ops.tlr_mm(u, u, u, u, acc, out=torch.zeros((2, 8, 8), dtype=torch.float32))
+    check_out(acc, acc, [("u_a", u)])  # out = acc is the in-place form
+
+
+def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
+    """CPU tensors, dtypes without an instance and overlapping ``out`` are
+    refused before the library is built; each dtype names its instance."""
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
+    assert set(potrf_cuda.launches_by_instance) == {"dmma_f64", "fma_f32"}
+    assert set(tlr_mm_cuda.launches_by_instance) == {"dmma_f64", "fma_f32"}
+    for dtype in (torch.float64, torch.float16, torch.int32):
+        u = torch.zeros((2, 8, 4), dtype=dtype)
+        acc = torch.zeros((2, 8, 8), dtype=dtype)
+        with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
+            potrf_cuda(acc)
+        with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
+            tlr_mm_cuda(u, u, u, u, acc)
+        with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
+            tlr_mm_cuda(u, u, u, u, acc, out=acc)
+    big = torch.zeros((4, 8, 8), dtype=torch.float64)
+    u = torch.zeros((2, 8, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="out overlaps acc"):
+        ops.tlr_mm(u, u, u, u, big[:2], out=big[1:3])
+    assert ops.launch_counts()["potrf"] == 0 and ops.launch_counts()["tlr_mm"] == 0
+    potrf_cuda.launches_by_instance["dmma_f64"] = 2
+    tlr_mm_cuda.launches_by_instance["fma_f32"] = 1
+    ops.reset_launch_counts()
+    counts = ops.instance_counts()
+    assert counts["potrf"] == {"dmma_f64": 0, "fma_f32": 0}
+    assert counts["tlr_mm"] == {"dmma_f64": 0, "fma_f32": 0}
+    assert counts["flash_attention"] == {"wgmma_bf16": 0, "fma_f32": 0}
