@@ -11,25 +11,34 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             src/repro_torch/kernels/build/) and the build time printed,
             with the compiler's report of the two flash_attention
             instances (registers, spills) and of the f64 (dmma_f64)
-            instances of potrf and tlr_mm (registers, spills, and the DMMA
-            instructions in each kernel's SASS).  It fails unless the bf16
-            flash instance was compiled to the 168 registers a thread that
-            its setmaxnreg split assumes, unless, where cuobjdump sits
-            beside nvcc, its SASS holds HGMMA (wgmma) and UTMALDG (TMA
-            loads), and unless every product kernel of the dmma_f64
-            instances holds DMMA (the FP64 tensor cores).
+            instances of potrf, tlr_mm, trsm and syrk (registers, spills,
+            and the DMMA instructions in each kernel's SASS).  It fails
+            unless the bf16 flash instance was compiled to the 168
+            registers a thread that its setmaxnreg split assumes, unless,
+            where cuobjdump sits beside nvcc, its SASS holds HGMMA (wgmma)
+            and UTMALDG (TMA loads), and unless every product kernel of the
+            dmma_f64 instances holds DMMA (the FP64 tensor cores).
 2. kernels  each of the six hand-written kernels against its plain
             PyTorch version on the card, at the shapes the main path gives
             it, with its time, the plain version's, a library yardstick
             where one exists, and the least time the card could take
             (bound).  flash_attention is held at every shape its two
-            instances take (bf16 on wgmma, f32 on FMAs), potrf and tlr_mm
-            at the shapes of both of theirs (f64 on DMMA, f32 on FMAs),
-            each record naming its instance.  potrf is also timed at
-            (1, 2048, 2048) and (1, 4096, 4096), and failed on a bad pivot
-            in the first panel of a 4096 tile; tlr_mm at B = 8 and 1, with
-            out=acc (checked against the plain version on a copy), and
-            summed over a factorization's sweep of B = 63 down to 1.
+            instances take (bf16 on wgmma, f32 on FMAs), potrf, tlr_mm,
+            trsm and syrk at the shapes of both of theirs (f64 on DMMA, f32
+            on FMAs), each record naming its instance.  potrf is also timed
+            at (1, 2048, 2048) and (1, 4096, 4096), and failed on a bad
+            pivot in the first panel of a 4096 tile; tlr_mm at B = 8 and 1,
+            with out=acc (checked against the plain version on a copy), and
+            summed over a factorization's sweep of B = 63 down to 1.  trsm
+            is timed at the panel, wide, alpha and predict shapes and at
+            nb = 4096 (the exact phase's panel, its first and last solves),
+            held on a real Matérn L_kk, and held and summed over one TLR
+            factorization's panel TRSMs; syrk is timed at the exact phase's
+            first update at panel 512 and at panel 4096, and held and
+            summed over the panel-512 path's 63 updates, each beside its
+            library call.  Times are the card's: cuda_ms queues the runs
+            behind a sleep on the card, so the host's launch overhead
+            between short calls does not enter.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
             TLR Cholesky -> solve) through ``tlr_loglik(from_tiles=True,
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
@@ -53,10 +62,12 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             ``dist_exact_loglik(pairwise_distances(locs), z, params,
             panel=512)`` at the same configuration, locations and z (Sigma
             from the distances, then per panel step POTRF, TRSM and the SYRK
-            kernel's trailing update).  It fails unless the loglik is finite,
-            within 1e-7 (relative) of the main phase's dense exact loglik,
-            and the phase launched syrk nk - 1, potrf nk and trsm 2 nk - 1
-            times (nk = m / 512).
+            kernel's trailing update), then again at the reference's default
+            panel=4096 on the same distances.  Each fails unless the loglik
+            is finite, within 1e-7 (relative) of the main phase's dense
+            exact loglik, and the evaluation launched syrk nk - 1, potrf nk
+            and trsm 2 nk - 1 times (nk = m / panel: 63 / 64 / 127 and
+            7 / 8 / 15), all of the dmma_f64 instances.
 6. mle      Nelder–Mead estimation through ``fit`` with the generator-direct
             TLR backend (tile 512, max rank 128, TLR7, all six parameters
             free) on n = 48^2 locations of the same jittered grid (depth cut
@@ -67,6 +78,10 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             start, a fresh ``tlr_loglik`` at the fitted parameters equals the
             fitted loglik to 1e-10 (relative), and tlr_mm, potrf and trsm
             were launched during the fit.
+   plans    every plan the f64 trsm and syrk took on the main, serve,
+            exact and mle paths (trsm: strip columns, update tile, row
+            split; syrk: tile edge; each a kernel of its own) is one that
+            a kernel check of phase 2 held against the plain version.
 7. lm       LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
@@ -87,12 +102,15 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
 ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
-serve, exact, mle and lm runs, where lm is the timed prefill forward and the
-engine's ``generate``, and ``launches_by_path`` splits them), the
+serve, exact (panel 512), exact4096, mle and lm runs, where lm is the timed
+prefill forward and the engine's ``generate``, and ``launches_by_path``
+splits them), the
 nvidia-smi line,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
-CUDA device or a missing checkout around the script.
+CUDA device or a missing checkout around the script.  The geostat paths
+(main, serve, exact, exact4096, mle) fail if an fma_f32 instance of
+potrf, tlr_mm, trsm or syrk was launched during them.
 """
 
 from __future__ import annotations
@@ -167,7 +185,13 @@ DMMA_PRODUCT_KERNELS = (
     "potrf_update_f64",
     "tlr_mm_w_f64",
     "tlr_mm_out_f64",
+    "trsm_strip_f64",
+    "trsm_rows_f64",
+    "trsm_update_f64",
+    "syrk_dmma_f64",
 )
+# The sources of the dmma_f64 instances.
+DMMA_SOURCES = ("potrf.cu", "tlr_mm.cu", "trsm.cu", "syrk.cu")
 # The tolerances of tests/test_kernels.py's flash attention tests: _tol for
 # bf16, the window and decode tests' for f32.
 ATTN_TOL = {
@@ -190,6 +214,9 @@ CHOL_TOL = {
 NUGGET, TOL_TLR, TILE, KMAX = 1e-8, 1e-7, 512, 128
 # Live rows of the first TLR panel step there: T - 1 = 32768 / 512 - 1.
 SWEEP_B = 63
+# The reference's default panel of dist_exact_loglik, the exact phase's
+# second evaluation.
+EXACT_PANEL = 4096
 MATERN = dict(sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5)
 # The kernels the main and serve paths run (the exact path adds syrk).
 TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
@@ -203,6 +230,10 @@ LM_ARCH, LM_PARAMS = "qwen3-4b", 4_022_468_096
 LM_PREFILL = (2, 4096)
 LM_PROMPTS, LM_STEPS = (8, 512), 64
 LM_F32_GAP, LM_BF16_GAP, LM_DECODE_GAP = 1e-4, 5e-2, 5e-2
+
+
+# Clock cycles of the sleep that cuda_ms queues its runs behind.
+QUEUE_SLEEP_CYCLES = 5_000_000
 
 
 def emit(obj) -> None:
@@ -221,18 +252,26 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Mean milliseconds of ``fn`` over ``reps`` runs, by CUDA events.  The
+    runs are queued behind a sleep of about 2.5 ms on the card, so that the
+    host has issued them before the card reaches the first: the time is the
+    card's, without the host's launch overhead between short calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def sm_count(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def bound(nbytes: float, ops: float, kind: str, dtype: str):
@@ -333,15 +372,16 @@ def flash_sass(lib) -> dict:
 
 
 def dmma_report(log_text: str, lib) -> dict:
-    """For each kernel of the dmma_f64 instances of potrf and tlr_mm: the
-    compiler's registers and spill lines, and the DMMA instructions in its
-    SASS (cuobjdump).  ok unless cuobjdump is missing or one of the product
-    kernels (potrf's panel and update, both tlr_mm stages) is missing or
-    has an instance without DMMA."""
+    """For each kernel of the dmma_f64 instances of potrf, tlr_mm, trsm and
+    syrk: the compiler's registers and spill lines, and the DMMA
+    instructions in its SASS (cuobjdump).  ok unless cuobjdump is missing or
+    one of the product kernels (potrf's panel and update, both tlr_mm
+    stages, trsm's strip and update, syrk's tile) is missing or has an
+    instance without DMMA."""
     from repro_torch.kernels import _build
 
     report = {}
-    for src in ("potrf.cu", "tlr_mm.cu"):
+    for src in DMMA_SOURCES:
         section = log_text.split(f"== {src}", 1)[-1].split("\n== ", 1)[0]
         name = None
         for line in section.splitlines():
@@ -544,9 +584,10 @@ def _potrf_bound(b, nb, isz):
 
 
 def _trsm_bound(b, nb, r, lo_b, isz):
-    # read L (once if broadcast) and B, write X; nb^2 r flops a tile
+    # read L's lower triangle (once if broadcast) and B, write X; nb^2 r
+    # flops a tile
     dname = "float64" if isz == 8 else "float32"
-    nbytes = (lo_b * nb * nb + 2 * b * nb * r) * isz
+    nbytes = (lo_b * nb * (nb + 1) / 2 + 2 * b * nb * r) * isz
     return bound(nbytes, b * nb * nb * r, "matmul", dname)
 
 
@@ -680,12 +721,15 @@ def check_potrf_matern(torch, locs, params):
     return rec
 
 
-def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed):
+def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed, lo=None):
+    """trsm_cuda against trsm_ref on the factor of a a^T + nb I, or on
+    ``lo`` where given."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.chol_tiles import trsm_cuda
+    from repro_torch.kernels.chol_tiles import trsm_cuda, trsm_instance, trsm_plan
 
     dname = str(dtype).split(".")[-1]
-    lo = torch.linalg.cholesky(_spd(torch, gen, lo_b, nb, torch.float64))
+    if lo is None:
+        lo = torch.linalg.cholesky(_spd(torch, gen, lo_b, nb, torch.float64))
     lo = lo.to(dtype).contiguous()
     rhs = torch.randn((b, nb, r), generator=gen, dtype=torch.float64, device="cuda")
     rhs = rhs.to(dtype)
@@ -698,9 +742,12 @@ def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed):
     rec = {
         "phase": "kernel_check",
         "kernel": "trsm",
+        "instance": trsm_instance(dtype),
         "case": tag,
         "shape": [b, nb, r],
         "lo_batch": lo_b,
+        # (strip columns, super-block rows, update tile, row split)
+        "plan": trsm_plan(b, nb, r, sm_count(torch)) if dtype == torch.float64 else None,
         "dtype": dname,
         "max_abs_err": err,
         "ok": ok,
@@ -716,6 +763,74 @@ def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed):
             torch, lambda: torch.linalg.solve_triangular(lo, rhs, upper=False)
         )
     emit(rec)
+    del lo, rhs, got, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_trsm_matern(torch, gen, locs, params):
+    """The panel TRSM's shape on a real L_kk: the factor of the main
+    configuration's first diagonal tile (the first 256 Morton locations,
+    nugget 1e-8), broadcast over 63 tiles of 128 right-hand sides."""
+    from repro_torch.core.covariance import build_sigma_panel
+
+    blk = locs[: TILE // 2]
+    a = build_sigma_panel(blk, blk, params, gen="kernel")
+    a = a + NUGGET * torch.eye(TILE, dtype=a.dtype, device="cuda")
+    lo = torch.linalg.cholesky(a)[None]
+    rec = check_trsm(torch, gen, "matern_lkk", SWEEP_B, TILE, KMAX, 1,
+                     torch.float64, False, lo=lo)
+    return rec
+
+
+def check_trsm_sweep(torch, gen):
+    """The panel TRSM of every panel step of one TLR factorization at the
+    main configuration: one L_kk broadcast over B = 63 live V tiles of
+    (512, 128) down to 1, each held against solve_triangular at CHOL_TOL
+    (the plan narrows the strips as B falls, and splits the rows at B <= 4);
+    the kernel's summed time beside the library's."""
+    from repro_torch.kernels.chol_tiles import trsm_cuda, trsm_plan
+
+    lo = torch.linalg.cholesky(_spd(torch, gen, 1, TILE, torch.float64))
+    lo = lo.contiguous()
+    rhs = torch.randn((SWEEP_B, TILE, KMAX), generator=gen, dtype=torch.float64,
+                      device="cuda")
+    tol = CHOL_TOL["trsm"]["float64"]
+    ms = lib = bnd = err = 0.0
+    ok = True
+    plans = set()
+    for B in range(SWEEP_B, 0, -1):
+        x = rhs[:B]
+        got = trsm_cuda(lo, x)
+        want = torch.linalg.solve_triangular(lo, x, upper=False)
+        e, good = max_err(torch, got, want, **tol)
+        err, ok = max(err, e), ok and good
+        plans.add(tuple(trsm_plan(B, TILE, KMAX, sm_count(torch))))
+        ms += cuda_ms(torch, lambda: trsm_cuda(lo, x), reps=5)
+        lib += cuda_ms(
+            torch,
+            lambda: torch.linalg.solve_triangular(lo, x, upper=False),
+            reps=5,
+        )
+        bnd += _trsm_bound(B, TILE, KMAX, 1, 8)[0]
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "trsm",
+        "instance": "dmma_f64",
+        "case": "sweep_63_to_1",
+        "shapes": [[SWEEP_B, TILE, KMAX], [1, TILE, KMAX]],
+        "dtype": "float64",
+        "plans": sorted(plans),
+        "max_abs_err": err,
+        "tol": tol,
+        "ms_sum": ms,
+        "library_ms_sum": lib,
+        "bound_ms_sum": bnd,
+        "ok": ok and math.isfinite(ms),
+    }
+    emit(rec)
+    del lo, rhs
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -732,7 +847,7 @@ def check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout=False):
     as the exact path passes them: C the trailing block of a larger matrix
     (rows strided) and A the transpose of the TRSM's (1, k, nb) output."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.chol_tiles import syrk_cuda
+    from repro_torch.kernels.chol_tiles import syrk_cuda, syrk_instance
 
     dname = str(dtype).split(".")[-1]
     kw = dict(generator=gen, dtype=dtype, device="cuda")
@@ -751,6 +866,7 @@ def check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout=False):
     rec = {
         "phase": "kernel_check",
         "kernel": "syrk",
+        "instance": syrk_instance(dtype),
         "case": tag,
         "shape": [b, nb, k],
         "dtype": dname,
@@ -792,6 +908,7 @@ def check_syrk_64bit(torch, gen):
     rec = {
         "phase": "kernel_check",
         "kernel": "syrk",
+        "instance": "dmma_f64",
         "case": "offsets_past_2^31",
         "shape": [1, nb, k],
         "dtype": "float64",
@@ -801,6 +918,55 @@ def check_syrk_64bit(torch, gen):
     }
     emit(rec)
     del c, a, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_syrk_sweep(torch, gen, panel=TILE):
+    """The trailing update of every panel step of the exact path at the main
+    configuration (m = 32768, panel 512): nb = 32256 down to 512, C the
+    trailing block of a larger matrix and A column-major, as the path
+    passes them, each held against baddbmm's result; the kernel's summed
+    time beside the library's."""
+    from repro_torch.kernels.chol_tiles import syrk_cuda
+
+    m = (SWEEP_B + 1) * TILE  # 32768
+    kw = dict(generator=gen, dtype=torch.float64, device="cuda")
+    big = torch.randn((1, m, m), **kw)
+    pan = torch.randn((1, panel, m), **kw)
+    ms = lib = bnd = err = 0.0
+    ok = True
+    for nb in range(m - panel, 0, -panel):
+        c = big[:, m - nb :, m - nb :]
+        a = pan[:, :, :nb].mT
+        got = syrk_cuda(c, a)
+        want = torch.baddbmm(c, a, a.mT, alpha=-1.0)
+        for r0 in range(0, nb, 4096):  # 1 GB temporaries at a time
+            rows = slice(r0, r0 + 4096)
+            e, good = max_err(torch, got[:, rows], want[:, rows], **TOL["float64"])
+            err, ok = max(err, e), ok and good
+        del got, want
+        ms += cuda_ms(torch, lambda: syrk_cuda(c, a), reps=3, warmup=1)
+        lib += cuda_ms(
+            torch, lambda: torch.baddbmm(c, a, a.mT, alpha=-1.0), reps=3, warmup=1
+        )
+        bnd += _syrk_bound(1, nb, panel, 8)[0]
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "syrk",
+        "instance": "dmma_f64",
+        "case": "sweep_exact_panel512",
+        "shapes": [[1, m - panel, panel], [1, panel, panel]],
+        "dtype": "float64",
+        "max_abs_err": err,
+        "tol": TOL["float64"],
+        "ms_sum": ms,
+        "library_ms_sum": lib,
+        "bound_ms_sum": bnd,
+        "ok": ok and math.isfinite(ms),
+    }
+    emit(rec)
+    del big, pan
     torch.cuda.empty_cache()
     return rec
 
@@ -888,17 +1054,14 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
 
 
 def phase_kernels(torch, st, n_side: int):
-    from repro_torch.core.covariance import MaternParams, morton_order
-    from repro_torch.core.simulate import grid_locations
-
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     records = []
     # matern_tile at the largest GEN panel of the main path: the strict-lower
     # panel of column 0, (T-1)*nbl rows by nbl = 256 location columns; and a
     # ragged shape
-    locs = grid_locations(n_side, jitter=0.3, seed=0)
-    locs = torch.as_tensor(locs[morton_order(locs)], device="cuda")
+    locs, params, _ = main_config(torch, n_side, torch.device("cuda"))
+    locs = torch.as_tensor(locs, device="cuda")
     rag = torch.rand((1000, 2), generator=gen, dtype=torch.float64, device="cuda")
     cases = [("panel", locs[256:], locs[:256]), ("ragged", rag, rag[:77])]
     for tag, la, lb in cases:
@@ -964,38 +1127,60 @@ def phase_kernels(torch, st, n_side: int):
                 st.setdefault("extra", {}).setdefault("potrf", []).append(rec)
     records.append(check_potrf_failure(torch, gen))
     records.append(check_potrf_failure_first_panel(torch, gen))
-    params = MaternParams.bivariate(**MATERN, device="cuda")
     records.append(check_potrf_matern(torch, locs, params))
-    # trsm: the panel TRSM (one L_kk for the 63 live V tiles of step 0:
-    # r = 63 x 128 = 8064 columns in all), the sweep for alpha (r = 1), the
-    # sweep of a 512-location request (r = 512 x 2), a ragged case and the
-    # README's serving tile
+    # trsm in both instances: the panel TRSM (one L_kk for the 63 live V
+    # tiles of step 0: r = 63 x 128 = 8064 columns in all), the same columns
+    # as one tile (wide), the sweep for alpha (r = 1), the sweep of a
+    # 512-location request (r = 512 x 2), a ragged case with a factor per
+    # tile, nb = 1, the README's serving tile, the reference's exact panel
+    # 4096 (eight super-blocks and updates: the f64 instance's large-nb
+    # schedule) and its alpha; in f64 only, the exact path's first and last
+    # panel solves at panel 4096 (updates of 128 x 128 tiles); then the
+    # panel shape on a real Matérn L_kk and the summed sweep of one TLR
+    # factorization's panel TRSMs
     cases = (
         ("panel", 63, 512, 128, 1),
         ("wide", 1, 512, 8064, 1),
         ("alpha", 1, 512, 1, 1),
         ("predict", 1, 512, 1024, 1),
         ("ragged", 3, 200, 37, 3),
+        ("nb1", 2, 1, 3, 2),
         ("tile2048", 4, 2048, 128, 1),
         ("panel4096", 1, 4096, 512, 1),
+        ("alpha4096", 1, 4096, 1, 1),
     )
+    timed_trsm = ("panel", "wide", "alpha", "predict", "panel4096", "alpha4096")
     for tag, b, nb, r, lo_b in cases:
         for dtype in (torch.float64, torch.float32):
-            timed = tag in ("panel", "wide", "alpha", "predict", "panel4096")
-            timed = timed and dtype == torch.float64
+            timed = tag in timed_trsm and dtype == torch.float64
             rec = check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed)
             records.append(rec)
             if tag == "panel" and timed:
                 st.setdefault("summary", {})["trsm"] = rec
+            elif timed:
+                st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
+    m = (SWEEP_B + 1) * TILE
+    for tag, r in (("exact4096_first", m - EXACT_PANEL), ("exact4096_last", EXACT_PANEL)):
+        rec = check_trsm(torch, gen, tag, 1, EXACT_PANEL, r, 1, torch.float64, True)
+        records.append(rec)
+        st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
+    records.append(check_trsm_matern(torch, gen, locs, params))
+    rec = check_trsm_sweep(torch, gen)
+    records.append(rec)
+    st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
     # syrk: the first trailing update of the exact phase (m_k = 32256,
     # panel 512) in the operands' path layout, a batch in both dtypes, the
-    # JAX test shapes, a ragged nb, k = 1, and offsets past 2^31
+    # JAX test shapes, a ragged nb (row-major A; and odd nb and k in the
+    # path layout, whose copies are 8 bytes), the path's last step (the f64
+    # instance's 64 x 64 tiles), k = 1, and offsets past 2^31
     cases = (
         ("path", 1, 32256, 512, True, (torch.float64,)),
         ("batch", 4, 512, 128, False, (torch.float64, torch.float32)),
         ("jax_2x64x64", 2, 64, 64, False, (torch.float64, torch.float32)),
         ("jax_4x32x16", 4, 32, 16, False, (torch.float64, torch.float32)),
         ("ragged", 2, 1000, 200, False, (torch.float64, torch.float32)),
+        ("ragged_path", 2, 1001, 203, True, (torch.float64, torch.float32)),
+        ("last_step", 1, 512, 512, True, (torch.float64,)),
         ("k1", 2, 300, 1, False, (torch.float64,)),
     )
     for tag, b, nb, k, path_layout, dtypes in cases:
@@ -1005,7 +1190,17 @@ def phase_kernels(torch, st, n_side: int):
             records.append(rec)
             if tag == "path":
                 st.setdefault("summary", {})["syrk"] = rec
+            elif timed:
+                st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
     records.append(check_syrk_64bit(torch, gen))
+    # the exact path's panel-4096 shapes (first step) and the summed sweep
+    # of the panel-512 path's 63 updates
+    rec = check_syrk(torch, gen, "path4096", 1, 28672, 4096, torch.float64, True, True)
+    records.append(rec)
+    st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
+    rec = check_syrk_sweep(torch, gen)
+    records.append(rec)
+    st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
     # flash_attention, both instances: qwen3-4b prefill at B = 2, S = 4096
     # (the path's shape, timed), the f32 shape of the lm phase's depth-4
     # check (timed), a window, right-aligned decode and a short query block
@@ -1051,21 +1246,31 @@ def serve_requests():
     return [rng.uniform(0.05, 0.95, size=(512, 2)) for _ in range(9)]
 
 
-def phase_main(torch, st, n_side: int):
-    from repro_torch.core import tlr as tlr_module
+def main_config(torch, n_side: int, dev):
+    """The main configuration (PERF.md section 4): n_side^2 Morton-ordered
+    locations of the jittered grid, the bivariate Matérn parameters, and
+    the generator (seed 0) that simulates z with ``simulate_mgrf``."""
     from repro_torch.core.covariance import MaternParams, morton_order
-    from repro_torch.core.likelihood import exact_loglik
-    from repro_torch.core.prediction import cokrige, dense_factor
-    from repro_torch.core.simulate import grid_locations, simulate_mgrf
-    from repro_torch.kernels import ops
+    from repro_torch.core.simulate import grid_locations
 
-    dev = torch.device("cuda")
-    nugget, tol, tile, kmax = NUGGET, TOL_TLR, TILE, KMAX
     locs = grid_locations(n_side, jitter=0.3, seed=0)
     locs = locs[morton_order(locs)]
     params = MaternParams.bivariate(**MATERN, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    return locs, params, gen
+
+
+def phase_main(torch, st, n_side: int):
+    from repro_torch.core import tlr as tlr_module
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.prediction import cokrige, dense_factor
+    from repro_torch.core.simulate import simulate_mgrf
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    nugget, tol, tile, kmax = NUGGET, TOL_TLR, TILE, KMAX
+    locs, params, gen = main_config(torch, n_side, dev)
     t0 = time.perf_counter()
     z = simulate_mgrf(gen, locs, params, nugget=nugget, device=dev)[0]
     exact = exact_loglik(locs, z, params, nugget=nugget, keep_chol=True, device=dev)
@@ -1305,61 +1510,71 @@ def phase_exact(torch, st):
     ref = st.pop("exact_ref")
     locs, z, params = ref["locs"], ref["z"], ref["params"]
     dev = torch.device("cuda")
-    panel = TILE
     m = z.shape[-1]
-    nk = m // panel
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
     dists = pairwise_distances(torch.as_tensor(locs, device=dev))
     torch.cuda.synchronize()
     dists_s = time.perf_counter() - t0
-    times = {}
-    t0 = time.perf_counter()
-    res = dist_exact_loglik(
-        dists, z, params, nugget=NUGGET, panel=panel, times=times
-    )
-    ll = float(res.loglik)
-    total_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    st.setdefault("launches", {})["exact"] = launches
-    instances = path_instances(ops, st, "exact")
-    peak = torch.cuda.max_memory_allocated()
+    failed = []
+    # panel 512, the comparable number, then the reference's default 4096,
+    # on the same distances
+    for path, panel in (("exact", TILE), ("exact4096", min(EXACT_PANEL, m))):
+        nk = m // panel
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        res = dist_exact_loglik(
+            dists, z, params, nugget=NUGGET, panel=panel, times=times
+        )
+        ll = float(res.loglik)
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        st.setdefault("launches", {})[path] = launches
+        instances = path_instances(ops, st, path)
+        peak = torch.cuda.max_memory_allocated()
+        rel = abs(ll - ref["loglik"]) / abs(ref["loglik"])
+        logdet_gap = abs(float(res.logdet) - ref["logdet"]) / abs(ref["logdet"])
+        quad_gap = abs(float(res.quad) - ref["quad"]) / abs(ref["quad"])
+        want = {"syrk": nk - 1, "potrf": nk, "trsm": 2 * nk - 1}
+        ok = math.isfinite(ll) and rel <= 1e-7
+        ok = ok and all(launches[name] == count for name, count in want.items())
+        ok = ok and f64_only(instances)
+        del res
+        emit(
+            {
+                "phase": "exact",
+                "path": path,
+                "ok": ok,
+                "n": len(locs),
+                "m": m,
+                "panel": panel,
+                "panel_steps": nk,
+                "nugget": NUGGET,
+                "exact_panel_loglik_s": total_s,
+                "phase_s": times,
+                "dists_s": dists_s,
+                "loglik_panel": ll,
+                "loglik_dense": ref["loglik"],
+                "rel_gap": rel,
+                "logdet_rel_gap": logdet_gap,
+                "quad_rel_gap": quad_gap,
+                "launches": launches,
+                "launches_by_instance": instances,
+                "launches_expected": want,
+                "peak_bytes": peak,
+            }
+        )
+        if not ok:
+            failed.append(panel)
     del dists
-    rel = abs(ll - ref["loglik"]) / abs(ref["loglik"])
-    logdet_gap = abs(float(res.logdet) - ref["logdet"]) / abs(ref["logdet"])
-    quad_gap = abs(float(res.quad) - ref["quad"]) / abs(ref["quad"])
-    want = {"syrk": nk - 1, "potrf": nk, "trsm": 2 * nk - 1}
-    ok = math.isfinite(ll) and rel <= 1e-7
-    ok = ok and all(launches[name] == count for name, count in want.items())
-    ok = ok and f64_only(instances)
-    emit(
-        {
-            "phase": "exact",
-            "ok": ok,
-            "n": len(locs),
-            "m": m,
-            "panel": panel,
-            "panel_steps": nk,
-            "nugget": NUGGET,
-            "exact_panel_loglik_s": total_s,
-            "phase_s": times,
-            "dists_s": dists_s,
-            "loglik_panel": ll,
-            "loglik_dense": ref["loglik"],
-            "rel_gap": rel,
-            "logdet_rel_gap": logdet_gap,
-            "quad_rel_gap": quad_gap,
-            "launches": launches,
-            "launches_by_instance": instances,
-            "launches_expected": want,
-            "peak_bytes": peak,
-        }
-    )
-    if not ok:
-        raise AssertionError("exact panel path failed its checks")
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"exact panel path failed its checks at panel {failed}")
 
 
 def phase_mle(torch, st, n_side: int):
@@ -1462,6 +1677,51 @@ def phase_mle(torch, st, n_side: int):
         raise AssertionError("mle path failed its checks")
 
 
+def record_plans(st) -> None:
+    """Keep every plan the f64 trsm and syrk pick (trsm's strip columns,
+    update tile and row split; syrk's tile edge) under the phase that ran
+    it, ``st["phase"]``: the wrappers look the plan functions up in their
+    module at each call, so these stand in for them."""
+    from repro_torch.kernels import chol_tiles
+
+    plans = st.setdefault("plans", {})
+
+    def recorded(name, fn, key):
+        def plan(*args):
+            out = fn(*args)
+            plans.setdefault(st["phase"], set()).add((name, *key(out)))
+            return out
+
+        return plan
+
+    chol_tiles.trsm_plan = recorded(
+        "trsm", chol_tiles.trsm_plan, lambda p: (p[0], p[2], p[3])
+    )
+    chol_tiles.syrk_tile = recorded("syrk", chol_tiles.syrk_tile, lambda t: (t,))
+
+
+def phase_plans(st):
+    """Every plan of the f64 trsm and syrk that a path ran is one that the
+    kernels phase held against the plain version: each (strip width, update
+    tile, row split) and each tile edge is a kernel of its own."""
+    plans = st.get("plans", {})
+    checked = plans.get("kernels", set())
+    by_path = {p: plans.get(p, set()) for p in ("main", "serve", "exact", "mle")}
+    missing = sorted(set().union(*by_path.values()) - checked)
+    ok = bool(checked) and not missing
+    emit(
+        {
+            "phase": "plans",
+            "ok": ok,
+            "checked": sorted(checked),
+            "by_path": {p: sorted(v) for p, v in by_path.items()},
+            "missing": missing,
+        }
+    )
+    if not ok:
+        raise AssertionError(f"plans the paths ran but no check held: {missing}")
+
+
 def path_instances(ops, st, path: str) -> dict:
     """The launches of each kernel instance during a path, kept for the
     summary line."""
@@ -1471,9 +1731,10 @@ def path_instances(ops, st, path: str) -> dict:
 
 
 def f64_only(instances: dict) -> bool:
-    """The geostat paths run in f64: potrf and tlr_mm launch only their
-    dmma_f64 instance there."""
-    return all(instances[name]["fma_f32"] == 0 for name in ("potrf", "tlr_mm"))
+    """The geostat paths run in f64: potrf, tlr_mm, trsm and syrk launch
+    only their dmma_f64 instance there."""
+    names = ("potrf", "tlr_mm", "trsm", "syrk")
+    return all(instances[name]["fma_f32"] == 0 for name in names)
 
 
 def rel_gap(torch, got, want) -> float:
@@ -1664,6 +1925,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     st = {}
     failed = []
+    record_plans(st)
     phases = (
         ("device", lambda: phase_device(torch, st)),
         ("kernels", lambda: phase_kernels(torch, st, args.n_side)),
@@ -1671,9 +1933,11 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, st)),
         ("exact", lambda: phase_exact(torch, st)),
         ("mle", lambda: phase_mle(torch, st, args.n_side)),
+        ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),
     )
     for name, fn in phases:
+        st["phase"] = name
         try:
             fn()
         except Exception as exc:  # report every phase, then fail the run
@@ -1716,7 +1980,8 @@ def main() -> int:
             kernels[-1]["f32_instance"] = {
                 key: f32[key] for key in ("instance", "shape", *keys, "library_ms")
             }
-        extra_keys = ("case", "shape", "ms", "ms_out_acc", "plain_ms", "library_ms")
+        extra_keys = ("case", "shape", "plan", "ms", "ms_out_acc", "plain_ms")
+        extra_keys += ("library_ms",)
         extra_keys += ("bound_ms", "ms_sum", "library_ms_sum", "bound_ms_sum")
         if name in st.get("extra", {}):
             kernels[-1]["other_shapes"] = [

@@ -5,9 +5,12 @@ of the blocked Cholesky.
 Counterparts of the Pallas kernels ``repro.kernels.chol_tiles.potrf``,
 ``.trsm`` and ``.syrk``.  The plain versions are ``kernels.ref.potrf_ref``,
 ``trsm_ref`` and ``syrk_ref``; ``kernels.ops`` chooses by the tensors'
-device.  The dtype picks one of potrf's two instances: float64 runs
-``dmma_f64`` (blocked over the card, the trailing update on the FP64 tensor
-cores), float32 ``fma_f32`` (one block a tile on the FP32 CUDA cores).
+device.  The dtype picks one of each kernel's two instances: float64 runs
+``dmma_f64`` (every product on the FP64 tensor cores; potrf and, past 512
+rows, trsm blocked over the card), float32 ``fma_f32`` (the first kernels,
+on the FP32 CUDA cores).  The host-side plans of the f64 instances (trsm's
+strip width, super-block, update tile and row split; syrk's tile edge) are
+the plain functions ``trsm_plan`` and ``syrk_tile``.
 """
 
 from __future__ import annotations
@@ -23,20 +26,49 @@ _POTRF = {
     torch.float64: ("dmma_f64", "potrf_f64"),
     torch.float32: ("fma_f32", "potrf_f32"),
 }
-_TRSM = {torch.float64: "trsm_f64", torch.float32: "trsm_f32"}
-_SYRK = {torch.float64: "syrk_f64", torch.float32: "syrk_f32"}
-SYRK_TILE = 64  # output tile edge of one syrk block
-# Dynamic shared memory a trsm block may take for its right-hand-side
-# columns (the card allows 227 KB a block; the kernel's static part is 8 KB).
+_TRSM = {
+    torch.float64: ("dmma_f64", "trsm_f64"),
+    torch.float32: ("fma_f32", "trsm_f32"),
+}
+_SYRK = {
+    torch.float64: ("dmma_f64", "syrk_f64"),
+    torch.float32: ("fma_f32", "syrk_f32"),
+}
+SYRK_TILE = 64  # output tile edge of one fma_f32 syrk block
+# dmma_f64 syrk: output tile edges
+SYRK_DMMA_TILES = (128, 64)
+# fma_f32 trsm: dynamic shared memory a block may take for its
+# right-hand-side columns (the card allows 227 KB a block; the kernel's
+# static part is 8 KB), and its widest column block.
 TRSM_SMEM_BYTES = 200 * 1024
 TRSM_MAX_COLS = 32
+# dmma_f64 trsm: diagonal block (its inverses' edge), rows of one strip
+# launch, the strip widths, and the update tiles between strip launches.
+TRSM_BLOCK = 64
+TRSM_SUPER = 512
+TRSM_DMMA_COLS = (64, 32, 16, 8)
+TRSM_UPDATE_TILES = (128, 64)
+
+
+def _instance(kernel: str, table: dict, dtype: torch.dtype) -> str:
+    if dtype not in table:
+        raise ValueError(f"{kernel} takes float32 or float64, got {dtype}")
+    return table[dtype][0]
 
 
 def potrf_instance(dtype: torch.dtype) -> str:
     """Name of the potrf instance that takes ``dtype``; raises on any other."""
-    if dtype not in _POTRF:
-        raise ValueError(f"potrf takes float32 or float64, got {dtype}")
-    return _POTRF[dtype][0]
+    return _instance("potrf", _POTRF, dtype)
+
+
+def trsm_instance(dtype: torch.dtype) -> str:
+    """Name of the trsm instance that takes ``dtype``; raises on any other."""
+    return _instance("trsm", _TRSM, dtype)
+
+
+def syrk_instance(dtype: torch.dtype) -> str:
+    """Name of the syrk instance that takes ``dtype``; raises on any other."""
+    return _instance("syrk", _SYRK, dtype)
 
 
 def _potrf_fn(dtype: torch.dtype):
@@ -49,17 +81,23 @@ def _potrf_fn(dtype: torch.dtype):
 
 
 def _trsm_fn(dtype: torch.dtype):
-    fn = getattr(_build.library(), _TRSM[dtype])
+    fn = getattr(_build.library(), _TRSM[dtype][1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    if dtype == torch.float64:
+        # lo, b, out, dinv; batch, nb, r, lo_batch; the plan; stream
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+    else:
+        fn.argtypes = [p, p, p, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _syrk_fn(dtype: torch.dtype):
-    fn = getattr(_build.library(), _SYRK[dtype])
+    fn = getattr(_build.library(), _SYRK[dtype][1])
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i, i, i, q, q, q, q, q, p]
+    # the f64 instance takes its tile edge before the stream
+    tile = [i] if dtype == torch.float64 else []
+    fn.argtypes = [p, p, p, i, i, i, q, q, q, q, q, *tile, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,14 +171,52 @@ def trsm_cols(nb: int, r: int, batch: int, itemsize: int, sms: int) -> int:
     return rc
 
 
+def trsm_plan(batch: int, nb: int, r: int, sms: int) -> tuple[int, int, int, int]:
+    """(strip columns, super-block rows, update tile, row split) of the
+    dmma_f64 trsm.
+
+    A strip block solves up to 64 right-hand-side columns, halved (down to
+    8) while half of them would be padding for a small ``r`` or while the
+    grid of (column strips x batch) would leave half of the card's ``sms``
+    streaming multiprocessors idle.  (Each strip block streams all of L
+    through L2, so more, narrower strips cost L2 traffic: at the panel
+    TRSM, 126 strips of 64 beat 252 of 32.)  One strip launch solves a
+    super-block of at most 512 rows (all of nb <= 512).  Where 8-column
+    strips, each given a cluster of blocks, one a 64-row block row of the
+    super-block, would still fill at most half the card's SMs, the row
+    split is 1 (r = 1: alpha; with more clusters their chains of cluster
+    barriers lose to one block a strip).  Past one super-block
+    the updates between them take 128 x 128 tiles, or 64 x 64 ones where
+    the first update's 128 x 128 grid would fill under two waves of the
+    card (0 when nb <= 512: no update runs).
+    """
+    cols = TRSM_DMMA_COLS[0]
+    while cols > TRSM_DMMA_COLS[-1] and cols // 2 >= r:
+        cols //= 2
+    while cols > TRSM_DMMA_COLS[-1] and -(-r // cols) * batch < sms // 2:
+        cols //= 2
+    super_rows = min(TRSM_SUPER, -(-nb // TRSM_BLOCK) * TRSM_BLOCK)
+    strips = -(-r // cols) * batch
+    narrow = cols == TRSM_DMMA_COLS[-1]
+    split = int(narrow and strips * (super_rows // TRSM_BLOCK) <= sms // 2)
+    tile = 0
+    if nb > super_rows:
+        big = TRSM_UPDATE_TILES[0]
+        grid = -(-(nb - super_rows) // big) * -(-r // big) * batch
+        tile = big if grid >= 2 * sms else TRSM_UPDATE_TILES[1]
+    return cols, super_rows, tile, split
+
+
 def trsm_cuda(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel: X = L^{-1} B for lower L.
 
     ``lo`` is (B, nb, nb), or (1, nb, nb) to use one factor for the whole
     batch; ``b`` is (B, nb, r).  Both are contiguous CUDA tensors of one
     dtype (float32 or float64) on one device; only the lower triangle of
-    ``lo`` is read.  Returns a new (B, nb, r) tensor.  Raises on anything the
-    kernel does not take and if the launch fails.
+    ``lo`` is read.  Returns a new (B, nb, r) tensor.  The f64 instance
+    issues its launches (as ``trsm_plan`` lays them out) on the current
+    stream without a host sync.  Raises on anything the kernel does not take and if a launch
+    fails.
     """
     _check_cuda("b", b, None, None, _TRSM)
     _check_cuda("lo", lo, b.dtype, b.device, _TRSM)
@@ -156,29 +232,52 @@ def trsm_cuda(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(b)
     if batch == 0 or nb == 0 or r == 0:
         return out
+    name = trsm_instance(b.dtype)
     sms = torch.cuda.get_device_properties(b.device).multi_processor_count
-    rc = trsm_cols(nb, r, batch, b.element_size(), sms)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (lo.data_ptr(), b.data_ptr(), out.data_ptr())
-        code = _trsm_fn(b.dtype)(*ptrs, batch, nb, r, rc, lo.shape[0], stream)
-    _build.check(code, "trsm")
+        if b.dtype == torch.float64:
+            nblk = -(-nb // TRSM_BLOCK)
+            dinv = torch.empty(
+                (lo.shape[0], nblk, TRSM_BLOCK, TRSM_BLOCK),
+                dtype=b.dtype,
+                device=b.device,
+            )
+            plan = trsm_plan(batch, nb, r, sms)
+            args = (*ptrs, dinv.data_ptr(), batch, nb, r, lo.shape[0], *plan)
+        else:
+            rc = trsm_cols(nb, r, batch, b.element_size(), sms)
+            args = (*ptrs, batch, nb, r, rc, lo.shape[0])
+        code = _trsm_fn(b.dtype)(*args, stream)
+    _build.check(code, f"trsm ({name})")
     trsm_cuda.launches += 1
+    trsm_cuda.launches_by_instance[name] += 1
     return out
 
 
 trsm_cuda.launches = 0
+trsm_cuda.launches_by_instance = {name: 0 for name, _ in _TRSM.values()}
 
 
-def syrk_grid(batch: int, nb: int, k: int) -> tuple[int, int]:
-    """The syrk launch grid (lower-triangle output tiles, batch); raises for
-    a shape the kernel cannot index.  Element offsets are 64-bit, so nb^2
-    may pass 2^31; the tile count must fit grid.x and the batch grid.y."""
-    side = -(-nb // SYRK_TILE)
+def syrk_grid(batch: int, nb: int, k: int, tile: int = SYRK_TILE) -> tuple[int, int]:
+    """The syrk launch grid (lower-triangle output tiles of edge ``tile``,
+    batch); raises for a shape the kernel cannot index.  Element offsets are
+    64-bit, so nb^2 may pass 2^31; the tile count must fit grid.x and the
+    batch grid.y."""
+    side = -(-nb // tile)
     tiles = side * (side + 1) // 2
     if batch > 65535 or tiles >= 2**31 or nb >= 2**31 or k >= 2**31:
         raise ValueError(f"syrk of shape ({batch}, {nb}, {k}) is too large")
     return tiles, batch
+
+
+def syrk_tile(batch: int, nb: int, sms: int) -> int:
+    """Output tile edge of the dmma_f64 syrk: 128, or 64 where the 128 x 128
+    grid would fill under two waves of the card's ``sms`` SMs."""
+    big, small = SYRK_DMMA_TILES
+    tiles = syrk_grid(batch, nb, 0, big)[0]
+    return big if tiles * batch >= 2 * sms else small
 
 
 def syrk_cuda(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -212,16 +311,23 @@ def syrk_cuda(c: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     out = torch.empty((batch, nb, nb), dtype=c.dtype, device=c.device)
     if batch == 0 or nb == 0:
         return out
+    name = syrk_instance(c.dtype)
     if k <= 1:
         a_cs = 1
+    tile = []
+    if c.dtype == torch.float64:
+        sms = torch.cuda.get_device_properties(c.device).multi_processor_count
+        tile = [syrk_tile(batch, nb, sms)]
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
         ptrs = (c.data_ptr(), a.data_ptr(), out.data_ptr())
         strides = (c.stride(0), c.stride(1), a.stride(0), a_rs, a_cs)
-        code = _syrk_fn(c.dtype)(*ptrs, batch, nb, k, *strides, stream)
-    _build.check(code, "syrk")
+        code = _syrk_fn(c.dtype)(*ptrs, batch, nb, k, *strides, *tile, stream)
+    _build.check(code, f"syrk ({name})")
     syrk_cuda.launches += 1
+    syrk_cuda.launches_by_instance[name] += 1
     return out
 
 
 syrk_cuda.launches = 0
+syrk_cuda.launches_by_instance = {name: 0 for name, _ in _SYRK.values()}

@@ -1,5 +1,5 @@
 // FP64 tensor-core (DMMA) building blocks shared by the f64 instances of
-// potrf.cu and tlr_mm.cu.
+// potrf.cu, tlr_mm.cu, trsm.cu and syrk.cu.
 //
 // Hopper has no wgmma for f64; its FP64 tensor cores are reached through
 // mma.sync.  The m16n8k{4,8,16} shapes run at the card's full FP64
@@ -71,6 +71,65 @@ __device__ __forceinline__ void load_b_cols(double (&b)[2], const double* s,
   b[1] = p[4 * ld];
 }
 
+// acc += A B over the first ks (a multiple of 8) columns of a k-slab held in
+// shared memory, for one warp's (16 MI) x (8 NI) block at rows wm, columns
+// wn of the block's output.  A is stored row by row, A[r][k] = sa[r * lda +
+// k], or with AK k-major, A[r][k] = sa[k * lda + r]; B by its columns,
+// B[k][n] = sb[n * ldb + k] (the "TN" form: C = X Y^T for X, Y stored by
+// rows), or with BK k-major, B[k][n] = sb[k * ldb + n].  A caller that
+// wants C -= A B subtracts acc in its epilogue.  Strides of 4 mod 16
+// doubles keep all four loaders free of bank conflicts.
+template <int MI, int NI, bool AK, bool BK>
+__device__ __forceinline__ void mma_slab(double (&acc)[MI][NI][4],
+                                         const double* sa, int lda,
+                                         const double* sb, int ldb, int ks,
+                                         int wm, int wn, int g, int t) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < ks; k0 += 8) {
+    double a[MI][4], b[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      if (AK)
+        load_a_cols(a[mi], sa, lda, wm + 16 * mi, k0, g, t);
+      else
+        load_a_rows(a[mi], sa, lda, wm + 16 * mi, k0, g, t);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      if (BK)
+        load_b_cols(b[ni], sb, ldb, wn + 8 * ni, k0, g, t);
+      else
+        load_b_rows(b[ni], sb, ldb, wn + 8 * ni, k0, g, t);
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) mma_16x8x8(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// The pair row[col], row[col + 1] of a row of n values (zeros past n), and
+// its store: one 16-byte access where vec (the row 16-byte aligned, col
+// even) and both lie inside, else one access a value.
+__device__ __forceinline__ double2 load_pair(const double* row, int col, int n,
+                                             int vec) {
+  if (vec && col + 1 < n) return *reinterpret_cast<const double2*>(row + col);
+  double2 v = make_double2(0.0, 0.0);
+  if (col < n) v.x = row[col];
+  if (col + 1 < n) v.y = row[col + 1];
+  return v;
+}
+
+__device__ __forceinline__ void store_pair(double* row, int col, int n, int vec,
+                                           double x0, double x1) {
+  if (vec && col + 1 < n) {
+    *reinterpret_cast<double2*>(row + col) = make_double2(x0, x1);
+    return;
+  }
+  if (col < n) row[col] = x0;
+  if (col + 1 < n) row[col + 1] = x1;
+}
+
 // Asynchronous global -> shared copies (cp.async, Ampere and later) that
 // zero-fill when `ok` is false; the source address is then not read.
 __device__ __forceinline__ void cp_async8(double* dst, const double* src,
@@ -131,6 +190,38 @@ __device__ __forceinline__ void cp_tile(double* dst, int ld_dst,
       }
     }
   }
+}
+
+// A ring of S stages of k-slabs fed by cp.async, so that the copies of the
+// next S - 1 slabs are in flight while the current one multiplies.
+// load(stage, slab) issues the cp.async copies of slab `slab` into stage
+// `stage` (every thread of the block calls it); compute(stage, slab) reads
+// that stage once it has landed.  Each slab is one commit group, empty
+// past the last slab, so cp.async.wait_group S - 2 always waits for the
+// slab about to be read (groups the caller committed before the ring only
+// make the wait stricter).  A stage is refilled only after the barrier
+// that follows every warp's reads of it.  On return all copies have landed
+// and the block has passed a barrier, so the stages may be reused.
+template <int S, typename Load, typename Compute>
+__device__ __forceinline__ void cp_async_ring(int nslabs, Load load,
+                                              Compute compute) {
+  static_assert(S >= 2, "a ring needs two stages at least");
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nslabs) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int q = 0; q < nslabs; ++q) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    const int next = q + S - 1;
+    if (next < nslabs) load(next % S, next);
+    cp_async_commit();
+    compute(q % S, q);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 // Programmatic dependent launch (Hopper): a kernel launched with

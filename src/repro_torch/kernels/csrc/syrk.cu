@@ -9,33 +9,269 @@
 // every panel step, trail[panel:, panel:] - pan pan^T, the O(m^3) term.
 //
 // Form: the full square.  The product P = A A^T is symmetric, so it is
-// computed once per 64 x 64 block tile of the lower triangle (tile row >=
-// tile column); an off-diagonal tile writes both out[I, J] = C[I, J] - P_IJ
-// and out[J, I] = C[J, I] - P_IJ^T.  C is read in full, so the result is
-// C - A A^T for any C, symmetric or not, as the reference returns it.
+// computed once per block tile of the lower triangle (tile row >= tile
+// column); an off-diagonal tile writes both out[I, J] = C[I, J] - P_IJ and
+// out[J, I] = C[J, I] - P_IJ^T.  C is read in full, so the result is
+// C - A A^T for any C, symmetric or not, as the reference returns it.  C
+// may be a row-strided view (the trailing block of the previous trail: no
+// copy of it is made); A may be row-major or column-major (the TRSM's
+// output, transposed).  Offsets are 64-bit.  Any nb >= 1 and k >= 0 work.
 //
 // Bound on the card: nb (nb + 1) / 2 * k FMAs against (2 nb^2 + nb k)
 // itemsize bytes per matrix.  At the first step of the exact path
 // (nb = 32256, k = 512, f64) the operations bound it: 5.3e11 flops, 8 ms at
-// 67 TFLOP/s, against 16.8 GB, 5 ms at 3.35 TB/s.  This simple kernel runs
-// on the FP64 CUDA cores (34 TFLOP/s); the DMMA tensor cores, TMA and
-// wgmma are later work.
+// 67 TFLOP/s, against 16.8 GB, 5 ms at 3.35 TB/s.
 //
-// Design.  The TPU kernel is one MXU matmul per (nb, nb) tile held in VMEM.
-// Here one block of 256 threads owns one 64 x 64 output tile of the lower
+// Two instances, picked by the dtype:
+//
+// dmma_f64 (f64): the lower-triangle products on the FP64 tensor cores
+// (mma.sync m16n8k8, dmma.cuh), half the flops of a full-square GEMM.  One
+// 256-thread block per 128 x 128 output tile (8 warps of 64 x 32), or per
+// 64 x 64 tile (warps of 32 x 16) where the 128 x 128 grid would fill
+// under two waves of the card (the wrapper's syrk_tile).  The k dimension
+// streams through a three-stage cp.async ring of 32-wide slabs of the two
+// row panels of A (dmma::cp_async_ring), so the next slabs load while the
+// current one multiplies; row-major A is staged row by row, column-major A
+// k-major, both at strides of 4 mod 16 doubles (no bank conflicts).  The
+// epilogue reads C where it lies, writes out[I, J] from the accumulators
+// in 16-byte pairs and the transposed tile through shared memory, so that
+// those writes are coalesced too; each thread keeps eight C loads in
+// flight (one at a time, the epilogue alone took as long as the products).
+// The tiles are walked in bands of 8 tile rows, column by column inside a
+// band, so the blocks on the card at one time share a few row panels of A
+// in L2 instead of sweeping all of A.
+//
+// fma_f32 (f32): the first kernel of this file, on the FP32 CUDA cores.
+// One block of 256 threads owns one 64 x 64 output tile of the lower
 // triangle (a 1-D grid over those tiles, the batch on grid.y).  The k
 // dimension is walked in chunks of 32: the two 64 x 32 row slabs of A
 // (rows of tile I and of tile J) are staged in shared memory, k-major, and
 // each thread accumulates a 4 x 4 set of outputs (rows ty + 16 i, columns
 // tx + 16 j) in registers.  The transposed write goes through shared memory
-// so both writes are coalesced.  C may be a row-strided view (the trailing
-// block of the previous trail: no copy of it is made); A may be row-major
-// or column-major (the TRSM's output, transposed).  Offsets are 64-bit.
-// Sums run in the input type, which is at least f32 (the Pallas kernel's
-// promote_types(dtype, f32)).  Any nb >= 1 and k >= 0 work.
+// so both writes are coalesced.  Sums run in the input type (the Pallas
+// kernel's promote_types(dtype, f32)).
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "dmma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// dmma_f64
+// ---------------------------------------------------------------------------
+
+constexpr int kDThreads = 256;  // 8 warps, 2 x 4 over the output tile
+constexpr int kDK = 32;         // k-slab
+constexpr int kDStages = 3;     // cp.async ring
+constexpr int kBand = 8;        // tile rows of a band
+
+// A staged slab: row-major A as [TM][kDK], column-major A k-major as
+// [kDK][TM]; both at a stride of 4 mod 16 doubles.  The ring's stages hold
+// two slabs (rows of tile I, rows of tile J); after the k loop the same
+// memory holds the transposed tile [TM][TM + 4].
+template <int TM, bool AK>
+struct Slab {
+  static constexpr int LD = AK ? TM + 4 : kDK + 4;
+  static constexpr int SIZE = AK ? kDK * LD : TM * LD;
+  static constexpr int RING = kDStages * 2 * SIZE;
+  static constexpr int TRANS = TM * (TM + 4);
+  static constexpr int SMEM = (RING > TRANS ? RING : TRANS) * (int)sizeof(double);
+};
+
+// Block x -> lower-triangle tile (ti, tj) of a side x side tile grid.  The
+// tiles are numbered band by band (kBand tile rows each); inside a band,
+// column by column over its rectangle left of the diagonal, then over its
+// own small triangle, so that the blocks on the card at one time share rows
+// of A in L2.  The order does not change the result: each tile is
+// independent.
+__device__ __forceinline__ void band_tile(long long x, int side, int& ti,
+                                          int& tj) {
+  int b0 = 0;
+  long long base = 0;
+  for (;;) {
+    const int h = min(kBand, side - b0);
+    const long long n = (long long)h * b0 + h * (h + 1) / 2;
+    if (x < base + n) break;
+    base += n;
+    b0 += kBand;
+  }
+  const int h = min(kBand, side - b0);
+  long long i = x - base;
+  if (i < (long long)h * b0) {
+    tj = (int)(i / h);
+    ti = b0 + (int)(i % h);
+  } else {
+    i -= (long long)h * b0;
+    int cc = 0;
+    while (i >= h - cc) {
+      i -= h - cc;
+      ++cc;
+    }
+    tj = b0 + cc;
+    ti = tj + (int)i;
+  }
+}
+
+// One TM x TM tile of out = C - A A^T.  AK: A is column-major (a_rs == 1).
+// vec_a: the slab copies may be 16 bytes; vec_c: C and out may be read and
+// written as 16-byte pairs.
+template <int TM, bool AK>
+__global__ void __launch_bounds__(kDThreads, 1)
+    syrk_dmma_f64(const double* __restrict__ c, const double* __restrict__ a,
+                  double* __restrict__ out, int nb, int k, int side,
+                  long long c_bs, long long c_rs, long long a_bs,
+                  long long a_rs, long long a_cs, int vec_a, int vec_c) {
+  constexpr int MI = TM / 32, NI = TM / 32;  // warp tile (TM/2) x (TM/4)
+  constexpr int LD = Slab<TM, AK>::LD, SLAB = Slab<TM, AK>::SIZE;
+  constexpr int LDT = TM + 4;
+  extern __shared__ __align__(16) double smem[];
+  int ti, tj;
+  band_tile(blockIdx.x, side, ti, tj);
+  const int r0 = ti * TM, c0 = tj * TM;
+  const double* A = a + blockIdx.y * a_bs;
+  const double* C = c + blockIdx.y * c_bs;
+  double* O = out + blockIdx.y * (long long)nb * nb;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / 4) * (TM / 2), wn = (warp % 4) * (TM / 4);
+
+  double acc[MI][NI][4] = {};
+  auto load = [&](int st, int q) {
+    double* sa = smem + st * 2 * SLAB;
+    double* sb = sa + SLAB;
+    const int k0 = q * kDK;
+    if (AK) {
+      dmma::cp_tile<kDK, TM, kDThreads>(sa, LD, A + k0 * a_cs + r0, a_cs,
+                                        k - k0, nb - r0, vec_a, tid);
+      dmma::cp_tile<kDK, TM, kDThreads>(sb, LD, A + k0 * a_cs + c0, a_cs,
+                                        k - k0, nb - c0, vec_a, tid);
+    } else {
+      dmma::cp_tile<TM, kDK, kDThreads>(sa, LD, A + r0 * a_rs + k0, a_rs,
+                                        nb - r0, k - k0, vec_a, tid);
+      dmma::cp_tile<TM, kDK, kDThreads>(sb, LD, A + c0 * a_rs + k0, a_rs,
+                                        nb - c0, k - k0, vec_a, tid);
+    }
+  };
+  auto compute = [&](int st, int) {
+    const double* sa = smem + st * 2 * SLAB;
+    dmma::mma_slab<MI, NI, AK, AK>(acc, sa, LD, sa + SLAB, LD, kDK, wm, wn, g,
+                                   t);
+  };
+  dmma::cp_async_ring<kDStages>((k + kDK - 1) / kDK, load, compute);
+
+  // out[I, J] = C[I, J] - P_IJ, pairs of neighbours (2t, 2t + 1); the C
+  // pairs of one row fragment are loaded together, so each thread keeps
+  // 2 NI loads in flight.
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    double2 cv[2][NI];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int row = r0 + wm + 16 * mi + g + 8 * h;
+        const int col = c0 + wn + 8 * ni + 2 * t;
+        cv[h][ni] = row < nb ? dmma::load_pair(C + row * c_rs, col, nb, vec_c)
+                             : make_double2(0.0, 0.0);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int row = r0 + wm + 16 * mi + g + 8 * h;
+        const int col = c0 + wn + 8 * ni + 2 * t;
+        if (row < nb)
+          dmma::store_pair(O + (long long)row * nb, col, nb, vec_c,
+                           cv[h][ni].x - acc[mi][ni][2 * h],
+                           cv[h][ni].y - acc[mi][ni][2 * h + 1]);
+      }
+  }
+  if (ti == tj) return;  // a diagonal tile wrote its whole square above
+
+  // out[J, I] = C[J, I] - P_IJ^T through shared memory: st[cl][rl] =
+  // P[rl][cl]; then each pass writes ROWS rows of tile J, a pair a thread,
+  // eight passes' loads in flight at once.
+  double* st = smem;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int rl = wm + 16 * mi + g + 8 * (v / 2);
+        const int cl = wn + 8 * ni + 2 * t + v % 2;
+        st[cl * LDT + rl] = acc[mi][ni][v];
+      }
+  __syncthreads();
+  constexpr int PAIRS = TM / 2, ROWS = kDThreads / PAIRS, PASSES = TM / ROWS;
+  constexpr int BATCH = PASSES < 8 ? PASSES : 8;
+  const int il = 2 * (tid % PAIRS), j0 = tid / PAIRS;
+#pragma unroll 1
+  for (int p0 = 0; p0 < PASSES; p0 += BATCH) {
+    double2 cv[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int row = c0 + j0 + (p0 + u) * ROWS;
+      cv[u] = row < nb ? dmma::load_pair(C + row * c_rs, r0 + il, nb, vec_c)
+                       : make_double2(0.0, 0.0);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int jl = j0 + (p0 + u) * ROWS, row = c0 + jl;
+      if (row < nb)
+        dmma::store_pair(O + (long long)row * nb, r0 + il, nb, vec_c,
+                         cv[u].x - st[jl * LDT + il],
+                         cv[u].y - st[jl * LDT + il + 1]);
+    }
+  }
+}
+
+template <int TM, bool AK>
+int launch_dmma(const double* c, const double* a, double* out, int batch,
+                int nb, int k, long long c_bs, long long c_rs, long long a_bs,
+                long long a_rs, long long a_cs, cudaStream_t stream) {
+  constexpr int smem = Slab<TM, AK>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      syrk_dmma_f64<TM, AK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long side = (nb + TM - 1) / TM;
+  const long long tiles = side * (side + 1) / 2;
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  // 16-byte slab copies: the copied runs (rows of A, or its columns when
+  // column-major) have even lengths and strides and start aligned
+  const long long run = AK ? nb : k, stride = AK ? a_cs : a_rs;
+  const int vec_a = aligned(a) && run % 2 == 0 && stride % 2 == 0 && a_bs % 2 == 0;
+  const int vec_c = aligned(c) && aligned(out) && nb % 2 == 0 && c_rs % 2 == 0 &&
+                    c_bs % 2 == 0;
+  syrk_dmma_f64<TM, AK><<<dim3((unsigned)tiles, batch), kDThreads, smem, stream>>>(
+      c, a, out, nb, k, (int)side, c_bs, c_rs, a_bs, a_rs, a_cs, vec_a, vec_c);
+  return (int)cudaGetLastError();
+}
+
+int launch_f64(const double* c, const double* a, double* out, int batch,
+               int nb, int k, long long c_bs, long long c_rs, long long a_bs,
+               long long a_rs, long long a_cs, int tile, cudaStream_t stream) {
+  if (batch <= 0 || nb <= 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
+  // column-major A: its rows are the unit-stride dimension
+  const bool ak = a_rs == 1 && a_cs != 1 && k > 1;
+  if (tile == 128)
+    return ak ? launch_dmma<128, true>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream)
+              : launch_dmma<128, false>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream);
+  if (tile == 64)
+    return ak ? launch_dmma<64, true>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream)
+              : launch_dmma<64, false>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// fma_f32
+// ---------------------------------------------------------------------------
 
 constexpr int kOut = 64;      // output tile edge
 constexpr int kK = 32;        // k chunk staged in shared memory
@@ -176,15 +412,17 @@ int launch(const T* c, const T* a, T* out, int batch, int nb, int k,
 // c (batch, nb, nb) with element (b, r, s) at c[b * c_bs + r * c_rs + s];
 // a (batch, nb, k) with element (b, r, q) at a[b * a_bs + r * a_rs + q * a_cs]
 // (a_cs == 1 or a_rs == 1); out (batch, nb, nb) contiguous; all on the
-// device.  Returns cudaGetLastError() after the launch (0 on success).
+// device.  tile (128 or 64) is the dmma_f64 instance's output tile edge.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int syrk_f64(const double* c, const double* a, double* out,
                         int batch, int nb, int k, long long c_bs,
                         long long c_rs, long long a_bs, long long a_rs,
-                        long long a_cs, void* stream) {
-  return launch<double>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs,
-                        static_cast<cudaStream_t>(stream));
+                        long long a_cs, int tile, void* stream) {
+  return launch_f64(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs,
+                    tile, static_cast<cudaStream_t>(stream));
 }
 
+// The fma_f32 instance: the same operands; 64 x 64 tiles.
 extern "C" int syrk_f32(const float* c, const float* a, float* out, int batch,
                         int nb, int k, long long c_bs, long long c_rs,
                         long long a_bs, long long a_rs, long long a_cs,

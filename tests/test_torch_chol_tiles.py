@@ -4,7 +4,9 @@ The plain versions (repro_torch.kernels.ref.potrf_ref / trsm_ref) against
 the Pallas kernels run in interpret mode and against the reference's own
 plain versions, at the shapes and tolerances of tests/test_kernels.py; the
 failure rule (a tile with a bad pivot comes back all NaN and the status is
-not ok); the block-column choice of the CUDA trsm; and that the TLR path
+not ok); the block-column choice of the CUDA trsm's fma_f32 instance and
+the plan of its dmma_f64 instance; plain emulations of the dmma_f64
+instances' order of work against the Pallas kernels; and that the TLR path
 reaches both tasks through kernels.ops.  The CUDA kernels themselves are
 held against the plain versions on the card by chip_smoke.py.
 """
@@ -22,9 +24,16 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.chol_tiles import potrf as j_potrf  # noqa: E402
 from repro.kernels.chol_tiles import trsm as j_trsm  # noqa: E402
 from repro_torch.core import tlr as tt  # noqa: E402
+from repro_torch.core.covariance import MaternParams, build_sigma_panel  # noqa: E402
 from repro_torch.core.recovery import init_status  # noqa: E402
+from repro_torch.core.simulate import grid_locations  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.chol_tiles import trsm_cols  # noqa: E402
+from repro_torch.kernels.chol_tiles import (  # noqa: E402
+    TRSM_BLOCK,
+    TRSM_SUPER,
+    trsm_cols,
+    trsm_plan,
+)
 
 DTYPES = {
     "float32": (jnp.float32, torch.float32),
@@ -287,3 +296,135 @@ def test_dmma_potrf_bad_pivot_in_a_later_panel_gives_an_all_nan_tile():
     assert bool(torch.isnan(ref.potrf_ref(torch.as_tensor(a))[1]).all())
     want = np.asarray(j_potrf(jnp.asarray(a[0::2]), interpret=True))
     np.testing.assert_allclose(got[0::2].numpy(), want, **POTRF_TOL["float64"])
+
+
+def _invert_diag_blocks(lo):
+    """The dmma_f64 trsm's first launch: each 64 x 64 diagonal block of lo
+    (lo_batch, nb, nb), a ragged last one padded with the identity,
+    inverted column by column as its threads do (x <- e_c; per column jj:
+    x[jj] *= 1 / L[jj][jj], then x[i] -= L[i][jj] x[jj] below it)."""
+    lb, nb, _ = lo.shape
+    n = TRSM_BLOCK
+    blocks = []
+    for j0 in range(0, nb, n):
+        w = min(n, nb - j0)
+        d = torch.eye(n, dtype=lo.dtype).repeat(lb, 1, 1)
+        d[:, :w, :w] = torch.tril(lo[:, j0 : j0 + w, j0 : j0 + w])
+        sinv = 1.0 / torch.diagonal(d, dim1=1, dim2=2)
+        x = torch.eye(n, dtype=lo.dtype).repeat(lb, 1, 1)
+        for jj in range(n):
+            x[:, jj] *= sinv[:, jj, None]
+            x[:, jj + 1 :] -= d[:, jj + 1 :, jj : jj + 1] * x[:, jj : jj + 1]
+        blocks.append(x)
+    return torch.stack(blocks, dim=1)
+
+
+def _emulate_trsm_dmma_f64(lo, b, super_rows=TRSM_SUPER):
+    """The dmma_f64 trsm instance's order of work in plain torch, in b's
+    dtype: the inverted diagonal blocks D_j; then per super-block of
+    ``super_rows`` rows (all of nb <= 512 on the card) the strip launch's
+    walk over 64-row block rows, R = B_i - L_i,R0:i X_R0:i and X_i = D_i R
+    (the row split's cluster sums the same 64-row products in the same
+    order, one block row a block); and between super-blocks the update B_2 -= L_21 X_1 (the large-nb
+    schedule)."""
+    batch, nb, _ = b.shape
+    n = TRSM_BLOCK
+    dinv = _invert_diag_blocks(lo)
+    if lo.shape[0] == 1:
+        lo, dinv = lo.expand(batch, -1, -1), dinv.expand(batch, -1, -1, -1)
+    out = b.clone()
+    for r0 in range(0, nb, super_rows):
+        r1 = min(nb, r0 + super_rows)
+        for i0 in range(r0, r1, n):
+            i1 = min(nb, i0 + n)
+            rest = out[:, i0:i1] - lo[:, i0:i1, r0:i0] @ out[:, r0:i0]
+            out[:, i0:i1] = dinv[:, i0 // n, : i1 - i0, : i1 - i0] @ rest
+        if r1 < nb:
+            out[:, r1:] = out[:, r1:] - lo[:, r1:, r0:r1] @ out[:, r0:r1]
+    return out
+
+
+def _matern_lkk(n_side, a):
+    """The factor of a bivariate Matérn covariance tile (nugget 1e-8) on a
+    jittered n_side^2 grid: far worse conditioned than a a^T + nb I."""
+    locs = torch.as_tensor(grid_locations(n_side, jitter=0.3, seed=0))
+    params = MaternParams.bivariate(
+        sigma11=1.0, sigma22=1.0, a=a, nu11=0.5, nu22=1.5, beta=0.5, device="cpu"
+    )
+    sigma = build_sigma_panel(locs, locs, params)
+    m = sigma.shape[0]
+    return torch.linalg.cholesky(sigma + 1e-8 * torch.eye(m, dtype=sigma.dtype))
+
+
+@pytest.mark.parametrize(
+    "b,nb,m,lo_b,super_rows",
+    [
+        (1, 32, 32, 1, TRSM_SUPER),
+        (3, 64, 16, 3, TRSM_SUPER),
+        (2, 64, 128, 2, TRSM_SUPER),
+        (3, 200, 37, 3, TRSM_SUPER),  # ragged: three full blocks and one of 8
+        (3, 200, 37, 3, 128),  # the large-nb schedule: one update between
+        (4, 130, 5, 1, 64),  # L broadcast, three super-blocks
+        (2, 1, 3, 2, TRSM_SUPER),
+    ],
+)
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_dmma_trsm_order_of_work_matches_pallas(b, nb, m, lo_b, super_rows, dname):
+    """The f64 CUDA trsm instance's arithmetic (inverted 64 x 64 diagonal
+    blocks, block-row products, updates between super-blocks) against the
+    Pallas trsm in interpret mode, at the tolerances of
+    test_trsm_ref_matches_pallas: its shapes, a ragged nb in both
+    schedules, a broadcast factor and nb = 1."""
+    jd, td = DTYPES[dname]
+    lo = np.linalg.cholesky(_spd_batch(lo_b, nb))
+    bb = np.random.default_rng(3).normal(size=(b, nb, m))
+    got = _emulate_trsm_dmma_f64(
+        torch.as_tensor(lo, dtype=td), torch.as_tensor(bb, dtype=td), super_rows
+    )
+    lo_full = np.broadcast_to(lo, (b, nb, nb))
+    want = j_trsm(jnp.asarray(lo_full, jd), jnp.asarray(bb, jd), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRSM_TOL[dname])
+
+
+@pytest.mark.parametrize("super_rows", [TRSM_SUPER, 128])
+def test_dmma_trsm_on_an_ill_conditioned_matern_factor_matches_pallas(super_rows):
+    """The f64 instance's order of work on the factor of a Matérn tile with
+    nugget 1e-8 (m = 200, range 1.0: the factor's condition number is
+    about 2e3, against about 2 for the factor of a a^T + nb I), at the
+    tolerance of test_trsm_ref_matches_pallas: inverting the diagonal
+    blocks keeps the digits that substitution keeps."""
+    lo = _matern_lkk(10, 1.0)[None]
+    assert float(torch.linalg.cond(lo[0])) > 1e3
+    bb = np.random.default_rng(4).normal(size=(2, lo.shape[1], 24))
+    got = _emulate_trsm_dmma_f64(lo, torch.as_tensor(bb), super_rows)
+    lo_full = np.broadcast_to(lo.numpy(), (2, *lo.shape[1:]))
+    want = j_trsm(jnp.asarray(lo_full), jnp.asarray(bb), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRSM_TOL["float64"])
+    plain = ref.trsm_ref(lo, torch.as_tensor(bb))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TRSM_TOL["float64"])
+
+
+@pytest.mark.parametrize(
+    "batch,nb,r,want",
+    [
+        (63, 512, 128, (64, 512, 0, 0)),  # panel TRSM: 126 strips
+        (32, 512, 128, (32, 512, 0, 0)),  # TLR panel steps 31 to 16
+        (9, 512, 128, (16, 512, 0, 0)),
+        (5, 512, 128, (8, 512, 0, 0)),
+        (1, 512, 128, (8, 512, 0, 0)),  # 16 clusters of 8: too many to split
+        (1, 512, 8, (8, 512, 0, 1)),  # 1 cluster of 8 blocks: the rows split
+        (1, 512, 1, (8, 512, 0, 1)),  # alpha
+        (1, 512, 1024, (8, 512, 0, 0)),  # a request's sweep: 128 strips
+        (63, 512, 64, (32, 512, 0, 0)),
+        (1, 512, 32256, (64, 512, 0, 0)),  # exact path, panel 512, first step
+        (1, 512, 512, (8, 512, 0, 0)),  # and its last
+        (1, 4096, 512, (8, 512, 64, 0)),  # nb = 4096: updates of 64 x 64 tiles
+        (1, 4096, 1, (8, 512, 64, 1)),
+        (1, 4096, 28672, (64, 512, 128, 0)),  # exact path, panel 4096
+        (1, 4096, 4096, (32, 512, 128, 0)),  # and its last step
+        (3, 200, 37, (8, 256, 0, 1)),
+    ],
+)
+def test_dmma_trsm_plan(batch, nb, r, want):
+    """(strip columns, super-block rows, update tile, row split)."""
+    assert trsm_plan(batch, nb, r, H100_SMS) == want

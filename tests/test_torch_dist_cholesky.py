@@ -26,7 +26,11 @@ from repro_torch.core import dist_cholesky as td  # noqa: E402
 from repro_torch.core.likelihood import exact_loglik  # noqa: E402
 from repro_torch.core.simulate import grid_locations  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.chol_tiles import syrk_cuda, syrk_grid  # noqa: E402
+from repro_torch.kernels.chol_tiles import (  # noqa: E402
+    syrk_cuda,
+    syrk_grid,
+    syrk_tile,
+)
 
 PARAMS = dict(a=0.09, nu11=0.5, nu22=1.0, beta=0.5)
 NUGGET = 1e-8
@@ -246,3 +250,68 @@ def test_syrk_wrapper_indexes_in_64_bits_and_refuses_what_it_cannot():
     c = torch.zeros((2, 8, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         syrk_cuda(c, torch.zeros((2, 8, 4), dtype=torch.float64))
+
+
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+def _emulate_syrk_dmma_f64(c, a, tile):
+    """The dmma_f64 syrk instance's order of work in plain torch: one
+    product P = A_I A_J^T per lower-triangle tile (ti >= tj) of edge
+    ``tile`` (the tiles are independent, so their order does not matter);
+    out[I, J] = C[I, J] - P, and an off-diagonal tile also writes out[J, I]
+    = C[J, I] - P^T.  out starts as NaN, so a position no tile writes
+    shows."""
+    nb = c.shape[1]
+    side = -(-nb // tile)
+    out = torch.full_like(c, math.nan)
+    for ti, tj in ((ti, tj) for ti in range(side) for tj in range(ti + 1)):
+        rows = slice(ti * tile, (ti + 1) * tile)
+        cols = slice(tj * tile, (tj + 1) * tile)
+        p = a[:, rows] @ a[:, cols].mT
+        out[:, rows, cols] = c[:, rows, cols] - p
+        if ti != tj:
+            out[:, cols, rows] = c[:, cols, rows] - p.mT
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,nb,k,tile",
+    [
+        (2, 64, 64, 64),
+        (4, 32, 16, 64),
+        (2, 200, 37, 64),  # ragged: four tile rows, the last of 8
+        (2, 200, 37, 128),
+        (3, 50, 1, 64),  # k = 1
+    ],
+)
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_dmma_syrk_order_of_work_matches_pallas(b, nb, k, tile, dname):
+    """The f64 CUDA syrk instance's order of work (lower tiles, the
+    transposed write) against the Pallas syrk in interpret mode, at the
+    shapes and tolerances of test_syrk_ref_matches_pallas, plus a ragged nb
+    at both tile edges and k = 1; every element is written."""
+    jdt, tdt = getattr(jnp, dname), getattr(torch, dname)
+    rng = np.random.default_rng(4)
+    c, a = rng.normal(size=(b, nb, nb)), rng.normal(size=(b, nb, k))
+    got = _emulate_syrk_dmma_f64(
+        torch.as_tensor(c, dtype=tdt), torch.as_tensor(a, dtype=tdt), tile
+    )
+    assert not bool(torch.isnan(got).any())
+    want = j_syrk(jnp.asarray(c, jdt), jnp.asarray(a, jdt), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(dname))
+
+
+@pytest.mark.parametrize(
+    "batch,nb,want",
+    [
+        (1, 32256, 128),  # exact path, panel 512, first step: 31878 tiles
+        (1, 28672, 128),  # panel 4096, first step
+        (1, 4096, 128),  # 528 tiles: four waves
+        (1, 512, 64),  # the path's last steps: 64 x 64 tiles
+        (4, 512, 64),
+        (1, 46341, 128),
+    ],
+)
+def test_dmma_syrk_tile(batch, nb, want):
+    assert syrk_tile(batch, nb, H100_SMS) == want

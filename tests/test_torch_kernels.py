@@ -22,8 +22,11 @@ from repro.kernels.tlr_mm import tlr_mm as j_tlr_mm  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.chol_tiles import (  # noqa: E402
     potrf_cuda,
+    potrf_instance,
     syrk_cuda,
+    syrk_instance,
     trsm_cuda,
+    trsm_instance,
 )
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
 from repro_torch.kernels.tlr_mm import check_out, tlr_mm_cuda  # noqa: E402
@@ -281,10 +284,17 @@ def test_tlr_mm_out_refuses_overlap_other_than_acc_itself():
 
 def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
     """CPU tensors, dtypes without an instance and overlapping ``out`` are
-    refused before the library is built; each dtype names its instance."""
+    refused before the library is built; each dtype names its instance, for
+    potrf, tlr_mm, trsm and syrk alike, and the counts by instance reset."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
-    assert set(potrf_cuda.launches_by_instance) == {"dmma_f64", "fma_f32"}
-    assert set(tlr_mm_cuda.launches_by_instance) == {"dmma_f64", "fma_f32"}
+    for fn in (potrf_cuda, tlr_mm_cuda, trsm_cuda, syrk_cuda):
+        assert set(fn.launches_by_instance) == {"dmma_f64", "fma_f32"}
+    for pick in (potrf_instance, trsm_instance, syrk_instance):
+        assert pick(torch.float64) == "dmma_f64"
+        assert pick(torch.float32) == "fma_f32"
+        for dtype in (torch.float16, torch.bfloat16, torch.int32):
+            with pytest.raises(ValueError, match="float32 or float64"):
+                pick(dtype)
     for dtype in (torch.float64, torch.float16, torch.int32):
         u = torch.zeros((2, 8, 4), dtype=dtype)
         acc = torch.zeros((2, 8, 8), dtype=dtype)
@@ -294,15 +304,22 @@ def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
             tlr_mm_cuda(u, u, u, u, acc)
         with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
             tlr_mm_cuda(u, u, u, u, acc, out=acc)
+        with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
+            trsm_cuda(acc, u)
+        with pytest.raises(ValueError, match="CUDA tensor|float32 or float64"):
+            syrk_cuda(acc, u)
     big = torch.zeros((4, 8, 8), dtype=torch.float64)
     u = torch.zeros((2, 8, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="out overlaps acc"):
         ops.tlr_mm(u, u, u, u, big[:2], out=big[1:3])
-    assert ops.launch_counts()["potrf"] == 0 and ops.launch_counts()["tlr_mm"] == 0
+    counts = ops.launch_counts()
+    assert all(counts[name] == 0 for name in ("potrf", "tlr_mm", "trsm", "syrk"))
     potrf_cuda.launches_by_instance["dmma_f64"] = 2
     tlr_mm_cuda.launches_by_instance["fma_f32"] = 1
+    trsm_cuda.launches_by_instance["dmma_f64"] = 3
+    syrk_cuda.launches_by_instance["fma_f32"] = 4
     ops.reset_launch_counts()
     counts = ops.instance_counts()
-    assert counts["potrf"] == {"dmma_f64": 0, "fma_f32": 0}
-    assert counts["tlr_mm"] == {"dmma_f64": 0, "fma_f32": 0}
+    for name in ("potrf", "tlr_mm", "trsm", "syrk"):
+        assert counts[name] == {"dmma_f64": 0, "fma_f32": 0}
     assert counts["flash_attention"] == {"wgmma_bf16": 0, "fma_f32": 0}
