@@ -16,13 +16,26 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             unless the bf16 flash instance was compiled to the 168
             registers a thread that its setmaxnreg split assumes, unless,
             where cuobjdump sits beside nvcc, its SASS holds HGMMA (wgmma)
-            and UTMALDG (TMA loads), and unless every product kernel of the
-            dmma_f64 instances holds DMMA (the FP64 tensor cores).
-2. kernels  each of the six hand-written kernels against its plain
+            and UTMALDG (TMA loads), unless every product kernel of the
+            dmma_f64 instances holds DMMA (the FP64 tensor cores), and unless
+            every instance of the two Matérn kernels is built without spills,
+            with 128-bit stores where it stores vectors and without local
+            memory in the general instance (its tables stay in __constant__).
+2. kernels  each of the seven hand-written kernels against its plain
             PyTorch version on the card, at the shapes the main path gives
             it, with its time, the plain version's, a library yardstick
             where one exists, and the least time the card could take
-            (bound).  flash_attention is held at every shape its two
+            (bound).  matern_tile (from locations) and matern_corr (from
+            scaled distances) are held in both instances (halfint: the
+            closed forms; general: K_nu per element) and both dtypes at the
+            main path's largest GEN panel for nu in {0.5, 1.0, 1.5, 2.5}, on
+            ragged shapes, at the edge values of u (0, 1e-8, 2 and its
+            neighbours, 47, 800) for nu from 0.05 to 6 (f64), and
+            matern_corr at the exact path's n^2 scaled distances (timed);
+            a general record's bound counts the steps each element's loop
+            takes on these inputs (``general_steps``), and its ``steps``
+            the mean, the largest and the warps' divergence.
+            flash_attention is held at every shape its two
             instances take (bf16 on wgmma, f32 on FMAs), potrf, tlr_mm,
             trsm and syrk at the shapes of both of theirs (f64 on DMMA, f32
             on FMAs), each record naming its instance.  potrf is also timed
@@ -47,11 +60,13 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             dense exact log-likelihood is the reference (its Cholesky factor
             is kept as the dense cokriging oracle of the serve phase).  It
             fails unless the factorization status is ok, the relative gap to
-            the exact value is <= 1e-5 and every kernel was launched during
-            the evaluation.
+            the exact value is <= 1e-5, every kernel was launched during the
+            evaluation and the general instance of matern_tile ran (the
+            cross pair, nu12 = 1.0).
 4. serve    cokriging serving at the same configuration, locations and z:
             ``fit_factor`` once (pair-major GEN + compress, TLR Cholesky,
-            both sweeps), then 8 ``predict_batch`` requests of 512 uniform
+            both sweeps; the general instance of matern_tile for the cross
+            pair), then 8 ``predict_batch`` requests of 512 uniform
             locations and one with 16 conditional draws.  It fails unless
             the factor's status is ok, every served mean is within 1e-3
             (max abs gap over max abs) of dense cokriging, variances are
@@ -67,7 +82,8 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             is finite, within 1e-7 (relative) of the main phase's dense
             exact loglik, and the evaluation launched syrk nk - 1, potrf nk
             and trsm 2 nk - 1 times (nk = m / panel: 63 / 64 / 127 and
-            7 / 8 / 15), all of the dmma_f64 instances.
+            7 / 8 / 15), all of the dmma_f64 instances, and Sigma's pairs
+            through matern_corr (its general instance for nu12).
 6. mle      Nelder–Mead estimation through ``fit`` with the generator-direct
             TLR backend (tile 512, max rank 128, TLR7, all six parameters
             free) on n = 48^2 locations of the same jittered grid (depth cut
@@ -76,8 +92,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             unless the fitted loglik is finite, no evaluation was clamped to
             the penalty, the fitted objective is <= the objective at the
             start, a fresh ``tlr_loglik`` at the fitted parameters equals the
-            fitted loglik to 1e-10 (relative), and tlr_mm, potrf and trsm
-            were launched during the fit.
+            fitted loglik to 1e-10 (relative), and matern_tile (its general
+            instance: nu is free), tlr_mm, potrf and trsm were launched
+            during the fit.
    plans    every plan the f64 trsm and syrk took on the main, serve,
             exact and mle paths (trsm: strip columns, update tile, row
             split; syrk: tile edge; each a kernel of its own) is one that
@@ -110,15 +127,19 @@ and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
 CUDA device or a missing checkout around the script.  The geostat paths
 (main, serve, exact, exact4096, mle) fail if an fma_f32 instance of
-potrf, tlr_mm, trsm or syrk was launched during them.
+potrf, tlr_mm, trsm or syrk was launched during them, and if the plain
+K_nu (``core.matern.kv``) ran on a CUDA tensor during them: every order of
+their GEN runs in matern_tile or matern_corr.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,8 +161,23 @@ PEAK_OPS = {
     ("matmul", "float32"): 67e12,
     ("matmul", "bfloat16"): 989e12,
 }
-# Arithmetic operations per matern_tile element (exp and sqrt counted as one).
-MATERN_OPS = {0.5: 10, 1.5: 12, 2.5: 15}
+# Arithmetic operations of the Matérn kernels an element (exp, log, sqrt,
+# sinh, cosh and a division counted as one each): a distance from two
+# locations (matern_tile only); the halfint instance's closed form and
+# amplitude by order; the general instance's (csrc/matern.cuh): its fixed
+# part, Temme's series (set-up, a step), Steed's CF2 (set-up, a step) and
+# an upward recurrence.
+DIST_OPS = 6
+HALFINT_OPS = {0.5: 4, 1.5: 6, 2.5: 9}
+GENERAL_OPS = {"base": 9, "temme": (21, 16), "cf2": (19, 22), "recurrence": 4}
+# The orders the paths run (nu11, nu12 and nu22 of the main cell, and the
+# third closed form), and the edge values of u with the orders of the f64
+# edge grid: u = 0 (M = 1), 1e-8, 2 and its neighbours (the choice of
+# Temme's series or CF2), 47 (about the main cell's largest), 800 (exp(-u)
+# underflows: M = 0, not NaN); nl from 0 to 6, mu < 0, = 0 and > 0.
+MATERN_PATH_NUS = (0.5, 1.0, 1.5, 2.5)
+MATERN_EDGE_US = (0.0, 1e-8, 2.0 - 2.0**-52, 2.0, 2.0 + 2.0**-51, 47.0, 800.0)
+MATERN_EDGE_NUS = (0.05, 0.73, 1.0, 2.283, 3.7, 6.0, 0.5, 1.5, 2.5)
 # The tolerances of tests/test_kernels.py.
 TOL = {
     "float64": dict(rtol=1e-10, atol=1e-12),
@@ -154,6 +190,11 @@ SOURCES = {
     "matern_tile": (
         "src/repro_torch/kernels/csrc/matern_tile.cu",
         "src/repro/kernels/matern_tile.py:82",
+    ),
+    # no Pallas kernel: the reference's jnp while_loops
+    "matern_corr": (
+        "src/repro_torch/kernels/csrc/matern_corr.cu",
+        "src/repro/core/matern.py:251",
     ),
     "tlr_mm": (
         "src/repro_torch/kernels/csrc/tlr_mm.cu",
@@ -192,6 +233,8 @@ DMMA_PRODUCT_KERNELS = (
 )
 # The sources of the dmma_f64 instances.
 DMMA_SOURCES = ("potrf.cu", "tlr_mm.cu", "trsm.cu", "syrk.cu")
+# The sources of the Matérn kernels (instances halfint and general).
+MATERN_SOURCES = ("matern_tile.cu", "matern_corr.cu")
 # The tolerances of tests/test_kernels.py's flash attention tests: _tol for
 # bf16, the window and decode tests' for f32.
 ATTN_TOL = {
@@ -308,8 +351,9 @@ def phase_device(torch, st):
     regs_ok = len(regs) == 4 and all(want in ln for ln in regs)
     sass = flash_sass(lib)
     dmma = dmma_report(text, lib)
+    matern = matern_report(text, lib)
     st["flash_ok"] = regs_ok and sass.get("ok", True)
-    ok = st["flash_ok"] and dmma["ok"]
+    ok = st["flash_ok"] and dmma["ok"] and matern["ok"]
     emit(
         {
             "phase": "device",
@@ -324,12 +368,15 @@ def phase_device(torch, st):
             "flash_ptxas": flash,
             "flash_sass": sass,
             "dmma_f64": dmma,
+            "matern": matern,
         }
     )
     if not st["flash_ok"]:
         raise AssertionError("the bf16 flash instance is not built as designed")
     if not dmma["ok"]:
         raise AssertionError("a dmma_f64 product kernel has no DMMA in its SASS")
+    if not matern["ok"]:
+        raise AssertionError("a Matérn kernel is not built as designed")
 
 
 def flash_ptxas(log_text: str) -> dict:
@@ -347,28 +394,54 @@ def flash_ptxas(log_text: str) -> dict:
     return out
 
 
-def flash_sass(lib) -> dict:
-    """Counts of HGMMA, UTMALDG and UTMASTG in each bf16 flash kernel's SASS,
-    where cuobjdump sits beside nvcc; ok unless an HGMMA or UTMALDG count is
-    0."""
+@functools.cache
+def sass_functions(lib):
+    """Each kernel's SASS in the built library, by mangled name (cuobjdump
+    beside nvcc, run once a library); None where cuobjdump is missing."""
     from repro_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        return {"cuobjdump": None}
+        return None
     sass = subprocess.run(
         [tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300
     ).stdout
+    parts = sass.split("Function : ")[1:]
+    return {part.split("\n", 1)[0].strip(): part for part in parts}
+
+
+def ptxas_entries(log_text: str, src: str, keep=lambda name: True) -> dict:
+    """The compiler's registers and spill lines of each entry function of
+    ``src`` that ``keep`` accepts, from the build log."""
+    section = log_text.split(f"== {src}", 1)[-1].split("\n== ", 1)[0]
+    report, name = {}, None
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = name if keep(name) else None
+            if name:
+                report[name] = {"ptxas": []}
+        elif name and ("registers" in line or "spill" in line):
+            report[name]["ptxas"].append(line.strip())
+    return report
+
+
+def flash_sass(lib) -> dict:
+    """Counts of HGMMA, UTMALDG and UTMASTG in each bf16 flash kernel's SASS,
+    where cuobjdump sits beside nvcc; ok unless an HGMMA or UTMALDG count is
+    0."""
+    functions = sass_functions(lib)
+    if functions is None:
+        return {"cuobjdump": None}
     counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, part in functions.items():
         if "flash_wgmma_kernel" in name:
             ops = ("HGMMA", "UTMALDG", "UTMASTG")
             counts[name] = {op: part.count(op) for op in ops}
     ok = len(counts) == 4 and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()
     )
-    return {"cuobjdump": tool, "kernels": counts, "ok": ok}
+    return {"cuobjdump": True, "kernels": counts, "ok": ok}
 
 
 def dmma_report(log_text: str, lib) -> dict:
@@ -378,57 +451,103 @@ def dmma_report(log_text: str, lib) -> dict:
     one of the product kernels (potrf's panel and update, both tlr_mm
     stages, trsm's strip and update, syrk's tile) is missing or has an
     instance without DMMA."""
-    from repro_torch.kernels import _build
-
     report = {}
     for src in DMMA_SOURCES:
-        section = log_text.split(f"== {src}", 1)[-1].split("\n== ", 1)[0]
-        name = None
-        for line in section.splitlines():
-            if "Compiling entry function" in line:
-                name = line.split("'")[1]
-                name = name if DMMA_KERNEL_TAG in name else None
-                if name:
-                    report[name] = {"ptxas": []}
-            elif name and ("registers" in line or "spill" in line):
-                report[name]["ptxas"].append(line.strip())
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
+        report.update(ptxas_entries(log_text, src, lambda n: DMMA_KERNEL_TAG in n))
+    functions = sass_functions(lib)
+    if functions is None:
         return {"kernels": report, "cuobjdump": None, "ok": False}
-    sass = subprocess.run(
-        [tool, "-sass", str(lib)], capture_output=True, text=True, timeout=300
-    ).stdout
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
-        if name in report:
-            report[name]["DMMA"] = part.count("DMMA")
+    for name in report:
+        if name in functions:
+            report[name]["DMMA"] = functions[name].count("DMMA")
     ok = True
     for product in DMMA_PRODUCT_KERNELS:
         matches = [n for n in report if product in n]
         ok = ok and bool(matches)
         ok = ok and all(report[n].get("DMMA", 0) > 0 for n in matches)
-    return {"kernels": report, "cuobjdump": tool, "ok": ok}
+    return {"kernels": report, "cuobjdump": True, "ok": ok}
 
 
-def check_matern(torch, tag, la, lb, nu, timed):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.matern_tile import matern_tile_cuda
+def matern_report(log_text: str, lib) -> dict:
+    """For each kernel of matern_tile.cu and matern_corr.cu (instance by
+    its template arguments: dtype, NU2 with 0 the general instance, and
+    whether it stores vectors): the compiler's registers and spill lines
+    and, from its SASS (cuobjdump), its 128-bit global stores, its
+    local-memory accesses and its reads of __constant__ bank 3 (the general
+    instance's tables).  ok unless cuobjdump is missing, a kernel is
+    missing, one spills, a vector instance has no 128-bit store or a general
+    instance touches local memory."""
+    report = {}
+    for src in MATERN_SOURCES:
+        report.update(ptxas_entries(log_text, src))
+    functions = sass_functions(lib)
+    if functions is None:
+        return {"kernels": report, "cuobjdump": None, "ok": False}
+    for name, rec in report.items():
+        part = functions.get(name, "")
+        rec["STG128"] = len(re.findall(r"STG\.E[.\w]*\.128", part))
+        rec["local"] = len(re.findall(r"\b(?:LDL|STL)\b", part))
+        rec["const3"] = part.count("c[0x3]")
+    ok = len(report) == 2 * 2 * 4 * 2
+    for name, rec in report.items():
+        match = re.search(r"I([df])Li(\d)ELb([01])EE", name)
+        ok = ok and match is not None and name in functions
+        spills = re.findall(r"(\d+) bytes spill", " ".join(rec["ptxas"]))
+        ok = ok and not any(int(v) for v in spills)
+        if match and match.group(3) == "1":
+            ok = ok and rec["STG128"] > 0
+        if match and match.group(2) == "0":
+            ok = ok and rec["local"] == 0
+    return {"kernels": report, "cuobjdump": True, "ok": ok}
 
-    inv_range, amp = 1.0 / 0.03, 1.0
-    dname = str(la.dtype).split(".")[-1]
-    got = matern_tile_cuda(la, lb, inv_range, amp, nu=nu)
-    want = ref.matern_tile_ref(la, lb, inv_range, amp, nu)
-    torch.cuda.synchronize()
+
+def general_work(torch, u, nu):
+    """(operations, step statistics) of the general instance on the scaled
+    distances u: each element's steps as the plain loop counts them on these
+    inputs (``general_steps``: the kernel's arithmetic, its own stop), times
+    GENERAL_OPS.  Statistics: the mean and largest steps an element (u > 0),
+    the share of elements on Temme's series, and, where the elements fall
+    into warps of 32 lanes of 4 neighbouring elements (both kernels' layout
+    when u.numel() is a multiple of 128), the mean over warps and element
+    slots of the steps the warp runs: the slowest Temme lane's plus the
+    slowest CF2 lane's, since a warp runs both branches one after the
+    other."""
+    from repro_torch.kernels.matern_tile import general_scalars, general_steps
+
+    steps, temme = general_steps(u, nu)
+    pos = u.reshape(-1) > 0
+    n = steps.double()
+    t_base, t_step = GENERAL_OPS["temme"]
+    c_base, c_step = GENERAL_OPS["cf2"]
+    per = torch.where(temme, t_base + t_step * n, c_base + c_step * n)
+    per = per + GENERAL_OPS["recurrence"] * general_scalars(nu).nl
+    per = torch.where(pos, per, 0.0) + GENERAL_OPS["base"]
+    ops = float(per.sum())
+    stats = {
+        "steps_mean": float(n[pos].mean()) if bool(pos.any()) else 0.0,
+        "steps_max": int(steps.max()),
+        "temme_share": float(temme.double().mean()),
+    }
+    if steps.numel() % 128 == 0:
+        w, tw = steps.view(-1, 32, 4), temme.view(-1, 32, 4)
+        cf2 = ~tw & pos.view(-1, 32, 4)
+        slot = torch.where(tw, w, 0).amax(1) + torch.where(cf2, w, 0).amax(1)
+        stats["warp_slot_steps_mean"] = float(slot.double().mean())
+    del steps, temme, pos, n, per
+    return ops, stats
+
+
+def _matern_record(torch, kernel, tag, shape, nu, dname, got, want, nbytes, ops):
+    from repro_torch.kernels.matern_tile import instance
+
     err, ok = max_err(torch, got, want, **TOL[dname])
-    n, m = la.shape[0], lb.shape[0]
-    isz = la.element_size()
-    nbytes = (n + m) * 2 * isz + n * m * isz
-    b_ms, b_by = bound(nbytes, n * m * MATERN_OPS[nu], "elementwise", dname)
-    rec = {
+    b_ms, b_by = bound(nbytes, ops, "elementwise", dname)
+    return {
         "phase": "kernel_check",
-        "kernel": "matern_tile",
+        "kernel": kernel,
+        "instance": instance(nu),
         "case": tag,
-        "shape": [n, m],
+        "shape": list(shape),
         "nu": nu,
         "dtype": dname,
         "max_abs_err": err,
@@ -437,16 +556,163 @@ def check_matern(torch, tag, la, lb, nu, timed):
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+
+
+def _matern_times(torch, rec, run, plain, u, nu, plain_reps=10):
+    """The kernel's, the plain version's and the K_1 yardstick's times into
+    ``rec`` (the yardstick at nu = 1 only: no PyTorch call computes M_nu)."""
+    rec["ms"] = cuda_ms(torch, run)
+    reps = dict(reps=plain_reps, warmup=0 if plain_reps < 10 else 2)
+    rec["plain_ms"] = cuda_ms(torch, plain, **reps)
+    rec["library_ms"] = None
+    if nu == 1.0:
+        rec["k1_only_ms"] = cuda_ms(torch, lambda: torch.special.modified_bessel_k1(u))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+
+
+def check_matern(torch, tag, la, lb, nu, timed):
+    """matern_tile_cuda against matern_tile_ref on (n, 2) x (m, 2) panels."""
+    from repro_torch.core.covariance import pairwise_distances
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matern_tile import instance, matern_tile_cuda
+
+    inv_range, amp = (1.0, 1.0) if tag == "edges" else (1.0 / 0.03, 1.0)
+    dname = str(la.dtype).split(".")[-1]
+    got = matern_tile_cuda(la, lb, inv_range, amp, nu=nu)
+    want = ref.matern_tile_ref(la, lb, inv_range, amp, nu)
+    torch.cuda.synchronize()
+    n, m = la.shape[0], lb.shape[0]
+    isz = la.element_size()
+    nbytes = (n + m) * 2 * isz + n * m * isz
+    general = instance(nu) == "general"
+    u = None
+    if general or timed:
+        u = pairwise_distances(la, lb) * inv_range
+    if general:
+        ops, stats = general_work(torch, u, nu)
+        ops += n * m * DIST_OPS
+    else:
+        ops, stats = n * m * (DIST_OPS + HALFINT_OPS[nu]), None
+    rec = _matern_record(
+        torch, "matern_tile", tag, (n, m), nu, dname, got, want, nbytes, ops
+    )
+    if stats:
+        rec["steps"] = stats
+    if tag == "edges":
+        rec["zero_at_800"] = float(got[0, -1]) == 0.0
+        rec["ok"] = rec["ok"] and rec["zero_at_800"] and float(got[0, 0]) == 1.0
+    del got, want
     if timed:
-        rec["ms"] = cuda_ms(
-            torch, lambda: matern_tile_cuda(la, lb, inv_range, amp, nu=nu)
+        _matern_times(
+            torch,
+            rec,
+            lambda: matern_tile_cuda(la, lb, inv_range, amp, nu=nu),
+            lambda: ref.matern_tile_ref(la, lb, inv_range, amp, nu),
+            u,
+            nu,
         )
-        rec["plain_ms"] = cuda_ms(
-            torch, lambda: ref.matern_tile_ref(la, lb, inv_range, amp, nu)
-        )
-        rec["library_ms"] = None
     emit(rec)
     return rec
+
+
+def check_matern_corr(torch, tag, u, nu, timed):
+    """matern_corr_cuda against matern_corr_ref on a tensor of scaled
+    distances.  At the exact path's 16384^2 the plain version of a general
+    order takes seconds: it is timed once there."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.matern_corr import matern_corr_cuda
+    from repro_torch.kernels.matern_tile import instance
+
+    amp = 0.7
+    dname = str(u.dtype).split(".")[-1]
+    got = matern_corr_cuda(u, amp, nu=nu)
+    want = ref.matern_corr_ref(u, amp, nu)
+    torch.cuda.synchronize()
+    general = instance(nu) == "general"
+    if general:
+        ops, stats = general_work(torch, u, nu)
+    else:
+        ops, stats = u.numel() * HALFINT_OPS[nu], None
+    nbytes = 2 * u.numel() * u.element_size()
+    rec = _matern_record(
+        torch, "matern_corr", tag, u.shape, nu, dname, got, want, nbytes, ops
+    )
+    if stats:
+        rec["steps"] = stats
+    if tag == "edges":
+        rec["zero_at_800"] = float(got[-1]) == 0.0
+        rec["ok"] = rec["ok"] and rec["zero_at_800"] and float(got[0]) == amp
+    del got, want
+    torch.cuda.empty_cache()
+    if timed:
+        big = u.numel() > 1 << 26 and general
+        _matern_times(
+            torch,
+            rec,
+            lambda: matern_corr_cuda(u, amp, nu=nu),
+            lambda: ref.matern_corr_ref(u, amp, nu),
+            u,
+            nu,
+            plain_reps=1 if big else 10,
+        )
+        torch.cuda.empty_cache()
+    emit(rec)
+    return rec
+
+
+def check_materns(torch, st, gen, locs):
+    """Both Matérn kernels (matern_tile from locations, matern_corr from
+    scaled distances) in both instances against their plain versions: at the
+    main path's largest GEN panel (the strict-lower panel of column 0,
+    (T-1)*nbl rows by nbl = 256 location columns) for every order the paths
+    run in both dtypes, on ragged shapes (an unaligned, odd-sized u for
+    matern_corr), at the edge values of u for the orders of
+    MATERN_EDGE_NUS (f64), and matern_corr at the exact path's n^2 scaled
+    distances (nu12 = 1.0 and the two half-integer orders, timed)."""
+    records = []
+    from repro_torch.core.covariance import pairwise_distances
+
+    la, lb = locs[256:], locs[:256]
+    u_panel = pairwise_distances(la, lb) / 0.03
+    rag = torch.rand((1000, 2), generator=gen, dtype=torch.float64, device="cuda")
+    for dtype in (torch.float64, torch.float32):
+        la_t, lb_t = la.to(dtype).contiguous(), lb.to(dtype).contiguous()
+        for nu in MATERN_PATH_NUS:
+            timed = dtype == torch.float64
+            rec = check_matern(torch, "panel", la_t, lb_t, nu, timed)
+            records.append(rec)
+            if timed and nu == 1.5:
+                st.setdefault("summary", {})["matern_tile"] = rec
+            elif timed:
+                st.setdefault("extra", {}).setdefault("matern_tile", []).append(rec)
+            rec = check_matern_corr(torch, "panel", u_panel.to(dtype), nu, timed)
+            records.append(rec)
+            if timed:
+                st.setdefault("extra", {}).setdefault("matern_corr", []).append(rec)
+        for nu in (1.5, 1.0):
+            rag_t = rag.to(dtype)
+            records.append(check_matern(torch, "ragged", rag_t, rag_t[:77], nu, False))
+            u_rag = (pairwise_distances(rag_t[:301], rag_t[:77]) / 0.03).view(-1)[1:]
+            records.append(check_matern_corr(torch, "ragged", u_rag, nu, False))
+    edges = torch.tensor(MATERN_EDGE_US, dtype=torch.float64, device="cuda")
+    lb_edges = torch.stack([edges, torch.zeros_like(edges)], dim=1).contiguous()
+    la_edges = torch.zeros((3, 2), dtype=torch.float64, device="cuda")
+    for nu in MATERN_EDGE_NUS:
+        records.append(check_matern(torch, "edges", la_edges, lb_edges, nu, False))
+        records.append(check_matern_corr(torch, "edges", edges, nu, False))
+    del u_panel
+    # the exact path's u: n^2 scaled distances
+    u = pairwise_distances(locs) / 0.03
+    for nu in (1.0, 0.5, 1.5):
+        rec = check_matern_corr(torch, "exact", u, nu, True)
+        records.append(rec)
+        if nu == 1.0:
+            st.setdefault("summary", {})["matern_corr"] = rec
+        else:
+            st.setdefault("extra", {}).setdefault("matern_corr", []).append(rec)
+    del u
+    torch.cuda.empty_cache()
+    return records
 
 
 def _tlr_mm_inputs(torch, gen, B, dtype, padded=False, nb=TILE, k=KMAX):
@@ -1057,22 +1323,10 @@ def phase_kernels(torch, st, n_side: int):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     records = []
-    # matern_tile at the largest GEN panel of the main path: the strict-lower
-    # panel of column 0, (T-1)*nbl rows by nbl = 256 location columns; and a
-    # ragged shape
+    # matern_tile and matern_corr, both instances (check_materns)
     locs, params, _ = main_config(torch, n_side, torch.device("cuda"))
     locs = torch.as_tensor(locs, device="cuda")
-    rag = torch.rand((1000, 2), generator=gen, dtype=torch.float64, device="cuda")
-    cases = [("panel", locs[256:], locs[:256]), ("ragged", rag, rag[:77])]
-    for tag, la, lb in cases:
-        for dtype in (torch.float64, torch.float32):
-            la_t, lb_t = la.to(dtype).contiguous(), lb.to(dtype).contiguous()
-            for nu in (0.5, 1.5, 2.5) if tag == "panel" else (1.5,):
-                timed = tag == "panel" and dtype == torch.float64 and nu == 1.5
-                rec = check_matern(torch, tag, la_t, lb_t, nu, timed)
-                records.append(rec)
-                if timed:
-                    st.setdefault("summary", {})["matern_tile"] = rec
+    records.extend(check_materns(torch, st, gen, locs))
     # tlr_mm: the largest SYRK of the main path (panel step 0: the 63 live
     # rows' (512, 128) factors onto their diagonal tiles) in both instances,
     # with padded rank columns, written into acc, and at B = 8 and 1; then
@@ -1271,6 +1525,7 @@ def phase_main(torch, st, n_side: int):
     dev = torch.device("cuda")
     nugget, tol, tile, kmax = NUGGET, TOL_TLR, TILE, KMAX
     locs, params, gen = main_config(torch, n_side, dev)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     z = simulate_mgrf(gen, locs, params, nugget=nugget, device=dev)[0]
     exact = exact_loglik(locs, z, params, nugget=nugget, keep_chol=True, device=dev)
@@ -1345,6 +1600,7 @@ def phase_main(torch, st, n_side: int):
     ok = status["ok"] and rel <= 1e-5 and math.isfinite(ll_tlr)
     ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
     ok = ok and f64_only(instances)
+    ok = ok and gen_on_kernels(st, instances, "main", "matern_tile")
     emit(
         {
             "phase": "main",
@@ -1366,6 +1622,7 @@ def phase_main(torch, st, n_side: int):
             "status": status,
             "launches": launches,
             "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("main", 0),
             "memory_footprint": foot,
             "ranks": {"max": float(ranks.max()), "mean": float(ranks.mean())},
             "peak_bytes_tlr": peak_tlr,
@@ -1466,6 +1723,7 @@ def phase_serve(torch, st):
     ok = ok and refused == "nonfinite_locs"
     ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
     ok = ok and f64_only(instances)
+    ok = ok and gen_on_kernels(st, instances, "serve", "matern_tile")
     emit(
         {
             "phase": "serve",
@@ -1494,6 +1752,7 @@ def phase_serve(torch, st):
             "refused_nan_request": refused,
             "launches": launches,
             "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("serve", 0),
             "peak_bytes_fit": peak_fit,
             "peak_bytes_predict": peak_predict,
         }
@@ -1544,6 +1803,7 @@ def phase_exact(torch, st):
         ok = math.isfinite(ll) and rel <= 1e-7
         ok = ok and all(launches[name] == count for name, count in want.items())
         ok = ok and f64_only(instances)
+        ok = ok and gen_on_kernels(st, instances, "exact", "matern_corr")
         del res
         emit(
             {
@@ -1566,6 +1826,7 @@ def phase_exact(torch, st):
                 "launches": launches,
                 "launches_by_instance": instances,
                 "launches_expected": want,
+                "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("exact", 0),
                 "peak_bytes": peak,
             }
         )
@@ -1642,8 +1903,9 @@ def phase_mle(torch, st, n_side: int):
     clamped = int(res.clamped_evals)
     ok = math.isfinite(ll) and clamped == 0 and -ll <= f_start
     ok = ok and fresh_rel <= 1e-10
-    ok = ok and all(launches[name] > 0 for name in ("tlr_mm", "potrf", "trsm"))
+    ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
     ok = ok and f64_only(instances)
+    ok = ok and gen_on_kernels(st, instances, "mle", "matern_tile")
     fitted = {key: getattr(res.params, key).tolist() for key in res.params._fields}
     emit(
         {
@@ -1670,6 +1932,7 @@ def phase_mle(torch, st, n_side: int):
             "truth": MATERN,
             "launches": launches,
             "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("mle", 0),
             "peak_bytes": peak,
         }
     )
@@ -1698,6 +1961,34 @@ def record_plans(st) -> None:
         "trsm", chol_tiles.trsm_plan, lambda p: (p[0], p[2], p[3])
     )
     chol_tiles.syrk_tile = recorded("syrk", chol_tiles.syrk_tile, lambda t: (t,))
+
+
+def count_plain_kv(st) -> None:
+    """Count the calls of the plain K_nu (``core.matern.kv``) on CUDA
+    tensors, under the phase that made them, ``st["phase"]``:
+    ``matern_correlation`` looks ``kv`` up in its module at each call, so
+    this stands in for it.  The geostat paths must make none: every order
+    of their GEN runs in matern_tile or matern_corr."""
+    from repro_torch.core import matern
+
+    calls = st.setdefault("kv_cuda", {})
+    plain = matern.kv
+
+    def kv(nu, x):
+        if x.device.type == "cuda":
+            calls[st["phase"]] = calls.get(st["phase"], 0) + 1
+        return plain(nu, x)
+
+    matern.kv = kv
+
+
+def gen_on_kernels(st, instances: dict, path: str, kernel: str) -> bool:
+    """The path made no plain K_nu call on the card and ran the general
+    instance of ``kernel`` (its cross pair, nu12 = 1.0, or every pair with
+    nu free)."""
+    return st.get("kv_cuda", {}).get(path, 0) == 0 and (
+        instances[kernel]["general"] > 0
+    )
 
 
 def phase_plans(st):
@@ -1926,6 +2217,7 @@ def main() -> int:
     st = {}
     failed = []
     record_plans(st)
+    count_plain_kv(st)
     phases = (
         ("device", lambda: phase_device(torch, st)),
         ("kernels", lambda: phase_kernels(torch, st, args.n_side)),
@@ -1980,8 +2272,12 @@ def main() -> int:
             kernels[-1]["f32_instance"] = {
                 key: f32[key] for key in ("instance", "shape", *keys, "library_ms")
             }
+        for key in ("nu", "steps", "k1_only_ms", "bound_share"):
+            if key in rec:
+                kernels[-1][key] = rec[key]
         extra_keys = ("case", "shape", "plan", "ms", "ms_out_acc", "plain_ms")
-        extra_keys += ("library_ms",)
+        extra_keys += ("library_ms", "instance", "nu", "dtype", "k1_only_ms")
+        extra_keys += ("bound_by", "steps")
         extra_keys += ("bound_ms", "ms_sum", "library_ms_sum", "bound_ms_sum")
         if name in st.get("extra", {}):
             kernels[-1]["other_shapes"] = [

@@ -16,12 +16,7 @@ import torch
 
 from ..device import as_tensor, resolve_device
 from ..kernels import ops
-from .matern import (
-    matern_correlation,
-    matern_correlation_halfint,
-    parsimonious_nu_matrix,
-    parsimonious_rho,
-)
+from .matern import parsimonious_nu_matrix, parsimonious_rho
 
 GENERATORS = ("kernel", "plain")
 
@@ -101,18 +96,14 @@ def pairwise_distances(locs_a: torch.Tensor, locs_b=None) -> torch.Tensor:
     return torch.sqrt(torch.clamp(d2, min=0.0))
 
 
-def _concrete_halfint(nu):
-    """float(nu) if it is a half-integer with a closed form, else None."""
-    v = float(nu)
-    return v if v in (0.5, 1.5, 2.5) else None
-
-
 def _pair_correlations(
     dists: torch.Tensor, params: MaternParams, d_spatial: int = 2
 ) -> torch.Tensor:
     """(p, p, *dists.shape): rho_ij * M_{nu_ij}(h / a) for every pair.
 
-    Half-integer orders take the closed form; only the p(p+1)/2 distinct
+    Each order goes through ``kernels.ops.matern_correlation`` (the
+    matern_corr kernel on the card; the closed form for half-integer orders
+    and ``core.matern`` otherwise on the CPU); only the p(p+1)/2 distinct
     orders are evaluated, then mirrored.
     """
     p = params.p
@@ -121,11 +112,7 @@ def _pair_correlations(
     u = dists / params.a
     corr = torch.empty((p, p) + tuple(dists.shape), dtype=u.dtype, device=u.device)
     for i, j in zip(*np.triu_indices(p)):
-        half = _concrete_halfint(nu_ij[i, j])
-        if half is not None:
-            c = matern_correlation_halfint(u, half)
-        else:
-            c = matern_correlation(u, nu_ij[i, j])
+        c = ops.matern_correlation(u, nu_ij[i, j])
         corr[i, j] = c
         corr[j, i] = c
     return rho.reshape((p, p) + (1,) * dists.dim()) * corr
@@ -185,11 +172,12 @@ def build_sigma_panel(
     matching slice of ``build_sigma``, without forming Sigma (the paper's
     GEN phase).
 
-    ``gen="kernel"`` (the reference's ``"pallas"``) routes half-integer pair
-    orders through ``kernels.ops.matern_tile``: the hand-written CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors.  Other orders, and
-    all orders under ``gen="plain"`` (the reference's ``"xla"``), go through
-    ``core.matern``.
+    ``gen="kernel"`` (the reference's ``"pallas"``, which takes only the
+    half-integer orders there) generates every pair from the locations with
+    ``kernels.ops.matern_tile``: the hand-written CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors.  ``gen="plain"`` (the
+    reference's ``"xla"``) forms the distances first, then the correlation
+    with ``kernels.ops.matern_correlation``.
     """
     if gen not in GENERATORS:
         raise ValueError(f"gen must be one of {GENERATORS}, got {gen!r}")
@@ -203,21 +191,16 @@ def build_sigma_panel(
     amp = rho * (sig[:, None] * sig[None, :])
     inv_a = 1.0 / params.a
     use_kernel = gen == "kernel" and locs_rows.shape[1] == 2
-    dists = None
+    u = None
     dtype = torch.promote_types(locs_rows.dtype, torch.float32)
     corr = torch.empty((p, p, R, C), dtype=dtype, device=locs_rows.device)
     for i, j in zip(*np.triu_indices(p)):
-        half = _concrete_halfint(nu_ij[i, j])
-        if use_kernel and half is not None:
-            c = ops.matern_tile(locs_rows, locs_cols, inv_a, 1.0, nu=half)
+        if use_kernel:
+            c = ops.matern_tile(locs_rows, locs_cols, inv_a, 1.0, nu=nu_ij[i, j])
         else:
-            if dists is None:
-                dists = pairwise_distances(locs_rows, locs_cols)
-            u = dists * inv_a
-            if half is not None:
-                c = matern_correlation_halfint(u, half)
-            else:
-                c = matern_correlation(u, nu_ij[i, j])
+            if u is None:
+                u = pairwise_distances(locs_rows, locs_cols) * inv_a
+            c = ops.matern_correlation(u, nu_ij[i, j])
         corr[i, j] = c
         corr[j, i] = c
     blocks = amp[:, :, None, None] * corr
@@ -297,7 +280,7 @@ def build_correlation_matrix(
         dists = pairwise_distances(as_tensor(locs, device=device))
     else:
         dists = as_tensor(dists, device=device)
-    r = matern_correlation(dists / a, nu)
+    r = ops.matern_correlation(dists / a, nu)
     if nugget is not None:
         r.diagonal().add_(nugget)
     return r

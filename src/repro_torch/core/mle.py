@@ -66,8 +66,9 @@ class MLEConfig:
     super_panels: int = 1
     shard_svd: bool = True
     dtype_policy: str | None = None
-    # Tile generator: "kernel" (the matern_tile kernel for half-integer
-    # orders, kv otherwise) or "plain" — the reference's "pallas" / "xla".
+    # Tile generator: "kernel" (the matern_tile kernel from the locations)
+    # or "plain" (distances, then the matern_corr kernel) — the reference's
+    # "pallas" / "xla".
     gen: str = "kernel"
     tile_size: int = 0  # 0 -> auto (~sqrt(pn))
     dst_keep_fraction: float = 0.7  # DST 70/30

@@ -9,7 +9,7 @@ a fixed kmax columns, in (T, T, nb, kmax) U and V arrays.
 The main path, ``tlr_loglik(from_tiles=True)``, runs
 
     GEN        tiles straight from the Matérn generator (``generate_tiles``;
-               half-integer orders through the ``matern_tile`` kernel)
+               every order through the ``matern_tile`` kernel)
     compress   truncated SVD of each strict-lower column panel
     factorize  right-looking TLR Cholesky, per panel step POTRF, TRSM, SYRK
                (the ``tlr_mm`` kernel) and GEMM + QR/SVD recompression

@@ -5,8 +5,8 @@ decides: a CUDA tensor launches the hand kernel, which raises if it cannot
 be built or launched; a CPU tensor takes the plain PyTorch version.  There
 is no fallback from one to the other.  Each CUDA wrapper counts its
 launches (``launch_counts``), so a run can show that it went through the
-kernels; the kernels with more than one instance (flash_attention, potrf,
-tlr_mm) also count them by instance (``instance_counts``).
+kernels; each kernel has two instances and also counts its launches by
+instance (``instance_counts``).
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ import torch
 from . import ref
 from .chol_tiles import potrf_cuda, syrk_cuda, trsm_cuda
 from .flash_attention import flash_attention_cuda
+from .matern_corr import matern_corr_cuda
 from .matern_tile import matern_tile_cuda
 from .tlr_mm import check_out, tlr_mm_cuda
 
 _WRAPPERS = {
     "matern_tile": matern_tile_cuda,
+    "matern_corr": matern_corr_cuda,
     "tlr_mm": tlr_mm_cuda,
     "potrf": potrf_cuda,
     "trsm": trsm_cuda,
@@ -37,11 +39,20 @@ def _on_cpu(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def matern_tile(locs_a, locs_b, inv_range, amp, *, nu: float) -> torch.Tensor:
-    """C[r, c] = amp * M_nu(||a_r - b_c|| * inv_range), nu in {0.5, 1.5, 2.5}."""
+def matern_tile(locs_a, locs_b, inv_range, amp, *, nu) -> torch.Tensor:
+    """C[r, c] = amp * M_nu(||a_r - b_c|| * inv_range) for any order nu > 0
+    (a float or a 0-d tensor)."""
     if _on_cpu(locs_a, "matern_tile"):
         return ref.matern_tile_ref(locs_a, locs_b, inv_range, amp, nu)
     return matern_tile_cuda(locs_a, locs_b, inv_range, amp, nu=nu)
+
+
+def matern_correlation(u, nu, *, amp=1.0) -> torch.Tensor:
+    """amp * M_nu(u) elementwise over scaled distances u, for any order
+    nu > 0 (a float or a 0-d tensor)."""
+    if _on_cpu(u, "matern_correlation"):
+        return ref.matern_corr_ref(u, amp, nu)
+    return matern_corr_cuda(u.contiguous(), amp, nu=nu)
 
 
 def tlr_mm(u_a, v_a, u_b, v_b, acc, *, out=None) -> torch.Tensor:

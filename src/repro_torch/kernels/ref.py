@@ -8,18 +8,25 @@ from __future__ import annotations
 
 import torch
 
-from ..core.matern import matern_correlation_halfint
+from ..core.matern import matern_correlation, matern_correlation_halfint
 from ..core.recovery import cholesky_or_nan
 
 
-def matern_tile_ref(locs_a, locs_b, inv_range, amp, nu: float) -> torch.Tensor:
-    """Covariance tile C[r, c] = amp * M_nu(||a_r - b_c|| * inv_range).
-
-    nu is a half-integer in {0.5, 1.5, 2.5}.
-    """
+def matern_tile_ref(locs_a, locs_b, inv_range, amp, nu) -> torch.Tensor:
+    """Covariance tile C[r, c] = amp * M_nu(||a_r - b_c|| * inv_range) for
+    any order nu > 0."""
     d2 = torch.sum((locs_a[:, None, :] - locs_b[None, :, :]) ** 2, dim=-1)
     u = torch.sqrt(torch.clamp(d2, min=0.0)) * inv_range
-    return amp * matern_correlation_halfint(u, nu)
+    return matern_corr_ref(u, amp, nu)
+
+
+def matern_corr_ref(u, amp, nu) -> torch.Tensor:
+    """amp * M_nu(u) elementwise: the closed form for nu in {0.5, 1.5, 2.5},
+    ``core.matern.matern_correlation`` (the vectorised K_nu) otherwise."""
+    v = float(nu)
+    if v in (0.5, 1.5, 2.5):
+        return amp * matern_correlation_halfint(u, v)
+    return amp * matern_correlation(u, nu)
 
 
 def tlr_mm_ref(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:

@@ -16,6 +16,8 @@ from repro_torch.core.simulate import grid_locations, uniform_locations  # noqa:
 TOL = dict(rtol=1e-12, atol=1e-14)
 PARAMS = {
     "bivariate_general": dict(kind="bivariate", a=0.09, nu11=0.5, nu22=1.0, beta=0.5),
+    # the chip's main cell: nu12 = 1.0, u up to about 47
+    "bivariate_main": dict(kind="bivariate", a=0.03, nu11=0.5, nu22=1.5, beta=0.5),
     "bivariate_halfint": dict(
         kind="bivariate", a=0.12, nu11=0.5, nu22=2.5, beta=-0.3, sigma22=2.0
     ),
@@ -63,7 +65,9 @@ def test_build_sigma_matches_jax(name, representation):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("name", ["bivariate_general", "bivariate_halfint"])
+@pytest.mark.parametrize(
+    "name", ["bivariate_general", "bivariate_main", "bivariate_halfint"]
+)
 def test_build_sigma_panel_matches_jax_for_both_generators(name):
     """gen="kernel" / "plain" against the reference's "pallas" / "xla" on one
     ragged panel (rows and columns of different lengths)."""

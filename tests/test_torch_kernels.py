@@ -17,9 +17,11 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import covariance as jc  # noqa: E402
+from repro.core import matern as jm  # noqa: E402
 from repro.kernels.matern_tile import matern_tile as j_matern_tile  # noqa: E402
 from repro.kernels.tlr_mm import tlr_mm as j_tlr_mm  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, matern_tile, ops, ref  # noqa: E402
 from repro_torch.kernels.chol_tiles import (  # noqa: E402
     potrf_cuda,
     potrf_instance,
@@ -28,6 +30,7 @@ from repro_torch.kernels.chol_tiles import (  # noqa: E402
     trsm_cuda,
     trsm_instance,
 )
+from repro_torch.kernels.matern_corr import matern_corr_cuda  # noqa: E402
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
 from repro_torch.kernels.tlr_mm import check_out, tlr_mm_cuda  # noqa: E402
 
@@ -64,6 +67,47 @@ def test_matern_tile_ref_matches_pallas(nu, dname):
     got = ref.matern_tile_ref(la_t, lb_t, 1.0 / 0.1, 1.3, nu)
     assert got.dtype == tdt and got.shape == (64, 48)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol(dname))
+
+
+@pytest.mark.parametrize("nu", [0.73, 1.0, 2.283])
+def test_matern_tile_ref_general_orders_match_jax(nu):
+    """Orders the Pallas kernel does not take: the plain version against the
+    reference's correlation of the same distances, at u up to about 40, with
+    coincident points (M(0) = 1)."""
+    rng = np.random.default_rng(9)
+    la = rng.uniform(size=(40, 2))
+    lb = np.concatenate([la[:3], rng.uniform(size=(21, 2))])
+    inv_range, amp = 1.0 / 0.03, 1.3
+    got = ref.matern_tile_ref(
+        torch.as_tensor(la), torch.as_tensor(lb), inv_range, amp, nu
+    ).numpy()
+    u = jc.pairwise_distances(jnp.asarray(la), jnp.asarray(lb)) * inv_range
+    want = amp * np.asarray(jm.matern_correlation(u, nu))
+    np.testing.assert_allclose(got, want, rtol=1e-11, atol=0.0)
+    np.testing.assert_array_equal(np.diagonal(got[:3, :3]), amp)
+
+
+def test_matern_launch_args_pick_the_instance_and_refuse_bad_orders():
+    """The order alone picks the instance (a float or a 0-d tensor); the
+    general instance gets the host array of its order; orders that are not
+    finite and > 0 are refused before anything is built."""
+    for nu in (0.5, 1.5, 2.5, torch.tensor(1.5, dtype=torch.float64)):
+        assert matern_tile.launch_args(nu) == ("halfint", round(2 * float(nu)), None)
+    for nu in (1.0, 0.73, 3.0, torch.tensor(1.0, dtype=torch.float64)):
+        name, nu2, ptr = matern_tile.launch_args(nu)
+        assert (name, nu2) == ("general", 0)
+        assert ptr == matern_tile.general_args(float(nu)).ctypes.data
+    for bad in (0.0, -0.5, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="finite and > 0"):
+            matern_tile.instance(bad)
+    assert set(matern_tile_cuda.launches_by_instance) == {"halfint", "general"}
+    assert set(matern_corr_cuda.launches_by_instance) == {"halfint", "general"}
+    matern_tile_cuda.launches_by_instance["general"] = 2
+    matern_corr_cuda.launches_by_instance["halfint"] = 1
+    ops.reset_launch_counts()
+    counts = ops.instance_counts()
+    for name in ("matern_tile", "matern_corr"):
+        assert counts[name] == {"halfint": 0, "general": 0}
 
 
 def test_matern_tile_ref_ragged_and_coincident_points():
@@ -135,8 +179,14 @@ def test_ops_on_cpu_tensors_take_the_plain_version_and_count_nothing():
     np.testing.assert_array_equal(ops.trsm(lo, u).numpy(), ref.trsm_ref(lo, u).numpy())
     got = ops.syrk(acc, u)
     np.testing.assert_array_equal(got.numpy(), ref.syrk_ref(acc, u).numpy())
+    dists = torch.as_tensor(rng.uniform(0.0, 3.0, size=(7, 5)))
+    for nu in (1.5, 1.0):
+        got = ops.matern_correlation(dists, nu, amp=0.5)
+        want = ref.matern_corr_ref(dists, 0.5, nu)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert ops.launch_counts() == {
         "matern_tile": 0,
+        "matern_corr": 0,
         "tlr_mm": 0,
         "potrf": 0,
         "trsm": 0,
@@ -149,14 +199,23 @@ def test_ops_refuse_devices_without_a_kernel():
     la = torch.zeros((4, 2), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.matern_tile(la, la, 1.0, 1.0, nu=0.5)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.matern_correlation(la, 1.0)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_before_building():
     la = torch.zeros((4, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
         matern_tile_cuda(la, la, 1.0, 1.0, nu=1.5)
-    with pytest.raises(ValueError, match="supports nu"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         matern_tile_cuda(la, la, 1.0, 1.0, nu=1.0)
+    for bad in (0.0, float("nan")):
+        with pytest.raises(ValueError, match="finite and > 0"):
+            matern_tile_cuda(la, la, 1.0, 1.0, nu=bad)
+        with pytest.raises(ValueError, match="finite and > 0"):
+            matern_corr_cuda(la, 1.0, nu=bad)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        matern_corr_cuda(la, 1.0, nu=0.73)
     u = torch.zeros((2, 8, 4), dtype=torch.float64)
     acc = torch.zeros((2, 8, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -169,6 +228,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_building():
         syrk_cuda(acc, u)
     assert ops.launch_counts() == {
         "matern_tile": 0,
+        "matern_corr": 0,
         "tlr_mm": 0,
         "potrf": 0,
         "trsm": 0,
@@ -181,6 +241,7 @@ def test_build_hash_follows_the_sources_and_raises_without_nvcc(tmp_path, monkey
     sources = sorted(_build.CSRC.glob("*.cu"))
     assert {p.name for p in sources} == {
         "flash_attention.cu",
+        "matern_corr.cu",
         "matern_tile.cu",
         "potrf.cu",
         "syrk.cu",
