@@ -42,7 +42,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             at (1, 2048, 2048) and (1, 4096, 4096), and failed on a bad
             pivot in the first panel of a 4096 tile; tlr_mm at B = 8 and 1,
             with out=acc (checked against the plain version on a copy), and
-            summed over a factorization's sweep of B = 63 down to 1.  trsm
+            summed over a factorization's sweep of B = 63 down to 1; at the
+            dist phase's first SYRK (B = 15) in both instances, and its f32
+            instance summed over the mixed_f32 sweep of B = 15 down to 1.  trsm
             is timed at the panel, wide, alpha and predict shapes and at
             nb = 4096 (the exact phase's panel, its first and last solves),
             held on a real Matérn L_kk, and held and summed over one TLR
@@ -95,11 +97,42 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             fitted loglik to 1e-10 (relative), and matern_tile (its general
             instance: nu is free), tlr_mm, potrf and trsm were launched
             during the fit.
+7. assess   the paper's Algorithm 1 (MLOE/MMOM) at the main cell's full
+            size: n = 16384 observation locations (m = 32768), 1024 uniform
+            prediction locations, theta_a the main Matérn with its range
+            x 1.2.  ``mloe_mmom`` (GEN: two dense Sigmas through
+            matern_corr; FACT: their Cholesky factors; COMP: every location
+            at once) first at theta_a = theta, then against theta_a, then
+            the naive per-variable criteria.  It fails unless |MLOE| and
+            |MMOM| <= 1e-8 at the truth, MLOE >= -1e-9, every E_t > 0 and
+            E_t,a >= E_t - 1e-9, the paper's per-location loop (Level 2:
+            ``solve_triangular`` against ``torch.linalg.cholesky`` factors of
+            freshly built Sigmas) gives E_t, E_t,a and E_a at the first 8
+            locations within 1e-9 (relative), the naive MLOE differs from
+            the cokriging one by more than 1e-6, and matern_corr ran (its
+            general instance for nu12).  It reports the GEN / FACT / COMP
+            seconds (the paper's Figs. 10-11 split) and the peak memory.
+8. dist     the single-device forms of the distributed TLR likelihood and
+            the precision policy at the main cell's widths (tile 512, max
+            rank 128, TLR7), n cut to 64^2 = 4096 (m = 8192, 16 tiles) for
+            time: (1) ``tlr_loglik(from_tiles=True)``, (2)
+            ``dist_tlr_loglik(from_tiles=True)`` (masked grid), (3) the
+            same with super_panels=4 and col_block=2, (4) with
+            block_cyclic=True, (5) ``tlr_loglik`` with
+            dtype_policy="mixed_f32".  Each records its phase seconds, peak
+            memory, launches, storage dtypes and factor rank total.  It
+            fails unless every status is ok, (2)-(4) are within 1e-8
+            (relative) of (1) with the same rank total, f64 storage and no
+            fma_f32 launch, and (5) stores U/V in float32 with float64
+            diagonal tiles and logdet, launches tlr_mm's fma_f32 instance
+            and is within 1e-5 of (2).  The gap of (1) to the dense exact
+            loglik is reported, not gated.
    plans    every plan the f64 trsm and syrk took on the main, serve,
-            exact and mle paths (trsm: strip columns, update tile, row
-            split; syrk: tile edge; each a kernel of its own) is one that
-            a kernel check of phase 2 held against the plain version.
-7. lm       LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
+            exact, mle, assess and dist paths (trsm: strip columns, update
+            tile, row split; syrk: tile edge; each a kernel of its own) is
+            one that a kernel check of phase 2 held against the plain
+            version.
+9. lm       LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
             against ``attn_impl="naive"`` on (1, 4096) tokens, relative gap
@@ -119,17 +152,18 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
 ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
-serve, exact (panel 512), exact4096, mle and lm runs, where lm is the timed
-prefill forward and the engine's ``generate``, and ``launches_by_path``
-splits them), the
+serve, exact (panel 512), exact4096, mle, assess, dist (its five
+evaluations) and lm runs, where lm is the timed prefill forward and the
+engine's ``generate``, and ``launches_by_path`` splits them), the
 nvidia-smi line,
 and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 makes the script exit non-zero without that last line; so does a missing
 CUDA device or a missing checkout around the script.  The geostat paths
 (main, serve, exact, exact4096, mle) fail if an fma_f32 instance of
-potrf, tlr_mm, trsm or syrk was launched during them, and if the plain
-K_nu (``core.matern.kv``) ran on a CUDA tensor during them: every order of
-their GEN runs in matern_tile or matern_corr.
+potrf, tlr_mm, trsm or syrk was launched during them (dist: only its
+mixed_f32 evaluation may, and must, launch tlr_mm's), and every geostat
+path fails if the plain K_nu (``core.matern.kv``) ran on a CUDA tensor
+during it: every order of their GEN runs in matern_tile or matern_corr.
 """
 
 from __future__ import annotations
@@ -266,6 +300,20 @@ TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
 # The mle phase: grid side (n = 48^2, m = 4608, 9 tiles of 512) and the
 # Nelder–Mead iterations.
 MLE_N_SIDE, MLE_ITERS = 48, 3
+# The assess phase: prediction locations, their seed, the range factor of
+# the misspecified theta_a (tests/test_prediction_assessment.py's "slight"),
+# the locations the per-location oracle recomputes, and the gates: the
+# criteria at the truth, LOE >= 0 and E_t,a >= E_t up to rounding, the
+# oracle's relative agreement, naive against cokriging.
+ASSESS_NPRED, ASSESS_SEED, ASSESS_A_FACTOR, ASSESS_ORACLE = 1024, 11, 1.2, 8
+ASSESS_ZERO, ASSESS_ROUND, ASSESS_ORACLE_TOL, ASSESS_NAIVE_GAP = 1e-8, 1e-9, 1e-9, 1e-6
+# The dist phase: grid side (n = 64^2, m = 8192, 16 tiles of 512; n cut from
+# the main cell's 128^2 for time), the live rows of its first panel step
+# (the SYRK batch of the mixed_f32 sweep), its two-level form, and the gates:
+# the f64 forms against tlr_loglik, mixed_f32 against the masked form.
+DIST_N_SIDE, DIST_SUPER, DIST_COL_BLOCK = 64, 4, 2
+DIST_SWEEP_B = 2 * DIST_N_SIDE**2 // TILE - 1
+DIST_F64_GAP, DIST_MIXED_GAP = 1e-8, 1e-5
 # The lm phase (PERF.md section 4): qwen3-4b at full width and depth, bf16;
 # its parameter count as the reference's init_model makes it; prefill batch
 # and length; the engine's prompts and greedy steps; the gates.
@@ -805,27 +853,32 @@ def check_tlr_mm(torch, gen, tag, B, dtype, timed, nb=TILE, k=KMAX):
     return rec
 
 
-def check_tlr_mm_sweep(torch, gen):
-    """The SYRK of every panel step of one TLR factorization at the main
-    configuration: B = 63 live rows down to 1, (512, 128) factors, in place
-    as the path calls it; the kernel's summed time beside the library's."""
-    from repro_torch.kernels.tlr_mm import tlr_mm_cuda
+def check_tlr_mm_sweep(torch, gen, b_max=SWEEP_B, dtype=None):
+    """The SYRK of every panel step of one TLR factorization: B = b_max
+    live rows down to 1, (512, 128) factors, in place as the path calls it;
+    the kernel's summed time beside the library's.  By default the main
+    configuration's f64 sweep (63 to 1); the dist phase's mixed_f32
+    evaluation runs the f32 instance from 15 down."""
+    from repro_torch.kernels.tlr_mm import instance, tlr_mm_cuda
 
-    ua, va, ub, vb, acc = _tlr_mm_inputs(torch, gen, SWEEP_B, torch.float64)
+    dtype = torch.float64 if dtype is None else dtype
+    dname = str(dtype).split(".")[-1]
+    ua, va, ub, vb, acc = _tlr_mm_inputs(torch, gen, b_max, dtype)
+    isz = acc.element_size()
     ms = lib = bnd = 0.0
     for B in range(ua.shape[0], 0, -1):
         args = [t[:B] for t in (ua, va, ub, vb)]
         a = acc[:B]
         ms += cuda_ms(torch, lambda: tlr_mm_cuda(*args, a, out=a), reps=5)
         lib += cuda_ms(torch, lambda: _tlr_mm_library(torch, *args, a), reps=5)
-        bnd += _tlr_mm_bound(B, TILE, KMAX, 8, "float64")[0]
+        bnd += _tlr_mm_bound(B, TILE, KMAX, isz, dname)[0]
     rec = {
         "phase": "kernel_check",
         "kernel": "tlr_mm",
-        "instance": "dmma_f64",
-        "case": "sweep_63_to_1",
+        "instance": instance(dtype),
+        "case": f"sweep_{b_max}_to_1",
         "shapes": [[ua.shape[0], TILE, KMAX], [1, TILE, KMAX]],
-        "dtype": "float64",
+        "dtype": dname,
         "ms_sum": ms,
         "library_ms_sum": lib,
         "bound_ms_sum": bnd,
@@ -1353,6 +1406,16 @@ def phase_kernels(torch, st, n_side: int):
             check_tlr_mm(torch, gen, "ragged_out_acc", 3, dtype, False, nb=301, k=131)
         )
     rec = check_tlr_mm_sweep(torch, gen)
+    records.append(rec)
+    st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
+    # the dist phase's SYRKs: its first panel step (B = 15) in the f32
+    # instance, which its mixed_f32 evaluation runs, beside the f64 one its
+    # wide forms run, and the f32 sweep of one mixed factorization
+    for dtype in (torch.float32, torch.float64):
+        rec = check_tlr_mm(torch, gen, "dist_first", DIST_SWEEP_B, dtype, True)
+        records.append(rec)
+        st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
+    rec = check_tlr_mm_sweep(torch, gen, DIST_SWEEP_B, torch.float32)
     records.append(rec)
     st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
     # potrf: the panel-head tile of the main path, a batch, a ragged nb,
@@ -1940,6 +2003,286 @@ def phase_mle(torch, st, n_side: int):
         raise AssertionError("mle path failed its checks")
 
 
+def assess_oracle(torch, locs, pred, theta, theta_a, nugget):
+    """The paper's own per-location loop (Level 2): E_t, E_t,a and E_a at
+    each of ``pred``'s locations, one location at a time, with
+    ``solve_triangular`` against ``torch.linalg.cholesky`` factors of
+    freshly built Sigmas.  Returns three (len(pred),) tensors."""
+    from repro_torch.core.covariance import build_c0, build_sigma, cross_cov_at_zero
+
+    dev = torch.device("cuda")
+    sigma_a = build_sigma(locs, theta_a, nugget=nugget, device=dev)
+    chol_a = torch.linalg.cholesky(sigma_a)
+    del sigma_a
+    sigma_t = build_sigma(locs, theta, nugget=nugget, device=dev)
+    chol_t = torch.linalg.cholesky(sigma_t)
+    c0t = build_c0(pred, locs, theta, device=dev)
+    c0a = build_c0(pred, locs, theta_a, device=dev)
+    c00_t = torch.trace(cross_cov_at_zero(theta))
+    c00_a = torch.trace(cross_cov_at_zero(theta_a))
+
+    def solve(chol, b):
+        y = torch.linalg.solve_triangular(chol, b, upper=False)
+        return torch.linalg.solve_triangular(chol.mT, y, upper=True)
+
+    e_t, e_ta, e_a = [], [], []
+    for loc in range(len(pred)):
+        ct, ca = c0t[loc], c0a[loc]  # (pn, p)
+        xt = solve(chol_t, ct)
+        xa = solve(chol_a, ca)
+        e_t.append(c00_t - torch.sum(ct * xt))
+        e_ta.append(c00_t - 2.0 * torch.sum(ct * xa) + torch.sum(xa * (sigma_t @ xa)))
+        e_a.append(c00_a - torch.sum(ca * xa))
+    del sigma_t, chol_t, chol_a
+    torch.cuda.empty_cache()
+    return torch.stack(e_t), torch.stack(e_ta), torch.stack(e_a)
+
+
+def phase_assess(torch, st, n_side: int):
+    """The paper's Algorithm 1 (MLOE/MMOM) at the main cell's full size."""
+    from repro_torch.core.assessment import mloe_mmom, naive_multivariate_mloe_mmom
+    from repro_torch.core.simulate import uniform_locations
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    locs, theta, _ = main_config(torch, n_side, dev)
+    theta_a = theta._replace(a=theta.a * ASSESS_A_FACTOR)
+    pred = uniform_locations(ASSESS_NPRED, seed=ASSESS_SEED)
+    kw = dict(nugget=NUGGET, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the criteria at the truth: E_t,a = E_t = E_a
+    t0 = time.perf_counter()
+    times_truth = {}
+    at_truth = mloe_mmom(locs, pred, theta, theta, times=times_truth, **kw)
+    zero = (float(at_truth.mloe), float(at_truth.mmom))
+    truth_s = time.perf_counter() - t0
+    del at_truth
+
+    # the path: theta against the misspecified theta_a
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = {}
+    t0 = time.perf_counter()
+    res = mloe_mmom(locs, pred, theta, theta_a, times=times, **kw)
+    mloe, mmom = float(res.mloe), float(res.mmom)
+    total_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["assess"] = launches
+    instances = path_instances(ops, st, "assess")
+    peak = torch.cuda.max_memory_allocated()
+    e_t_pos = bool((res.e_t > 0).all())
+    e_ta_ge = bool((res.e_ta >= res.e_t - ASSESS_ROUND).all())
+    head = [x[:ASSESS_ORACLE].clone() for x in (res.e_t, res.e_ta, res.e_a)]
+    del res
+    torch.cuda.empty_cache()
+
+    # the per-location oracle for the first locations
+    t0 = time.perf_counter()
+    oracle = assess_oracle(torch, locs, pred[:ASSESS_ORACLE], theta, theta_a, NUGGET)
+    oracle_s = time.perf_counter() - t0
+    oracle_gap = {
+        name: float(((got - want).abs() / want.abs()).max())
+        for name, got, want in zip(("e_t", "e_ta", "e_a"), head, oracle)
+    }
+
+    # the naive per-variable extension (paper section 5.4)
+    t0 = time.perf_counter()
+    naive_loe, naive_mom = naive_multivariate_mloe_mmom(
+        locs, pred, theta, theta_a, nugget=NUGGET, device=dev
+    )
+    naive_loe, naive_mom = float(naive_loe), float(naive_mom)
+    naive_s = time.perf_counter() - t0
+
+    ok = max(abs(v) for v in zero) <= ASSESS_ZERO
+    ok = ok and mloe >= -ASSESS_ROUND and e_t_pos and e_ta_ge
+    ok = ok and max(oracle_gap.values()) <= ASSESS_ORACLE_TOL
+    ok = ok and abs(mloe - naive_loe) > ASSESS_NAIVE_GAP
+    ok = ok and math.isfinite(mloe) and math.isfinite(mmom)
+    ok = ok and launches["matern_corr"] > 0
+    ok = ok and gen_on_kernels(st, instances, "assess", "matern_corr")
+    emit(
+        {
+            "phase": "assess",
+            "ok": ok,
+            "n": len(locs),
+            "m": 2 * len(locs),
+            "npred": ASSESS_NPRED,
+            "nugget": NUGGET,
+            "theta_a_range_factor": ASSESS_A_FACTOR,
+            "phase_s": times,
+            "mloe_mmom_s": total_s,
+            "at_truth": {"mloe": zero[0], "mmom": zero[1], "s": truth_s,
+                         "phase_s": times_truth},
+            "mloe": mloe,
+            "mmom": mmom,
+            "e_t_positive": e_t_pos,
+            "e_ta_ge_e_t": e_ta_ge,
+            "oracle_locations": ASSESS_ORACLE,
+            "oracle_rel_gap": oracle_gap,
+            "oracle_s": oracle_s,
+            "naive_mloe": naive_loe,
+            "naive_mmom": naive_mom,
+            "naive_s": naive_s,
+            "ck_minus_naive_mloe": mloe - naive_loe,
+            "launches": launches,
+            "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("assess", 0),
+            "peak_bytes": peak,
+        }
+    )
+    if not ok:
+        raise AssertionError("assess path failed its checks")
+
+
+def capture_factorizations(kept: list):
+    """Record the storage dtypes and the factor's rank total of every TLR
+    factorization (``core.tlr.factorize``, which every form of the TLR
+    likelihood runs) into ``kept``; returns a function that restores it."""
+    from repro_torch.core import dist_tlr, tlr
+
+    plain = tlr.factorize
+
+    def factorize(loop, diag, u, v, ranks, **kw):
+        out = plain(loop, diag, u, v, ranks, **kw)
+        kept.append(
+            {
+                "diag_dtype": str(diag.dtype).split(".")[-1],
+                "uv_dtype": str(u.dtype).split(".")[-1],
+                "factor_rank_total": int(out[3].sum()),
+            }
+        )
+        return out
+
+    tlr.factorize = dist_tlr.factorize = factorize
+
+    def restore():
+        tlr.factorize = dist_tlr.factorize = plain
+
+    return restore
+
+
+def phase_dist(torch, st, n_side: int):
+    """The single-device forms of the distributed TLR likelihood and the
+    mixed_f32 policy, at the main cell's widths with n cut for time."""
+    from repro_torch.core.dist_tlr import dist_tlr_loglik
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.simulate import grid_locations, simulate_mgrf
+    from repro_torch.core.tlr import tlr_loglik
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    side = min(DIST_N_SIDE, n_side)
+    locs, params, gen = main_config(torch, side, dev)
+    z = simulate_mgrf(gen, locs, params, nugget=NUGGET, device=dev)[0]
+    ll_exact = float(exact_loglik(locs, z, params, nugget=NUGGET, device=dev).loglik)
+    common = dict(tol=TOL_TLR, max_rank=KMAX, tile_size=TILE, nugget=NUGGET,
+                  gen="kernel", device=dev)
+    runs = (
+        ("tlr_loglik", tlr_loglik, {}),
+        ("dist_masked", dist_tlr_loglik, {}),
+        ("dist_super", dist_tlr_loglik,
+         dict(super_panels=DIST_SUPER, col_block=DIST_COL_BLOCK)),
+        ("dist_block_cyclic", dist_tlr_loglik, dict(block_cyclic=True)),
+        ("tlr_mixed_f32", tlr_loglik, dict(dtype_policy="mixed_f32")),
+    )
+    records, total, by_inst = {}, {}, {}
+    for name, fn, kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kept = []
+        restore = capture_factorizations(kept)
+        ops.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        try:
+            if fn is tlr_loglik:
+                res = fn(None, z, params, locs=locs, from_tiles=True, times=times,
+                         **common, **kw)
+            else:
+                res = fn(None, z, locs=locs, params=params, from_tiles=True,
+                         times=times, **common, **kw)
+            ll = float(res.loglik)
+        finally:
+            restore()
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        instances = ops.instance_counts()
+        for kname, count in launches.items():
+            total[kname] = total.get(kname, 0) + count
+        for kname, counts in instances.items():
+            mine = by_inst.setdefault(kname, {})
+            for inst, count in counts.items():
+                mine[inst] = mine.get(inst, 0) + count
+        records[name] = {
+            "loglik": ll,
+            "logdet_dtype": str(res.logdet.dtype).split(".")[-1],
+            "status": res.status.as_dict(),
+            "s": total_s,
+            "phase_s": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches,
+            "launches_by_instance": instances,
+            **(kept[0] if len(kept) == 1 else {"factorizations": kept}),
+        }
+        del res
+    st.setdefault("launches", {})["dist"] = total
+    st.setdefault("instances", {})["dist"] = by_inst
+
+    ref = records["tlr_loglik"]
+    masked = records["dist_masked"]
+    failed = []
+    for name, rec in records.items():
+        inst = rec["launches_by_instance"]
+        gap_to = masked if name == "tlr_mixed_f32" else ref
+        rec["rel_gap"] = abs(rec["loglik"] - gap_to["loglik"]) / abs(gap_to["loglik"])
+        rec["rel_gap_to"] = "dist_masked" if name == "tlr_mixed_f32" else "tlr_loglik"
+        good = rec["status"]["ok"] and math.isfinite(rec["loglik"])
+        good = good and all(rec["launches"][k] > 0 for k in TLR_KERNELS)
+        good = good and rec["logdet_dtype"] == rec.get("diag_dtype") == "float64"
+        good = good and all(inst[k]["fma_f32"] == 0 for k in ("potrf", "trsm", "syrk"))
+        good = good and gen_on_kernels(st, inst, "dist", "matern_tile")
+        if name == "tlr_mixed_f32":
+            good = good and rec["rel_gap"] <= DIST_MIXED_GAP
+            good = good and rec.get("uv_dtype") == "float32"
+            good = good and inst["tlr_mm"]["fma_f32"] > 0
+        else:
+            good = good and rec["rel_gap"] <= DIST_F64_GAP
+            good = good and rec.get("uv_dtype") == "float64"
+            good = good and inst["tlr_mm"]["fma_f32"] == 0
+            good = good and rec.get("factor_rank_total") == ref.get("factor_rank_total")
+        rec["ok"] = good
+        if not good:
+            failed.append(name)
+    emit(
+        {
+            "phase": "dist",
+            "ok": not failed,
+            "n": len(locs),
+            "m": 2 * len(locs),
+            "tile_size": TILE,
+            "max_rank": KMAX,
+            "tol": TOL_TLR,
+            "nugget": NUGGET,
+            "reduced": {
+                "n": {"main_cell": n_side * n_side, "here": len(locs)},
+                "why": "each form repeats the main phase's cuSOLVER work",
+            },
+            "loglik_exact": ll_exact,
+            "tlr_rel_gap_to_exact": abs(ref["loglik"] - ll_exact) / abs(ll_exact),
+            "evaluations": records,
+            "launches": total,
+            "launches_by_instance": by_inst,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("dist", 0),
+        }
+    )
+    if failed:
+        raise AssertionError(f"dist forms failed their checks: {failed}")
+
+
 def record_plans(st) -> None:
     """Keep every plan the f64 trsm and syrk pick (trsm's strip columns,
     update tile and row split; syrk's tile edge) under the phase that ran
@@ -1997,7 +2340,8 @@ def phase_plans(st):
     tile, row split) and each tile edge is a kernel of its own."""
     plans = st.get("plans", {})
     checked = plans.get("kernels", set())
-    by_path = {p: plans.get(p, set()) for p in ("main", "serve", "exact", "mle")}
+    paths = ("main", "serve", "exact", "mle", "assess", "dist")
+    by_path = {p: plans.get(p, set()) for p in paths}
     missing = sorted(set().union(*by_path.values()) - checked)
     ok = bool(checked) and not missing
     emit(
@@ -2225,6 +2569,8 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, st)),
         ("exact", lambda: phase_exact(torch, st)),
         ("mle", lambda: phase_mle(torch, st, args.n_side)),
+        ("assess", lambda: phase_assess(torch, st, args.n_side)),
+        ("dist", lambda: phase_dist(torch, st, args.n_side)),
         ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),
     )

@@ -2,7 +2,8 @@
 
 The four dense, attention-only architectures of the reference's registry.
 The reference's other six LM architectures need modules the port does not
-have yet (MoE, SSM, RG-LRU, modality frontends; ROADMAP Queue 1 item 9).
+have yet (MoE, SSM, RG-LRU, modality frontends; ROADMAP Queue 1 item 6,
+the rest of the LM substrate).
 """
 
 from .base import LM_SHAPES, ArchConfig, ShapeConfig
@@ -27,7 +28,7 @@ def get_arch(name: str) -> ArchConfig:
     if name in NOT_PORTED:
         raise KeyError(
             f"arch {name!r} needs modules not yet ported (MoE, SSM, RG-LRU or a "
-            "frontend: ROADMAP Queue 1 item 9)"
+            "frontend: ROADMAP Queue 1 item 6, the rest of the LM substrate)"
         )
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from .core.covariance import MaternParams
+from .core.dist_tlr import PairTLR
 from .core.optimize import NMState
 from .core.prediction import CokrigeFactor
 from .core.tlr import TLRMatrix
@@ -31,15 +32,37 @@ def params_from_numpy(
     return MaternParams(t(sigma2), t(a), t(nu), t(beta))
 
 
+def _tensor(x, dev, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
+
+
 def tlr_matrix_from_numpy(diag, u, v, ranks, *, device=None) -> TLRMatrix:
     """``TLRMatrix`` from arrays: diag (T, nb, nb), u and v (T, T, nb, kmax),
-    ranks (T, T).  Floating arrays keep their dtype."""
+    ranks (T, T).  Floating arrays keep their dtype, so U/V stored narrow
+    by a precision policy stay narrow."""
     dev = resolve_device(device)
+    return TLRMatrix(
+        _tensor(diag, dev),
+        _tensor(u, dev),
+        _tensor(v, dev),
+        _tensor(ranks, dev, torch.int32),
+    )
 
-    def t(x, dtype=None):
-        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
 
-    return TLRMatrix(t(diag), t(u), t(v), t(ranks, torch.int32))
+def pair_tlr_from_numpy(
+    diag, u, v, ranks, n_shards: int = 1, *, device=None
+) -> PairTLR:
+    """``PairTLR`` from the arrays of the reference's: diag (T, nb, nb), u
+    and v (length, nb, kmax) pair-major, ranks (length,), and the shard
+    count its slots were laid out for.  Floating arrays keep their dtype."""
+    dev = resolve_device(device)
+    return PairTLR(
+        diag=_tensor(diag, dev),
+        u=_tensor(u, dev),
+        v=_tensor(v, dev),
+        ranks=_tensor(ranks, dev, torch.int32),
+        n_shards=int(n_shards),
+    )
 
 
 def cokrige_factor_from_numpy(
@@ -55,23 +78,19 @@ def cokrige_factor_from_numpy(
             f"the port serves single-device factors, got n_shards={n_shards}"
         )
     dev = resolve_device(device)
-
-    def t(x, dtype=None):
-        return torch.as_tensor(np.array(x), dtype=dtype, device=dev)
-
     if not isinstance(params, MaternParams):
         params = params_from_numpy(*params, device=dev)
     return CokrigeFactor(
-        diag_l=t(diag_l),
-        u=t(u),
-        v=t(v),
-        ranks=t(ranks, torch.int32),
-        alpha=t(alpha),
-        locs=t(locs),
+        diag_l=_tensor(diag_l, dev),
+        u=_tensor(u, dev),
+        v=_tensor(v, dev),
+        ranks=_tensor(ranks, dev, torch.int32),
+        alpha=_tensor(alpha, dev),
+        locs=_tensor(locs, dev),
         params=params,
         kind="tlr",
         n_shards=n_shards,
-        z=None if z is None else t(z),
+        z=None if z is None else _tensor(z, dev),
     )
 
 

@@ -21,7 +21,7 @@ the reference leaves them to XLA.  Given a ``times`` dict,
 
 Not ported: the multi-device forms (``mesh``; ROADMAP Queue 1 item 7) and
 the dry-run lowerables ``dist_loglik_lowerable``, ``dist_cokrige_lowerable``
-and ``dist_cholesky_lowerable`` (item 10).
+and ``dist_cholesky_lowerable`` (item 8, the tooling analogues).
 """
 
 from __future__ import annotations

@@ -1,27 +1,63 @@
-"""Pair-major TLR factorization and solves (single device).
+"""Distributed-TLR likelihood forms on one device.
 
-Counterpart of the pair-native path of ``repro.core.dist_tlr`` with
-``mesh=None``, ``col_block=1`` and ``super_panels=1``: the strict-lower
-tiles live in pair-major storage (``distribution.block_cyclic``), a
-(length, nb, kmax) leading axis instead of the (T, T) grid, and the
-factorization and both triangular sweeps read a tile column through its
-slots ``layout.pos[k+1:, k]``.  This is the path cokriging serving runs
-(``serving.cokrige_service``).  The sharded, masked-grid and super-panel
-forms, and the knobs that select them (``mesh``, ``col_block``,
-``super_panels``, ``shard_recompress``), belong to the multi-device slice.
+Counterpart of ``repro.core.dist_tlr`` with ``mesh=None``.  Two placements
+of the strict-lower UV tiles, as in the reference:
+
+  * the masked (T, T) grid (``TLRMatrix``): ``dist_tlr_cholesky`` and
+    ``dist_tlr_solve_lower``;
+  * block-cyclic pair-major storage (``PairTLR``,
+    ``distribution.block_cyclic``): a (length, nb, kmax) leading axis read a
+    tile column at a time through ``layout.pos[k+1:, k]``, the path
+    cokriging serving runs (``serving.cokrige_service``).
+
+``dist_compress_tiles`` fills either from the Matérn generator (``col_block``
+columns to one SVD batch, U/V at a ``dtype_policy``'s narrow dtype), and
+``dist_tlr_loglik`` runs compress -> factorize -> forward solve -> Eq. 1 in
+either placement, with ``super_panels`` super-steps.
+
+The reference's masked full-grid batch and its unrolled super-panel trace
+exist to give XLA static shapes; the port runs eagerly and its panel
+bodies already touch only the live trailing tiles (``tlr.tlr_panel_body``),
+so every form here drives the same in-place panel loops
+(``tlr.factorize``) and returns what the reference returns for that form,
+without the reference's masked overcompute.  ``mesh`` must be None
+(``pair_shards``); on one device ``row_axes``, ``shard_svd`` and
+``shard_recompress`` select nothing, as in the reference with
+``mesh=None``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import torch
 
-from ..distribution.block_cyclic import PairLayout, pairs_to_grid
+from ..device import as_tensor
+from ..distribution.block_cyclic import (
+    PairLayout,
+    grid_to_pairs,
+    pair_layout,
+    pair_shards,
+    pairs_to_grid,
+)
 from ..kernels import ops
 from .covariance import MaternParams
-from .recovery import init_status
-from .tlr import TLRMatrix, _lap, compress_columns, index_of, pair_panel_loop
+from .likelihood import LoglikResult
+from .tlr import (
+    TLRMatrix,
+    _lap,
+    _loglik_of,
+    choose_tile_size,
+    compress_columns,
+    factorize,
+    fill_grid,
+    index_of,
+    pair_panel_loop,
+    panel_loop,
+    solve_lower_grid,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,21 +113,30 @@ def dist_compress_tiles(
     gen: str = "kernel",
     d_spatial: int = 2,
     scale=None,
-    layout: PairLayout,
+    mesh=None,
+    row_axes=("data",),
+    layout: PairLayout | None = None,
+    col_block: int = 1,
+    shard_svd: bool = True,
+    dtype_policy=None,
     device=None,
     times: dict | None = None,
-) -> PairTLR:
-    """Generator-direct compression into pair-major storage: the reference's
-    ``layout=`` (pair) mode with ``mesh=None`` and ``col_block=1``.
+):
+    """Generator-direct compression of Morton-ordered locations into the
+    fixed-kmax D/U/V layout: a ``TLRMatrix`` grid with ``layout=None``, else
+    a ``PairTLR`` whose slot ``layout.pos[i, j]`` holds tile (i, j).
 
-    Returns a ``PairTLR`` whose slot ``layout.pos[i, j]`` holds tile (i, j).
-    The reference generates each whole column panel, SVDs all T of its
-    tiles and masks the rows i <= j; here only the T-1-j strict-lower tiles
-    of column j are generated and SVD'd (``tlr.compress_columns``), which
-    gives the same values at about half the SVD work.  Locations must be
-    Morton-ordered by the caller.
+    ``col_block`` columns share one truncation-SVD batch and must divide T,
+    as in the reference.  The reference generates each whole column panel,
+    SVDs all T of its tiles and masks the rows i <= j; here only the T-1-j
+    strict-lower tiles of column j are generated and SVD'd
+    (``tlr.compress_columns``), the same values at about half the SVD work.
+    ``dtype_policy`` casts those tiles to the policy's narrow dtype before
+    the SVD and stores U/V narrow; diagonal tiles stay wide.  ``scale``
+    defaults to max(sigma2) + nugget.
     """
-    diag, kmax, columns = compress_columns(
+    pair_shards(mesh, row_axes)
+    diag, kmax, store, columns = compress_columns(
         locs,
         params,
         tile_size,
@@ -101,14 +146,18 @@ def dist_compress_tiles(
         gen,
         d_spatial,
         scale,
+        col_block=col_block,
+        dtype_policy=dtype_policy,
         device=device,
         times=times,
     )
+    if layout is None:
+        return fill_grid(diag, kmax, store, columns)
     T, nb = diag.shape[0], diag.shape[1]
     if layout.n_tiles != T:
         raise ValueError(f"layout is for {layout.n_tiles} tiles, the matrix has {T}")
     dev = diag.device
-    u = torch.zeros((layout.length, nb, kmax), dtype=diag.dtype, device=dev)
+    u = torch.zeros((layout.length, nb, kmax), dtype=store, device=dev)
     v = torch.zeros_like(u)
     ranks = torch.zeros((layout.length,), dtype=torch.int32, device=dev)
     for j, U, V, R in columns:
@@ -117,6 +166,64 @@ def dist_compress_tiles(
         v[col] = V
         ranks[col] = R
     return PairTLR(diag=diag, u=u, v=v, ranks=ranks, n_shards=layout.n_shards)
+
+
+def dist_tlr_cholesky(
+    diag,
+    u,
+    v,
+    ranks=None,
+    *,
+    tol: float = 1e-7,
+    scale=1.0,
+    mesh=None,
+    row_axes=("data",),
+    super_panels: int = 1,
+    block_cyclic: bool = False,
+    shard_recompress: bool = True,
+    track_status: bool = False,
+    times: dict | None = None,
+):
+    """Factor the TLR matrix: the grid API, (T, T) grid tiles in and
+    ``(diag_L, u, v, ranks)`` out in the grid layout, plus a
+    ``FactorStatus`` with ``track_status=True``.
+
+    ``ranks=None`` starts from zero rank metadata, as in the reference.
+    ``block_cyclic=True`` converts the grid to pair-major storage once,
+    factors it there (``dist_tlr_cholesky_pairs``) and converts back.
+    ``super_panels = S`` runs S super-steps (``_tlr_cholesky_super``).  The
+    inputs are not modified.
+    """
+    pair_shards(mesh, row_axes)
+    if ranks is None:
+        ranks = torch.zeros(u.shape[:2], dtype=torch.int32, device=u.device)
+    if block_cyclic:
+        layout = pair_layout(diag.shape[0], 1)
+        out = dist_tlr_cholesky_pairs(
+            diag,
+            grid_to_pairs(u, layout),
+            grid_to_pairs(v, layout),
+            grid_to_pairs(ranks, layout),
+            layout=layout,
+            tol=tol,
+            scale=scale,
+            super_panels=super_panels,
+            track_status=track_status,
+            times=times,
+        )
+        grid = (out[0],) + tuple(pairs_to_grid(x, layout) for x in out[1:4])
+        return grid + (out[4],) if track_status else grid
+    return _tlr_cholesky_super(
+        diag,
+        u,
+        v,
+        ranks,
+        tol=tol,
+        scale=scale,
+        super_panels=super_panels,
+        track_status=track_status,
+        times=times,
+    )
 
 
 def dist_tlr_cholesky_pairs(
@@ -128,31 +235,88 @@ def dist_tlr_cholesky_pairs(
     layout: PairLayout,
     tol: float = 1e-7,
     scale=1.0,
+    mesh=None,
+    row_axes=("data",),
+    super_panels: int = 1,
+    shard_recompress: bool = True,
     track_status: bool = False,
     times: dict | None = None,
 ):
     """Pair-native TLR Cholesky: (diag, U, V, ranks) in pair-major storage
-    in, the factor in the same storage out, never the (T, T) grid (the
-    reference's form with ``mesh=None`` and ``super_panels=1``).
+    in, the factor in the same storage out, never the (T, T) grid.
 
-    The inputs are cloned once; the panel steps (``tlr.pair_panel_loop``)
-    then update the copy in place, and the last tile needs only its POTRF
-    (the ``potrf`` kernel).  Returns ``(diag_L, u, v, ranks)``, plus a
-    ``FactorStatus`` with ``track_status=True``.
+    The panel steps (``tlr.pair_panel_loop``) update a copy of the inputs
+    in place, in ``super_panels`` super-steps
+    (``_tlr_cholesky_super_pairs``).
+    Returns ``(diag_L, u, v, ranks)``, plus a ``FactorStatus`` with
+    ``track_status=True``.
     """
-    T = diag.shape[0]
-    diag, up, vp, ranks = (x.clone() for x in (diag, up, vp, ranks))
-    t0 = _lap(times, None, 0.0, diag)
-    status = init_status(diag.dtype, diag.device) if track_status else None
-    out = pair_panel_loop(
-        diag, up, vp, ranks, T - 1, layout=layout, tol=tol, scale=scale, status=status
+    pair_shards(mesh, row_axes)
+    return _tlr_cholesky_super_pairs(
+        diag,
+        up,
+        vp,
+        ranks,
+        layout=layout,
+        tol=tol,
+        scale=scale,
+        super_panels=super_panels,
+        track_status=track_status,
+        times=times,
     )
-    lkk = ops.potrf(diag[T - 1 :])
-    diag[T - 1] = lkk[0]
-    _lap(times, "factorize", t0, diag)
-    if track_status:
-        return diag, up, vp, ranks, out[4].update_potrf(lkk)
-    return diag, up, vp, ranks
+
+
+def _tlr_cholesky_super(
+    diag, u, v, ranks, *, tol, scale, super_panels: int, track_status, times
+):
+    """The masked-grid factorization in ``super_panels`` super-steps of
+    T / S panels each (T must be a multiple of S; S = 1 is the single-level
+    loop), one ``FactorStatus`` per super-step, merged (min pivot, summed
+    counts), as the reference's two-level form merges its slices'.
+
+    The reference factors a shrinking trailing slice in each super-step so
+    that its masked batch spans only the live tiles.  The port's panel body
+    touches only the live tiles at every step, so a super-step here is a
+    run of the one in-place loop over the full buffers: no slices are
+    copied, and the values are the single-level form's.
+    """
+    loop = functools.partial(panel_loop, tol=tol, scale=scale)
+    return factorize(
+        loop,
+        diag,
+        u,
+        v,
+        ranks,
+        super_panels=super_panels,
+        track_status=track_status,
+        times=times,
+    )
+
+
+def _tlr_cholesky_super_pairs(
+    diag, up, vp, ranks, *, layout, tol, scale, super_panels: int, track_status, times
+):
+    """The block-cyclic factorization in super-steps, as
+    ``_tlr_cholesky_super`` on pair-major storage.  The reference remaps the
+    live pairs into a fresh, smaller ``PairLayout`` each super-step; the
+    port's pair body reads only the live slots of the one layout at every
+    step, so no remap is needed and the values are the single-level
+    form's."""
+    if diag.shape[0] != layout.n_tiles:
+        raise ValueError(
+            f"layout is for {layout.n_tiles} tiles, diag has {diag.shape[0]}"
+        )
+    loop = functools.partial(pair_panel_loop, layout=layout, tol=tol, scale=scale)
+    return factorize(
+        loop,
+        diag,
+        up,
+        vp,
+        ranks,
+        super_panels=super_panels,
+        track_status=track_status,
+        times=times,
+    )
 
 
 def _rhs(z, T: int, nb: int):
@@ -179,8 +343,10 @@ def dist_tlr_solve_lower_pairs(diag_l, up, vp, z, *, layout: PairLayout):
         out[k] = wk[0]
         if k + 1 < T:
             col = index_of(layout.pos[k + 1 :, k], z.device)
-            t = vp[col].mT @ wk  # (T-1-k, kmax, r)
-            z[k + 1 :] -= up[col] @ t
+            # narrow U/V (a mixed policy) widened, as the reference's einsum
+            # promotes them
+            vk, uk = vp[col].to(z.dtype), up[col].to(z.dtype)
+            z[k + 1 :] -= uk @ (vk.mT @ wk)  # (T-1-k, nb, r)
     return out.reshape(-1) if single else out.reshape(T * nb, -1)
 
 
@@ -202,7 +368,148 @@ def dist_tlr_solve_upper_pairs(diag_l, up, vp, y, *, layout: PairLayout):
         rhs = y[k]
         if k + 1 < T:
             col = index_of(layout.pos[k + 1 :, k], y.device)
-            wu = up[col].mT @ out[k + 1 :]  # (T-1-k, kmax, r)
-            rhs = rhs - (vp[col] @ wu).sum(0)
+            uk, vk = up[col].to(y.dtype), vp[col].to(y.dtype)
+            wu = uk.mT @ out[k + 1 :]  # (T-1-k, kmax, r)
+            rhs = rhs - (vk @ wu).sum(0)
         out[k] = torch.linalg.solve_triangular(diag_l[k].mT, rhs, upper=True)
     return out.reshape(-1) if single else out.reshape(T * nb, -1)
+
+
+def dist_tlr_solve_lower(diag_l, u, v, z) -> torch.Tensor:
+    """Forward substitution L alpha = z with the grid-form TLR factor: the
+    single-device ``tlr.solve_lower_grid``, as in the reference."""
+    return solve_lower_grid(diag_l, u, v, z)
+
+
+def dist_tlr_loglik(
+    t=None,
+    z=None,
+    *,
+    locs=None,
+    params: MaternParams | None = None,
+    from_tiles: bool = False,
+    tile_size: int = 0,
+    max_rank: int = 64,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    d_spatial: int = 2,
+    tol: float = 1e-7,
+    scale=None,
+    mesh=None,
+    row_axes=("data",),
+    super_panels: int = 1,
+    block_cyclic: bool = False,
+    layout: PairLayout | None = None,
+    col_block: int = 1,
+    shard_recompress: bool = True,
+    shard_svd: bool = True,
+    track_status: bool = True,
+    dtype_policy=None,
+    device=None,
+    times: dict | None = None,
+) -> LoglikResult:
+    """TLR likelihood (Eq. 1) through the distributed forms, on one device.
+
+    Two entry modes:
+
+      * ``dist_tlr_loglik(t, z)`` factors pre-compressed tiles (a
+        ``TLRMatrix``, or a ``PairTLR``, which forces ``block_cyclic``).
+      * ``dist_tlr_loglik(None, z, locs=..., params=..., from_tiles=True)``
+        generates and compresses the tiles first (``dist_compress_tiles``,
+        never the dense Sigma); ``scale`` then defaults to
+        max(sigma2) + nugget, else to 1.
+
+    ``block_cyclic=True`` keeps the evaluation pair-native (compression
+    straight into pair-major storage, pair factorization and forward
+    sweep).  An explicit ``layout`` must cover the tile grid, and match a
+    ``PairTLR``'s shard count (ValueError otherwise).  ``track_status``
+    (default on) gives a ``status`` on the result and the finite sentinel
+    loglik on breakdown.  ``dtype_policy`` stores U/V narrow during the
+    from-tiles compression; the factorization widens at the TRSM and SYRK
+    boundaries and the logdet stays wide.  Numpy ``locs`` and ``z`` go to
+    ``device``; ``times`` collects the phase seconds.
+    """
+    pair_shards(mesh, row_axes)
+    if isinstance(t, PairTLR):
+        block_cyclic = True
+    if from_tiles:
+        if locs is None or params is None:
+            raise ValueError("from_tiles=True requires locs and params")
+        if scale is None:
+            scale = torch.max(params.sigma2) + nugget
+        if not block_cyclic:
+            layout = None
+        else:
+            m = len(locs) * params.p
+            nb = choose_tile_size(m, tile_size, multiple_of=params.p)
+            if layout is None:
+                layout = pair_layout(m // nb, 1)
+            elif layout.n_tiles != m // nb:
+                raise ValueError(
+                    f"layout covers n_tiles={layout.n_tiles} "
+                    f"but the tile grid has {m // nb}"
+                )
+        t = dist_compress_tiles(
+            locs,
+            params,
+            tile_size=tile_size,
+            tol=tol,
+            max_rank=max_rank,
+            nugget=nugget,
+            gen=gen,
+            d_spatial=d_spatial,
+            scale=scale,
+            layout=layout,
+            col_block=col_block,
+            dtype_policy=dtype_policy,
+            device=device,
+            times=times,
+        )
+    elif t is None:
+        raise ValueError(
+            "pass a TLRMatrix/PairTLR, or locs/params with from_tiles=True"
+        )
+    if scale is None:
+        scale = 1.0
+    if block_cyclic:
+        if isinstance(t, PairTLR):
+            if layout is None:
+                layout = pair_layout(t.n_tiles, t.n_shards)
+            elif layout.n_shards != t.n_shards:
+                raise ValueError(
+                    f"PairTLR was scattered for n_shards={t.n_shards} but "
+                    f"layout has n_shards={layout.n_shards}; slot orders differ"
+                )
+        else:
+            if layout is None:
+                layout = pair_layout(t.n_tiles, 1)
+            t = PairTLR(
+                diag=t.diag,
+                u=grid_to_pairs(t.u, layout),
+                v=grid_to_pairs(t.v, layout),
+                ranks=grid_to_pairs(t.ranks, layout),
+                n_shards=layout.n_shards,
+            )
+    kw = dict(
+        tol=tol,
+        scale=scale,
+        super_panels=super_panels,
+        track_status=track_status,
+        times=times,
+    )
+    if block_cyclic:
+        out = dist_tlr_cholesky_pairs(t.diag, t.u, t.v, t.ranks, layout=layout, **kw)
+    else:
+        out = dist_tlr_cholesky(t.diag, t.u, t.v, t.ranks, **kw)
+    diag_l, u, v = out[:3]
+    status = out[4] if track_status else None
+    t0 = _lap(times, None, 0.0, diag_l)
+    zt = as_tensor(z, device=diag_l.device, dtype=diag_l.dtype)
+    if block_cyclic:
+        alpha = dist_tlr_solve_lower_pairs(diag_l, u, v, zt, layout=layout)
+    else:
+        alpha = dist_tlr_solve_lower(diag_l, u, v, zt)
+    res = _loglik_of(diag_l, alpha, t.shape[0], status=status)
+    _lap(times, "solve", t0, res.loglik)
+    return res
+

@@ -14,10 +14,11 @@ them in closed form after convergence.  The optimizer's vectors live on
 the CPU; the objective moves them to the data's device, where the
 likelihood runs, and returns a 0-d tensor there.
 
-Not ported, and refused by ``MLEConfig``: ``dist_tlr_from_tiles``,
-``block_cyclic`` and ``super_panels > 1`` (the distributed TLR pipeline,
-ROADMAP Queue 1 item 7) and ``dtype_policy`` (the precision policy, item
-6); ``checkpoint_dir`` in ``fit`` (checkpointed multistart, item 6).
+``dist_tlr_from_tiles`` routes the TLR backend through
+``core.dist_tlr.dist_tlr_loglik`` (with ``block_cyclic``, ``super_panels``
+and ``shard_svd``), and ``dtype_policy`` reaches both TLR backends, as in
+the reference.  Not ported: ``checkpoint_dir`` in ``fit`` (checkpointed
+multistart, ROADMAP Queue 1 item 4, checkpointing and fault injection).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from ..device import as_tensor, resolve_device
 from .covariance import GENERATORS, MaternParams, morton_order, pairwise_distances
+from .dist_tlr import dist_tlr_loglik
 from .dst import dst_loglik
 from .likelihood import exact_loglik, profile_variances
 from .optimize import multistart_nelder_mead, nelder_mead
@@ -37,14 +39,6 @@ from .recovery import find_duplicate_locations, jitter_escalate
 from .tlr import tlr_loglik
 
 BACKENDS = ("exact", "tlr", "dst")
-# Knobs of the reference that select forms the port does not have yet: the
-# value each must keep, and the ROADMAP item that ports it.
-_NOT_PORTED = {
-    "dist_tlr_from_tiles": (False, "Queue 1 item 7, the distributed TLR pipeline"),
-    "block_cyclic": (False, "Queue 1 item 7, the distributed TLR pipeline"),
-    "super_panels": (1, "Queue 1 item 7, the super-panel forms"),
-    "dtype_policy": (None, "Queue 1 item 6, the precision policy"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +52,19 @@ class MLEConfig:
     tlr_max_rank: int = 64
     # Generator-direct TLR (tlr_compress_tiles): never builds the dense Sigma.
     tlr_from_tiles: bool = False
-    # The reference's distributed forms and precision policy: only their
-    # defaults are accepted (see _NOT_PORTED).  shard_svd is read only by
-    # the distributed path; on one device either value gives one result.
+    # Route the TLR backend through core.dist_tlr.dist_tlr_loglik (the
+    # distributed pipeline's forms, on one device); generator-direct like
+    # tlr_from_tiles.  block_cyclic (pair-major storage), super_panels
+    # (two-level factorization) and shard_svd are read by that path only;
+    # on one device shard_svd selects nothing.
     dist_tlr_from_tiles: bool = False
     block_cyclic: bool = False
     super_panels: int = 1
     shard_svd: bool = True
+    # Mixed-precision storage policy for both TLR backends (core.precision):
+    # None keeps one dtype; "mixed_f32" stores off-diagonal U/V (and runs
+    # their SVDs, GEMMs and recompressions) in float32 while the diagonal
+    # tiles, POTRF/TRSM and the logdet stay float64.
     dtype_policy: str | None = None
     # Tile generator: "kernel" (the matern_tile kernel from the locations)
     # or "plain" (distances, then the matern_corr kernel) — the reference's
@@ -95,13 +95,6 @@ class MLEConfig:
             raise ValueError(f"unknown backend {self.backend!r}")
         if self.gen not in GENERATORS:
             raise ValueError(f"gen must be one of {GENERATORS}, got {self.gen!r}")
-        for name, (default, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value != default:
-                raise ValueError(
-                    f"{name}={value!r} is not ported (only {name}={default!r}); "
-                    f"it belongs to ROADMAP {item}"
-                )
 
 
 def n_free_params(p: int, profile: bool) -> int:
@@ -200,6 +193,25 @@ def _backend_loglik(
             dists=dists,
         )
     if cfg.backend == "tlr":
+        if cfg.dist_tlr_from_tiles:
+            if locs is None:
+                raise ValueError("dist_tlr_from_tiles requires locs (Morton-ordered)")
+            return dist_tlr_loglik(
+                None,
+                z,
+                locs=locs,
+                params=params,
+                from_tiles=True,
+                tile_size=cfg.tile_size,
+                max_rank=cfg.tlr_max_rank,
+                nugget=nugget,
+                gen=cfg.gen,
+                tol=cfg.tlr_tol,
+                super_panels=cfg.super_panels,
+                block_cyclic=cfg.block_cyclic,
+                shard_svd=cfg.shard_svd,
+                dtype_policy=cfg.dtype_policy,
+            )
         return tlr_loglik(
             dists,
             z,
@@ -211,6 +223,7 @@ def _backend_loglik(
             locs=locs,
             from_tiles=cfg.tlr_from_tiles,
             gen=cfg.gen,
+            dtype_policy=cfg.dtype_policy,
         )
     if cfg.backend == "dst":
         return dst_loglik(
@@ -249,10 +262,11 @@ def make_objective(locs, z, cfg: MLEConfig, dists=None, with_aux=False, *, devic
     """Negative log-likelihood over transformed parameters, as a callable.
 
     Callers must pass Morton-consistent (locs, z) for tiled backends;
-    ``fit`` handles that via apply_morton.  The generator-direct TLR backend
-    (tlr_from_tiles, non-profile) never reads the dense (n, n) distance
-    matrix, so it is not built for it.  Numpy data go to ``device``; a
-    tensor ``z`` decides the device otherwise.
+    ``fit`` handles that via apply_morton.  The generator-direct TLR
+    backends (tlr_from_tiles or dist_tlr_from_tiles, non-profile) never
+    read the dense (n, n) distance matrix, so it is not built for them.
+    Numpy data go to ``device``; a tensor ``z`` decides the device
+    otherwise.
 
     A broken or non-finite evaluation never leaks NaN: with ``cfg.recovery``
     the jitter-escalation ladder retries, and whatever survives is clamped
@@ -263,7 +277,11 @@ def make_objective(locs, z, cfg: MLEConfig, dists=None, with_aux=False, *, devic
     if isinstance(z, torch.Tensor) and device is None:
         device = z.device
     dev = resolve_device(device)
-    generator_direct = cfg.backend == "tlr" and not cfg.profile and cfg.tlr_from_tiles
+    generator_direct = (
+        cfg.backend == "tlr"
+        and not cfg.profile
+        and (cfg.tlr_from_tiles or cfg.dist_tlr_from_tiles)
+    )
     locs_t = None if locs is None else as_tensor(locs, device=dev)
     if dists is None and not generator_direct:
         dists = pairwise_distances(locs_t)
@@ -361,7 +379,7 @@ def fit(
     if checkpoint_dir is not None:
         raise ValueError(
             "checkpoint_dir is not ported: checkpointed multistart needs "
-            "CheckpointManager (ROADMAP Queue 1 item 6)"
+            "CheckpointManager (ROADMAP Queue 1 item 4, checkpointing)"
         )
     if cfg.check_duplicates:
         check_locations(locs)

@@ -21,7 +21,8 @@ on the card and return a 0-d tensor there.
   counters carry on, so ``max_iters`` is a total.
 
 Not ported: checkpointed multistart (``checkpoint_dir``), which needs
-``CheckpointManager`` (ROADMAP Queue 1 item 6).
+``CheckpointManager`` (ROADMAP Queue 1 item 4, checkpointing and fault
+injection).
 """
 
 from __future__ import annotations
@@ -232,7 +233,7 @@ def multistart_nelder_mead(
     if checkpoint_dir is not None:
         raise ValueError(
             "checkpoint_dir is not ported: checkpointed multistart needs "
-            "CheckpointManager (ROADMAP Queue 1 item 6)"
+            "CheckpointManager (ROADMAP Queue 1 item 4, checkpointing)"
         )
     results = [
         nelder_mead(fn, x0, max_iters=max_iters, has_aux=has_aux, **kwargs)

@@ -9,8 +9,9 @@ factor of Sigma (dense (m, m), or the pair-major TLR tiles of
 ``core.dist_tlr``), the precomputed ``alpha = Sigma^{-1} z`` and the
 observation geometry.  ``cokrige`` and ``cokrige_and_score`` take
 ``factor=`` and then never touch Sigma again; ``serving.cokrige_service``
-builds the TLR handle.  The reference's one-release ``chol=`` shim on
-``cokrige`` is not ported: pass ``factor=dense_factor(..., chol=chol)``.
+builds the TLR handle.  A raw lower Cholesky factor passed as ``chol=`` is
+the reference's one-release deprecation shim: it is wrapped in a dense
+handle with a one-shot ``RuntimeWarning`` and Sigma is never rebuilt.
 """
 
 from __future__ import annotations
@@ -108,6 +109,22 @@ def dense_factor(
     )
 
 
+def _chol_shim(obs_locs, z_obs, params, representation, chol) -> CokrigeFactor:
+    """The one-release deprecation shim: wrap a raw ``chol=`` lower factor
+    in a dense ``CokrigeFactor`` without calling ``build_sigma``."""
+    from ..distribution.pair_qr import warn_fallback_once
+
+    warn_fallback_once(
+        "cokrige-chol-deprecated",
+        "cokrige/cokrige_and_score: the chol= kwarg is deprecated and will "
+        "be removed next release — pass factor=dense_factor(..., chol=chol) "
+        "(or a serving fit_factor handle) instead",
+    )
+    return dense_factor(
+        obs_locs, z_obs, params, representation=representation, chol=chol
+    )
+
+
 def cokrige(
     obs_locs,
     z_obs,
@@ -115,6 +132,7 @@ def cokrige(
     params: MaternParams = None,
     representation: str = "I",
     nugget: float = 0.0,
+    chol=None,
     factor: CokrigeFactor | None = None,
     *,
     device=None,
@@ -125,8 +143,12 @@ def cokrige(
     ``factor`` takes a precomputed ``CokrigeFactor`` (``dense_factor``, or
     ``serving.cokrige_service.fit_factor`` for the TLR path), which carries
     alpha and the observation geometry, so obs_locs, z_obs and params may
-    then be None and nothing is factored again.
+    then be None and nothing is factored again.  ``chol=`` (a raw lower
+    Cholesky factor) is deprecated: it is wrapped in a dense handle with a
+    one-shot warning (``_chol_shim``).
     """
+    if factor is None and chol is not None:
+        factor = _chol_shim(obs_locs, z_obs, params, representation, chol)
     if factor is not None:
         obs_locs, params = factor.locs, factor.params
         representation = factor.representation
@@ -177,11 +199,15 @@ def cokrige_and_score(
     params: MaternParams = None,
     representation: str = "I",
     nugget: float = 0.0,
+    chol=None,
     factor: CokrigeFactor | None = None,
     *,
     device=None,
 ) -> CokrigingResult:
-    """Predict and score in one call; ``factor`` as for ``cokrige``."""
+    """Predict and score in one call; ``factor`` and the deprecated
+    ``chol=`` as for ``cokrige``."""
+    if factor is None and chol is not None:
+        factor = _chol_shim(obs_locs, z_obs, params, representation, chol)
     pred = cokrige(
         obs_locs,
         z_obs,

@@ -46,7 +46,7 @@ def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
     lo, info = torch.linalg.cholesky_ex(a)
     piv = torch.diagonal(lo, dim1=-2, dim2=-1)
     bad = ((info != 0) | ~torch.isfinite(piv).all(-1))[..., None, None]
-    return torch.where(bad, torch.full_like(lo, math.nan), lo)
+    return lo.masked_fill_(bad, math.nan)  # in place: no second (m, m) buffer
 
 
 class FactorStatus(NamedTuple):

@@ -23,10 +23,17 @@ The factorization clones its input once and then updates in place.
 Given a ``times`` dict, ``tlr_loglik`` and the functions under it add the
 wall-clock seconds of each phase (``gen``, ``compress``, ``factorize``,
 ``solve``) to it, synchronising the device at every phase boundary.
+
+``dtype_policy`` (``core.precision``) stores the off-diagonal U/V, and runs
+their truncation SVD, GEMM and recompression, in the policy's narrow dtype;
+diagonal tiles, POTRF, TRSM, the logdet and the loglik stay wide.  The
+factorization follows the storage dtypes and widens at two boundaries only
+(``tlr_panel_body``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from typing import NamedTuple
@@ -40,6 +47,7 @@ from ..distribution.pair_qr import sharded_recompress
 from ..kernels import ops
 from .covariance import MaternParams, build_sigma, build_sigma_panel
 from .likelihood import LoglikResult
+from .precision import uv_dtype
 from .recovery import FactorStatus, init_status, sentinel_loglik
 
 
@@ -165,8 +173,13 @@ def tlr_compress(
     max_rank: int = 0,
     scale=None,
     multiple_of: int = 1,
+    dtype_policy=None,
 ) -> TLRMatrix:
-    """Compress a dense SPD matrix to TLR (validation path)."""
+    """Compress a dense SPD matrix to TLR (validation path).
+
+    ``dtype_policy`` stores the off-diagonal U/V (and runs their truncation
+    SVD) in the policy's narrow dtype; diagonal tiles keep sigma's dtype.
+    """
     m = sigma.shape[0]
     nb = choose_tile_size(m, tile_size, multiple_of=multiple_of)
     T = m // nb
@@ -177,13 +190,14 @@ def tlr_compress(
         scale = torch.max(torch.abs(torch.diagonal(sigma)))
     tiles = sigma.reshape(T, nb, T, nb).transpose(1, 2)  # (T, T, nb, nb)
     diag = torch.stack([tiles[t, t] for t in range(T)])
-    kw = dict(dtype=sigma.dtype, device=sigma.device)
+    kw = dict(dtype=uv_dtype(dtype_policy, sigma.dtype), device=sigma.device)
     u = torch.zeros((T, T, nb, kmax), **kw)
     v = torch.zeros((T, T, nb, kmax), **kw)
     ranks = torch.zeros((T, T), dtype=torch.int32, device=sigma.device)
     il, jl = np.tril_indices(T, k=-1)
     if len(il):
-        U, V, R = svd_truncate_batch(tiles[il, jl], tol, kmax, scale)
+        low = tiles[il, jl].to(kw["dtype"])
+        U, V, R = svd_truncate_batch(low, tol, kmax, scale)
         u[il, jl] = U
         v[il, jl] = V
         ranks[il, jl] = R
@@ -254,17 +268,23 @@ def compress_columns(
     d_spatial: int = 2,
     scale=None,
     *,
+    col_block: int = 1,
+    dtype_policy=None,
     device=None,
     times: dict | None = None,
 ):
     """GEN + compress, one tile column at a time: the work every
     generator-direct compression runs, whatever storage it fills.
 
-    Returns ``(diag, kmax, columns)``: ``diag`` is (T, nb, nb) with the
-    nugget applied, and ``columns`` yields ``(j, U, V, ranks)`` for each
-    column j < T - 1, the truncated SVD (``svd_truncate_batch``) of its
-    T-1-j strict-lower tiles only.  ``scale`` (the threshold reference)
-    defaults to max(sigma2) + nugget, the dense path's max |diag(Sigma)|.
+    Returns ``(diag, kmax, uv_dtype, columns)``: ``diag`` is (T, nb, nb)
+    with the nugget applied, and ``columns`` yields ``(j, U, V, ranks)`` for
+    each column j < T - 1, the truncated SVD (``svd_truncate_batch``) of
+    its T-1-j strict-lower tiles only, cast to ``uv_dtype`` (the policy's
+    narrow dtype, else the generated one) before the SVD.  ``col_block``
+    columns share one SVD batch (it must divide T, as in the reference);
+    each tile's SVD is its own, so the grouping changes no value.
+    ``scale`` (the threshold reference) defaults to max(sigma2) + nugget,
+    the dense path's max |diag(Sigma)|.
     """
     t0 = _lap(times, None, 0.0, params.sigma2)
     diag, lower, nb, T = generate_tiles(
@@ -277,21 +297,35 @@ def compress_columns(
         device=device,
     )
     t0 = _lap(times, "gen", t0, diag)
+    cb = max(int(col_block), 1)
+    if T % cb:
+        raise ValueError(f"col_block={cb} must divide n_tiles={T}")
     if max_rank <= 0:
         max_rank = max(8, nb // 4)
     kmax = min(max_rank, nb)
     if scale is None:
         scale = torch.max(params.sigma2) + nugget
+    store = uv_dtype(dtype_policy, diag.dtype)
 
     def columns():
         t = t0
+        group = []
         for j, tiles in enumerate(lower):
+            group.append(tiles)
+            if len(group) < cb and j < T - 2:
+                continue
             t = _lap(times, "gen", t, tiles)
-            U, V, R = svd_truncate_batch(tiles, tol, kmax, scale)
+            batch = torch.cat(group) if len(group) > 1 else group[0]
+            U, V, R = svd_truncate_batch(batch.to(store), tol, kmax, scale)
             t = _lap(times, "compress", t, U)
-            yield j, U, V, R
+            lo = 0
+            for c, g in enumerate(group):
+                hi = lo + g.shape[0]
+                yield j + 1 - len(group) + c, U[lo:hi], V[lo:hi], R[lo:hi]
+                lo = hi
+            group = []
 
-    return diag, kmax, columns()
+    return diag, kmax, store, columns()
 
 
 def tlr_compress_tiles(
@@ -304,6 +338,7 @@ def tlr_compress_tiles(
     gen: str = "kernel",
     d_spatial: int = 2,
     scale=None,
+    dtype_policy=None,
     *,
     device=None,
     times: dict | None = None,
@@ -312,9 +347,11 @@ def tlr_compress_tiles(
 
     Equivalent to ``tlr_compress(build_sigma(locs, params, "I", nugget))``
     to SVD tolerance, tile panel by tile panel, so the dense Sigma is never
-    formed (``compress_columns``).
+    formed (``compress_columns``).  ``dtype_policy`` casts the off-diagonal
+    panels to the policy's narrow dtype before their truncation SVD and
+    stores U/V narrow; diagonal tiles keep the generated (wide) dtype.
     """
-    diag, kmax, columns = compress_columns(
+    diag, kmax, store, columns = compress_columns(
         locs,
         params,
         tile_size,
@@ -324,11 +361,17 @@ def tlr_compress_tiles(
         gen,
         d_spatial,
         scale,
+        dtype_policy=dtype_policy,
         device=device,
         times=times,
     )
+    return fill_grid(diag, kmax, store, columns)
+
+
+def fill_grid(diag, kmax: int, store: torch.dtype, columns) -> TLRMatrix:
+    """The (T, T) grid TLRMatrix of ``compress_columns``' columns."""
     T, nb = diag.shape[0], diag.shape[1]
-    kw = dict(dtype=diag.dtype, device=diag.device)
+    kw = dict(dtype=store, device=diag.device)
     u = torch.zeros((T, T, nb, kmax), **kw)
     v = torch.zeros((T, T, nb, kmax), **kw)
     ranks = torch.zeros((T, T), dtype=torch.int32, device=diag.device)
@@ -442,6 +485,31 @@ def _gemm_recompress(u, v, ranks, dst, uk, vk, li, lj, status, *, tol, scale):
     return None if status is None else status.add_nonfinite(bad)
 
 
+def _trsm_widened(lkk, vk):
+    """The TRSM widening boundary: V cast up to L_kk's dtype, solved by the
+    ``trsm`` kernel, cast back to its storage dtype (both casts are no-ops
+    under one dtype)."""
+    return ops.trsm(lkk, vk.to(lkk.dtype)).to(vk.dtype)
+
+
+def _syrk_update(diag_live, uk, vk) -> None:
+    """D_i -= U_ik (V_ik^T V_ik) U_ik^T on the live diagonal tiles, in place.
+
+    Under one dtype the ``tlr_mm`` kernel updates them in place.  With
+    narrow U/V (a mixed policy) this is the SYRK widening boundary: the
+    reference forms the product in the narrow dtype and subtracts it from
+    the wide diagonal, so here ``tlr_mm`` accumulates -U (V^T V) U^T into a
+    zero batch of the narrow dtype (its narrow instance), which is widened
+    and added.
+    """
+    if uk.dtype == diag_live.dtype:
+        ops.tlr_mm(uk, vk, uk, vk, diag_live, out=diag_live)
+        return
+    neg = torch.zeros(diag_live.shape, dtype=uk.dtype, device=uk.device)
+    ops.tlr_mm(uk, vk, uk, vk, neg, out=neg)
+    diag_live += neg.to(diag_live.dtype)
+
+
 def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs):
     """One right-looking panel step k, updating ``diag``/``u``/``v``/
     ``ranks`` in place (the reference's ``pairs=(il, jl)`` form):
@@ -460,6 +528,10 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     of the QR/SVD work is done.  One difference in accounting: a non-finite
     singular value is counted only while its pair is active.
 
+    With U/V narrower than the diagonal tiles (a mixed policy), the TRSM
+    and the SYRK widen as the reference's do (``_trsm_widened``,
+    ``_syrk_update``); the GEMM and recompress run in the narrow dtype.
+
     A non-SPD tile gives a NaN POTRF factor, as ``jnp.linalg.cholesky``
     does.  Returns ``(diag, u, v, ranks)``, plus ``status`` when one is
     passed.
@@ -472,11 +544,11 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     live = slice(k + 1, T)
     if k + 1 < T:
         # ---- TRSM on the live rows of panel column k (V only; §5.3).
-        vk = ops.trsm(lkk, v[live, k])
+        vk = _trsm_widened(lkk, v[live, k])
         v[live, k] = vk
         uk = u[live, k].contiguous()
         # ---- SYRK onto the trailing diagonal tiles, in place.
-        ops.tlr_mm(uk, vk, uk, vk, diag[live], out=diag[live])
+        _syrk_update(diag[live], uk, vk)
         # ---- GEMM + recompress on the active pairs i > j > k.
         act = jl > k
         if act.any():
@@ -517,11 +589,11 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
     if k + 1 < T:
         col = index_of(layout.pos[k + 1 :, k], dev)
         # ---- TRSM on panel column k (V only; U untouched, §5.3).
-        vk = ops.trsm(lkk, vp[col])
+        vk = _trsm_widened(lkk, vp[col])
         vp[col] = vk
         uk = up[col]
         # ---- SYRK onto the trailing diagonal tiles i > k, in place.
-        ops.tlr_mm(uk, vk, uk, vk, diag[k + 1 :], out=diag[k + 1 :])
+        _syrk_update(diag[k + 1 :], uk, vk)
         # ---- GEMM + recompress over the active pairs (pads fail il > jl).
         il, jl = layout.il, layout.jl
         act = np.nonzero((il > jl) & (jl > k))[0]
@@ -547,18 +619,75 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
     return diag, up, vp, ranks
 
 
-def pair_panel_loop(diag, up, vp, ranks, k_hi: int, *, layout, tol, scale, status=None):
-    """The pair body for k in [0, k_hi), in place; a ``status`` passed rides
+def _loop(body, diag, u, v, ranks, k_lo: int, k_hi: int, status, **kw):
+    """``body`` for k in [k_lo, k_hi), in place; a ``status`` passed rides
     along and the result is then a 5-tuple."""
-    for k in range(k_hi):
-        out = tlr_panel_body_bc(
-            k, diag, up, vp, ranks, status, layout=layout, tol=tol, scale=scale
-        )
+    for k in range(k_lo, k_hi):
+        out = body(k, diag, u, v, ranks, status, **kw)
         if status is not None:
             status = out[4]
     if status is not None:
-        return diag, up, vp, ranks, status
-    return diag, up, vp, ranks
+        return diag, u, v, ranks, status
+    return diag, u, v, ranks
+
+
+def panel_loop(diag, u, v, ranks, k_hi: int, *, tol, scale, status=None, k_lo=0):
+    """The grid body for k in [k_lo, k_hi) over the strict-lower pair list
+    (the reference's ``pairs=(il, jl)`` form), in place."""
+    pairs = np.tril_indices(diag.shape[0], k=-1)
+    kw = dict(tol=tol, scale=scale, pairs=pairs)
+    return _loop(tlr_panel_body, diag, u, v, ranks, k_lo, k_hi, status, **kw)
+
+
+def pair_panel_loop(
+    diag, up, vp, ranks, k_hi: int, *, layout, tol, scale, status=None, k_lo=0
+):
+    """The pair body for k in [k_lo, k_hi), in place."""
+    kw = dict(layout=layout, tol=tol, scale=scale)
+    return _loop(tlr_panel_body_bc, diag, up, vp, ranks, k_lo, k_hi, status, **kw)
+
+
+def super_steps(n_tiles: int, super_panels: int) -> list[tuple[int, int]]:
+    """The panel steps [k_lo, k_hi) of each of ``super_panels`` super-steps
+    of a T-tile factorization (the last tile needs only its POTRF, so the
+    last range ends at T - 1).  T must be a multiple of ``super_panels``,
+    as the reference asserts."""
+    if super_panels < 1 or n_tiles % super_panels:
+        raise ValueError(f"super_panels={super_panels} must divide n_tiles={n_tiles}")
+    chunk = n_tiles // super_panels
+    return [
+        (s * chunk, min((s + 1) * chunk, n_tiles - 1)) for s in range(super_panels)
+    ]
+
+
+def factorize(
+    loop, diag, u, v, ranks, *, super_panels=1, track_status=False, times=None
+):
+    """A right-looking TLR factorization driven by ``loop`` (``panel_loop``
+    or ``pair_panel_loop`` with its keywords bound), returning
+    ``(diag_L, u, v, ranks)``, plus the merged ``FactorStatus`` with
+    ``track_status``.
+
+    The inputs are cloned once; the panel steps then update the copy in
+    place, in ``super_panels`` super-steps (``super_steps``), each with its
+    own status accumulation, merged as the reference merges its slices'.
+    The last tile needs only its POTRF (the ``potrf`` kernel).
+    """
+    T = diag.shape[0]
+    diag, u, v, ranks = (x.clone() for x in (diag, u, v, ranks))
+    t0 = _lap(times, None, 0.0, diag)
+    status = None
+    for k_lo, k_hi in super_steps(T, super_panels):
+        part = init_status(diag.dtype, diag.device) if track_status else None
+        out = loop(diag, u, v, ranks, k_hi, k_lo=k_lo, status=part)
+        if track_status:
+            status = out[4] if status is None else status.merge(out[4])
+    lkk = ops.potrf(diag[T - 1 :])
+    diag[T - 1] = lkk[0]
+    _lap(times, "factorize", t0, diag)
+    if track_status:
+        return diag, u, v, ranks, status.update_potrf(lkk)
+    return diag, u, v, ranks
 
 
 def tlr_cholesky(
@@ -568,28 +697,13 @@ def tlr_cholesky(
     track_status: bool = False,
     times: dict | None = None,
 ) -> TLRCholesky:
-    """Factor A = L L^T keeping off-diagonal tiles compressed.
-
-    The input is cloned once; the panel steps then update the copy in
-    place.  The last column needs only its POTRF.
-    """
-    T = t.n_tiles
-    diag, u, v, ranks = (x.clone() for x in (t.diag, t.u, t.v, t.ranks))
-    t0 = _lap(times, None, 0.0, diag)
-    status = init_status(diag.dtype, diag.device) if track_status else None
-    pairs = np.tril_indices(T, k=-1)
-    for k in range(T - 1):
-        out = tlr_panel_body(
-            k, diag, u, v, ranks, status, tol=tol, scale=scale, pairs=pairs
-        )
-        if track_status:
-            status = out[4]
-    lkk = ops.potrf(diag[T - 1 :])  # last column: POTRF only
-    if track_status:
-        status = status.update_potrf(lkk)
-    diag[T - 1] = lkk[0]
-    _lap(times, "factorize", t0, diag)
-    return TLRCholesky(diag=diag, u=u, v=v, ranks=ranks, status=status)
+    """Factor A = L L^T keeping off-diagonal tiles compressed (the grid
+    body over the strict-lower pair list, ``factorize``)."""
+    loop = functools.partial(panel_loop, tol=tol, scale=scale)
+    out = factorize(
+        loop, t.diag, t.u, t.v, t.ranks, track_status=track_status, times=times
+    )
+    return TLRCholesky(*out)
 
 
 def solve_lower_grid(diag_l, u, v, z) -> torch.Tensor:
@@ -601,9 +715,11 @@ def solve_lower_grid(diag_l, u, v, z) -> torch.Tensor:
     for k in range(T):
         out[k] = ops.trsm(diag_l[k : k + 1], z[k][None, :, None])[0, :, 0]
         if k + 1 < T:
-            # z_i -= U_ik (V_ik^T a_k) for i > k
-            wk = torch.einsum("tnk,n->tk", v[k + 1 :, k], out[k])
-            z[k + 1 :] -= torch.einsum("tnk,tk->tn", u[k + 1 :, k], wk)
+            # z_i -= U_ik (V_ik^T a_k) for i > k (narrow U/V widened, as
+            # the reference's einsum promotes them)
+            vk, uk = v[k + 1 :, k].to(z.dtype), u[k + 1 :, k].to(z.dtype)
+            wk = torch.einsum("tnk,n->tk", vk, out[k])
+            z[k + 1 :] -= torch.einsum("tnk,tk->tn", uk, wk)
     return out.reshape(-1)
 
 
@@ -639,6 +755,23 @@ def tlr_matvec(t: TLRMatrix, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _loglik_of(diag_l, alpha, m: int, status: FactorStatus | None = None):
+    """Eq. 1 from the factored diagonal tiles and the forward solve.
+
+    With a ``FactorStatus``, a broken factorization yields the finite
+    sentinel loglik (``recovery.sentinel_loglik``) instead of NaN."""
+    quad = torch.sum(alpha * alpha)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(diag_l, dim1=-2, dim2=-1)))
+    ll = -0.5 * (m * math.log(2.0 * math.pi) + logdet + quad)
+    if status is not None:
+        status = status.add_nonfinite((~torch.isfinite(ll)).to(torch.int32))
+        ok = status.ok
+        ll = torch.where(ok, ll, sentinel_loglik(ll.dtype))
+        logdet = torch.where(ok, logdet, 0.0)
+        quad = torch.where(ok, quad, 0.0)
+    return LoglikResult(ll, logdet, quad, None, status)
+
+
 def tlr_loglik_from_matrix(
     t: TLRMatrix,
     z,
@@ -650,20 +783,9 @@ def tlr_loglik_from_matrix(
     chol = tlr_cholesky(t, tol=tol, scale=scale, track_status=track_status, times=times)
     t0 = _lap(times, None, 0.0, chol.diag)
     alpha = tlr_solve_lower(chol, z)
-    quad = torch.sum(alpha * alpha)
-    logdet = tlr_logdet(chol)
-    m = t.shape[0]
-    ll = -0.5 * (m * math.log(2.0 * math.pi) + logdet + quad)
-    status = chol.status
-    if status is not None:
-        # Breakdown -> a well-defined finite sentinel, never NaN contagion.
-        status = status.add_nonfinite((~torch.isfinite(ll)).to(torch.int32))
-        ok = status.ok
-        ll = torch.where(ok, ll, sentinel_loglik(ll.dtype))
-        logdet = torch.where(ok, logdet, 0.0)
-        quad = torch.where(ok, quad, 0.0)
-    _lap(times, "solve", t0, ll)
-    return LoglikResult(ll, logdet, quad, None, status)
+    res = _loglik_of(chol.diag, alpha, t.shape[0], status=chol.status)
+    _lap(times, "solve", t0, res.loglik)
+    return res
 
 
 def tlr_loglik(
@@ -679,6 +801,7 @@ def tlr_loglik(
     from_tiles: bool = False,
     gen: str = "kernel",
     track_status: bool = True,
+    dtype_policy=None,
     device=None,
     times: dict | None = None,
 ) -> LoglikResult:
@@ -689,7 +812,8 @@ def tlr_loglik(
     from ``tlr_compress_tiles(locs, ...)``, ``dists`` may be None and the
     dense Sigma is never formed.  ``gen`` is ``"kernel"`` (the reference's
     ``"pallas"``) or ``"plain"`` (its ``"xla"``).  Otherwise the dense Sigma
-    is built from ``dists`` and compressed (validation / small n).  Numpy
+    is built from ``dists`` and compressed (validation / small n).
+    ``dtype_policy`` stores U/V narrow (see the module docstring).  Numpy
     inputs go to ``device``.
     """
     if from_tiles:
@@ -705,6 +829,7 @@ def tlr_loglik(
             nugget=nugget,
             gen=gen,
             scale=scale,
+            dtype_policy=dtype_policy,
             device=device,
             times=times,
         )
@@ -720,6 +845,7 @@ def tlr_loglik(
             max_rank=max_rank,
             scale=scale,
             multiple_of=params.p,
+            dtype_policy=dtype_policy,
         )
         del sigma
     z = as_tensor(z, device=t.diag.device, dtype=t.diag.dtype)

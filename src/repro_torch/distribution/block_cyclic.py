@@ -76,9 +76,12 @@ def pair_layout(n_tiles: int, n_shards: int = 1) -> PairLayout:
 
 def pair_shards(mesh=None, row_axes=("data",)) -> int:
     """Number of shards the pair axis spans: 1 without a mesh.  The port
-    runs on one device; a mesh is the multi-device slice's work."""
+    runs on one device, so a mesh raises."""
     if mesh is not None:
-        raise ValueError("the port's pair layout is single-device: pass mesh=None")
+        raise ValueError(
+            "mesh is not ported: the port's TLR forms run on one device "
+            "(ROADMAP Queue 1 item 7, the multi-device forms); pass mesh=None"
+        )
     return 1
 
 

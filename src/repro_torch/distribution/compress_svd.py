@@ -1,7 +1,8 @@
 """Compression-phase truncation SVD of a batch of tiles.
 
 Counterpart of ``repro.distribution.compress_svd.svd_truncate_batch``.  The
-reference's ``shard_map`` form belongs to the multi-device slice.
+reference's ``shard_map`` form belongs to the multi-device forms (ROADMAP
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -15,7 +16,10 @@ def svd_truncate_batch(tiles: torch.Tensor, tol, kmax: int, scale):
     """(B, nb, nb) tiles -> (U, V, ranks): batched SVD + fixed-kmax
     truncation (``core.tlr._truncate_svd``), the math every compression
     entry point runs.  A tile holding a non-finite value compresses to NaN
-    factors, as in the reference, instead of raising.
+    factors, as in the reference, instead of raising.  The SVD runs in the
+    tiles' dtype (a precision policy's narrow one when the caller cast
+    them) and the threshold ``tol * scale`` is taken in that dtype, as the
+    reference takes it.
 
     On CUDA the SVD is cuSOLVER's ``gesvd`` (QR iteration): on the 512 x 512
     float64 tiles of the main path it took 52.7 ms a tile against 90.4 ms for

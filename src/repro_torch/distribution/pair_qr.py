@@ -1,14 +1,28 @@
-"""Recompression QR/SVD of the GEMM-phase pair batch.
+"""Recompression QR/SVD of the GEMM-phase pair batch, and the one-shot
+fallback warning.
 
 Counterpart of ``repro.distribution.pair_qr.sharded_recompress`` with
 ``mesh=None``: on one device the batch is local, so the call is
 ``core.tlr._batched_recompress`` (or its counting form) itself.  The
-reference's ``shard_map`` form belongs to the multi-device slice.
+reference's ``shard_map`` form belongs to the multi-device forms (ROADMAP
+Queue 1 item 7).
 """
 
 from __future__ import annotations
 
-__all__ = ["sharded_recompress"]
+import warnings
+
+__all__ = ["sharded_recompress", "warn_fallback_once"]
+
+_warned_fallbacks: set[str] = set()
+
+
+def warn_fallback_once(key: str, message: str) -> None:
+    """Emit one ``RuntimeWarning`` per distinct ``key`` per process (the
+    reference's fallback and deprecation sites)."""
+    if key not in _warned_fallbacks:
+        _warned_fallbacks.add(key)
+        warnings.warn(message, RuntimeWarning, stacklevel=3)
 
 
 def sharded_recompress(up, vp, du, dv, tol, scale, *, mesh=None, with_count=False):

@@ -9,8 +9,8 @@ order, so caches are a flat list with one entry a layer.
 
 The mixture-of-experts, SSM (``ssd``) and RG-LRU (``rglru``) layers, the
 modality frontends and rematerialisation (training) are not ported yet
-(ROADMAP Queue 1 item 9): a config or call that needs them raises
-``ValueError``.
+(ROADMAP Queue 1 item 6, the rest of the LM substrate): a config or call
+that needs them raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,9 @@ from .common import dtype_of, embed_init, linear, rms_norm, take_embedding
 from .mlp import MLP
 
 ATTN_KINDS = ("attn", "swa", "local")
-_NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 9)"
+_NOT_PORTED = (
+    "not ported yet (ROADMAP Queue 1 item 6, the rest of the LM substrate)"
+)
 
 
 def block_spec(cfg):

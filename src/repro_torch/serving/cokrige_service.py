@@ -90,14 +90,12 @@ class ServeError(ValueError):
         }
 
 
-# Knobs of the reference's sharded, super-panel forms, with the only values
-# the single-device port takes.
+# Knobs of the reference's sharded forms, with the only values the
+# single-device port takes.
 _SINGLE_DEVICE = {
     "row_axes": ("data",),
-    "col_block": 1,
     "shard_svd": True,
     "shard_recompress": True,
-    "super_panels": 1,
 }
 
 
@@ -108,9 +106,10 @@ class CokrigeServeConfig:
     tile_size/max_rank/tol as for the TLR path (0 picks the heuristic);
     ``gen`` is ``"kernel"`` or ``"plain"`` (the reference's ``"pallas"`` and
     ``"xla"``); ``interval`` is the central prediction-interval mass (0.95:
-    the 2.5%/97.5% band).  The sharding knobs of the reference
-    (``row_axes``, ``col_block``, ``shard_svd``, ``shard_recompress``,
-    ``super_panels``) take only their defaults here.
+    the 2.5%/97.5% band).  ``col_block`` (columns to one compression SVD
+    batch) and ``super_panels`` (super-steps of the factorization) are
+    passed on as in the reference; its sharding knobs (``row_axes``,
+    ``shard_svd``, ``shard_recompress``) take only their defaults here.
     """
 
     tile_size: int = 0
@@ -145,8 +144,8 @@ class CokrigeServeConfig:
             if (tuple(value) if name == "row_axes" else value) != default:
                 raise ValueError(
                     f"{name}={value!r} is not ported (only {name}={default!r}); "
-                    "the sharded and super-panel forms belong to the "
-                    "multi-device slice"
+                    "the sharded forms are ROADMAP Queue 1 item 7, the "
+                    "multi-device forms"
                 )
 
 
@@ -208,6 +207,7 @@ def fit_factor(
         d_spatial=cfg.d_spatial,
         scale=scale,
         layout=layout,
+        col_block=cfg.col_block,
         times=times,
     )
     diag_l, u, v, ranks, status = dist_tlr_cholesky_pairs(
@@ -218,6 +218,7 @@ def fit_factor(
         layout=layout,
         tol=cfg.tol,
         scale=scale,
+        super_panels=cfg.super_panels,
         track_status=True,
         times=times,
     )

@@ -18,9 +18,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import covariance as jc  # noqa: E402
 from repro.core import dist_tlr as jd  # noqa: E402
+from repro.core import tlr as jtlr  # noqa: E402
 from repro.distribution import block_cyclic as jb  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import covariance as tc  # noqa: E402
 from repro_torch.core import dist_tlr as td  # noqa: E402
+from repro_torch.core.likelihood import exact_loglik  # noqa: E402
+from repro_torch.core.recovery import sentinel_loglik  # noqa: E402
 from repro_torch.core import tlr as tt  # noqa: E402
 from repro_torch.core.simulate import grid_locations  # noqa: E402
 from repro_torch.distribution import block_cyclic as tb  # noqa: E402
@@ -229,3 +233,179 @@ def test_meshes_are_refused(case):
     u, v = _t(jt.u), _t(jt.v)
     with pytest.raises(ValueError, match="mesh"):
         sharded_recompress(u, v, u, v, 1e-7, 1.0, mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# The grid API, the super-panel forms and dist_tlr_loglik (test_distributed.py's
+# single-device cases at its n = 144, T = 6 geometry)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def grid_case():
+    """test_distributed.py::_setup: 144 Morton-ordered locations (m = 288),
+    the dense Sigma compressed by the reference at tile 48 (T = 6), tol
+    1e-9, max rank 48, and a data vector made with numpy."""
+    locs = grid_locations(12, jitter=0.2, seed=0)
+    locs = locs[tc.morton_order(locs)]
+    jp = jc.MaternParams.bivariate(**PARAMS)
+    tp = tc.MaternParams.bivariate(**PARAMS, device="cpu")
+    sigma = jc.build_sigma(jnp.asarray(locs), jp, nugget=NUGGET)
+    jt = jax.jit(partial(jtlr.tlr_compress, tile_size=48, tol=1e-9, max_rank=48))(sigma)
+    z = np.random.default_rng(2).normal(size=sigma.shape[0])
+    return dict(locs=locs, jp=jp, tp=tp, jt=jt, z=z)
+
+
+def _grid_products(u, v):
+    return np.einsum("ijnk,ijmk->ijnm", np.asarray(u), np.asarray(v))
+
+
+FORMS = {
+    "masked": {},
+    "super3": dict(super_panels=3),
+    "block_cyclic": dict(block_cyclic=True),
+    "block_cyclic_super3": dict(block_cyclic=True, super_panels=3),
+}
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_dist_tlr_cholesky_forms_match_jax(grid_case, form):
+    """Each form of the grid API against the reference's same form
+    (tests/test_distributed.py's tolerances: 1e-7 on the factored diagonal
+    tiles and U V^T, ranks exactly), with the merged status."""
+    kw = FORMS[form]
+    jt = grid_case["jt"]
+    kw = dict(tol=1e-11, scale=1.0, track_status=True, **kw)
+    fn = jax.jit(partial(jd.dist_tlr_cholesky, **kw))
+    want = fn(jt.diag, jt.u, jt.v, jt.ranks)
+    inputs = (_t(jt.diag), _t(jt.u), _t(jt.v), _t(jt.ranks, torch.int32))
+    got = td.dist_tlr_cholesky(*inputs, **kw)
+    assert len(got) == len(want) == 5
+    _close(got[0], want[0], atol=1e-7)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    _close(_grid_products(got[1], got[2]), _grid_products(want[1], want[2]), atol=1e-7)
+    assert got[4].as_dict()["ok"] and bool(want[4].ok)
+    _close(float(got[4].min_pivot), float(want[4].min_pivot), rtol=1e-12)
+    # every form gives the single-level masked factor
+    plain = td.dist_tlr_cholesky(*inputs, tol=1e-11, scale=1.0)
+    for a, b in zip(got[:4], plain):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_dist_tlr_cholesky_defaults_and_refusals(grid_case):
+    jt = grid_case["jt"]
+    diag, u, v = _t(jt.diag), _t(jt.u), _t(jt.v)
+    out = td.dist_tlr_cholesky(diag, u, v, tol=1e-11)  # ranks=None: zeros
+    want = jd.dist_tlr_cholesky(jt.diag, jt.u, jt.v, tol=1e-11)
+    assert len(out) == 4
+    np.testing.assert_array_equal(out[3].numpy(), np.asarray(want[3]))
+    with pytest.raises(ValueError, match="super_panels=4 must divide n_tiles=6"):
+        td.dist_tlr_cholesky(diag, u, v, super_panels=4)
+    with pytest.raises(AssertionError):
+        jd.dist_tlr_cholesky(jt.diag, jt.u, jt.v, super_panels=4)
+    with pytest.raises(ValueError, match="mesh"):
+        td.dist_tlr_cholesky(diag, u, v, mesh=object())
+
+
+@pytest.mark.parametrize("entry", ["grid", "pairs"])
+def test_dist_tlr_loglik_from_matrix_matches_jax(grid_case, entry):
+    """dist_tlr_loglik(t, z) of the reference's compressed matrix: a
+    TLRMatrix, or a PairTLR (which forces block_cyclic), and the dense
+    exact loglik within test_distributed.py's 1e-6."""
+    jt, z = grid_case["jt"], grid_case["z"]
+    t = convert.tlr_matrix_from_numpy(*(np.asarray(x) for x in jt), device="cpu")
+    jin = jt
+    if entry == "pairs":
+        jlay = jb.pair_layout(jt.n_tiles, 1)
+        jin = jd.PairTLR(
+            diag=jt.diag,
+            u=jb.grid_to_pairs(jt.u, jlay),
+            v=jb.grid_to_pairs(jt.v, jlay),
+            ranks=jb.grid_to_pairs(jt.ranks, jlay),
+        )
+        arrays = (np.asarray(x) for x in (jin.diag, jin.u, jin.v, jin.ranks))
+        t = convert.pair_tlr_from_numpy(*arrays, 1, device="cpu")
+    run = jax.jit(partial(jd.dist_tlr_loglik, tol=1e-12, scale=1.0))
+    want = run(jin, jnp.asarray(z))
+    got = td.dist_tlr_loglik(t, z, tol=1e-12, scale=1.0)
+    for field in ("loglik", "logdet", "quad"):
+        assert float(getattr(got, field)) == pytest.approx(
+            float(getattr(want, field)), rel=1e-10
+        )
+    assert got.status.as_dict()["ok"]
+    want = exact_loglik(
+        grid_case["locs"], z, grid_case["tp"], nugget=NUGGET, device="cpu"
+    )
+    assert float(got.loglik) == pytest.approx(float(want.loglik), rel=1e-6)
+
+
+FROM_TILES = {
+    "masked": {},
+    "block_cyclic_super3_cb2": dict(block_cyclic=True, super_panels=3, col_block=2),
+}
+
+
+@pytest.mark.parametrize("form", list(FROM_TILES))
+def test_dist_tlr_loglik_from_tiles_matches_jax(grid_case, form):
+    """The streaming entry mode (locs, params, from_tiles=True; scale
+    max(sigma2) + nugget) against the reference's, relative 1e-9."""
+    kw = dict(tile_size=48, max_rank=48, nugget=NUGGET, tol=1e-7, **FROM_TILES[form])
+    z = grid_case["z"]
+
+    @jax.jit
+    def run(x, zz):
+        return jd.dist_tlr_loglik(
+            None, zz, locs=x, params=grid_case["jp"], from_tiles=True, gen="xla", **kw
+        ).loglik
+
+    want = float(run(jnp.asarray(grid_case["locs"]), jnp.asarray(z)))
+    got = td.dist_tlr_loglik(
+        None, z, locs=grid_case["locs"], params=grid_case["tp"], from_tiles=True,
+        gen="plain", device="cpu", **kw,
+    )
+    assert float(got.loglik) == pytest.approx(want, rel=1e-9)
+    assert got.status.as_dict()["ok"]
+
+
+def test_dist_tlr_loglik_layout_errors_as_in_jax(grid_case):
+    """The two layout ValueErrors: a layout that does not cover the tile
+    grid, and a PairTLR scattered for another shard count; and the entry
+    without tiles or locations."""
+    locs, z = grid_case["locs"], grid_case["z"]
+    kw = dict(from_tiles=True, tile_size=48, block_cyclic=True)
+    with pytest.raises(ValueError, match="layout covers n_tiles=5"):
+        lay = tb.pair_layout(5, 1)
+        td.dist_tlr_loglik(None, z, locs=locs, params=grid_case["tp"], layout=lay, **kw)
+    with pytest.raises(ValueError, match="layout covers n_tiles=5"):
+        lay = jb.pair_layout(5, 1)
+        jd.dist_tlr_loglik(None, z, locs=locs, params=grid_case["jp"], layout=lay, **kw)
+    jt = grid_case["jt"]
+    t = convert.pair_tlr_from_numpy(
+        np.asarray(jt.diag), np.zeros((15, 48, 48)), np.zeros((15, 48, 48)),
+        np.zeros(15), 1, device="cpu",
+    )
+    jpair = jd.PairTLR(jt.diag, jnp.zeros((15, 48, 48)), jnp.zeros((15, 48, 48)),
+                       jnp.zeros(15, jnp.int32), n_shards=1)
+    with pytest.raises(ValueError, match="n_shards=1 but layout has n_shards=3"):
+        td.dist_tlr_loglik(t, z, layout=tb.pair_layout(6, 3))
+    with pytest.raises(ValueError, match="n_shards=1 but layout has n_shards=3"):
+        jd.dist_tlr_loglik(jpair, z, layout=jb.pair_layout(6, 3))
+    for fn in (td.dist_tlr_loglik, jd.dist_tlr_loglik):
+        with pytest.raises(ValueError, match="from_tiles"):
+            fn(None, z)
+
+
+@pytest.mark.parametrize("block_cyclic", [False, True])
+def test_dist_tlr_loglik_breakdown_gives_the_sentinel_as_jax(grid_case, block_cyclic):
+    """A diagonal tile that is not positive definite: the status is not ok
+    and the loglik is the finite sentinel (_loglik_of), as in the
+    reference, in both placements."""
+    jt, z = grid_case["jt"], grid_case["z"]
+    bad = jt._replace(diag=jt.diag.at[2].set(-jnp.eye(jt.tile_size)))
+    run = jax.jit(partial(jd.dist_tlr_loglik, tol=1e-12, block_cyclic=block_cyclic))
+    want = run(bad, jnp.asarray(z))
+    t = convert.tlr_matrix_from_numpy(*(np.asarray(x) for x in bad), device="cpu")
+    got = td.dist_tlr_loglik(t, z, tol=1e-12, block_cyclic=block_cyclic)
+    assert not got.status.as_dict()["ok"] and not bool(want.status.ok)
+    assert float(got.loglik) == float(want.loglik) == sentinel_loglik(torch.float64)
+    assert float(got.logdet) == float(got.quad) == 0.0

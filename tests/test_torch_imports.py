@@ -51,8 +51,10 @@ def _no_cuda():
 
 def test_entry_points_default_to_cuda_and_raise_without_it():
     _no_cuda()
+    from repro_torch.core.assessment import mloe_mmom
     from repro_torch.core.covariance import MaternParams, build_sigma
     from repro_torch.core.dist_cholesky import dist_exact_loglik
+    from repro_torch.core.dist_tlr import dist_tlr_loglik
     from repro_torch.core.likelihood import exact_loglik
     from repro_torch.core.mle import MLEConfig, fit
     from repro_torch.core.prediction import cokrige, dense_factor
@@ -78,6 +80,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: dense_factor(locs, z, params),
         lambda: cokrige(locs, z, locs[:2], params),
         lambda: dist_exact_loglik(np.zeros((8, 8)), z, params, panel=8),
+        lambda: dist_tlr_loglik(
+            None, z, locs=locs, params=params, from_tiles=True, tile_size=8
+        ),
+        lambda: mloe_mmom(locs, locs[:2], params, params),
         lambda: fit(locs, z, MLEConfig(max_iters=1)),
         lambda: init_model(cfg),
         lambda: init_caches(cfg, 1, 8),

@@ -182,16 +182,16 @@ def test_reference_windowed_prefill_fault_is_recorded():
 
 
 def test_unported_configs_and_options_raise():
-    with pytest.raises(KeyError, match="Queue 1 item 9"):
+    with pytest.raises(KeyError, match="Queue 1 item 6"):
         get_arch("mixtral-8x7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     base = get_arch("qwen3-4b").reduced()
     for kw in ({"layer_pattern": ("ssd",)}, {"moe": True}, {"frontend": "audio_stub"}):
-        with pytest.raises(ValueError, match="Queue 1 item 9"):
+        with pytest.raises(ValueError, match="Queue 1 item 6"):
             init_model(dataclasses.replace(base, **kw), device="cpu")
     _, _, cfg, model, tokens = _setup("qwen3-mqa")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="Queue 1 item 6"):
         forward(model, cfg, torch.as_tensor(tokens), remat=True)
 
 

@@ -263,11 +263,24 @@ def test_heal_factor_climbs_the_jitter_ladder_as_jax_does():
     assert ei.value.detail["jitters_tried"] == [0.0, 0.0]
 
 
+def test_grouped_super_panel_factor_predicts_what_the_default_predicts(m512):
+    """col_block=2 (two columns to a compression SVD batch) and
+    super_panels=2 (two super-steps of the factorization) are passed on to
+    the compression and the factorization, and change no prediction."""
+    cfg = dataclasses.replace(m512["tcfg"], col_block=2, super_panels=2)
+    factor = svc.fit_factor(m512["locs"], m512["z"], m512["tp"], cfg, device="cpu")
+    assert factor.status.as_dict()["ok"]
+    got = svc.predict_with_factor(factor, m512["pred"], gen="kernel")
+    want = m512["tout"]
+    for field in ("mean", "variance", "lower", "upper"):
+        g, w = getattr(got, field).numpy(), getattr(want, field).numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-14)
+    np.testing.assert_array_equal(factor.ranks.numpy(), m512["tfactor"].ranks.numpy())
+
+
 @pytest.mark.parametrize(
     "knob",
     [
-        dict(col_block=2),
-        dict(super_panels=2),
         dict(row_axes=("data", "model")),
         dict(shard_svd=False),
         dict(shard_recompress=False),
