@@ -493,21 +493,14 @@ def _trsm_widened(lkk, vk):
 
 
 def _syrk_update(diag_live, uk, vk) -> None:
-    """D_i -= U_ik (V_ik^T V_ik) U_ik^T on the live diagonal tiles, in place.
-
-    Under one dtype the ``tlr_mm`` kernel updates them in place.  With
-    narrow U/V (a mixed policy) this is the SYRK widening boundary: the
-    reference forms the product in the narrow dtype and subtracts it from
-    the wide diagonal, so here ``tlr_mm`` accumulates -U (V^T V) U^T into a
-    zero batch of the narrow dtype (its narrow instance), which is widened
-    and added.
+    """D_i -= U_ik (V_ik^T V_ik) U_ik^T on the live diagonal tiles, in place,
+    by the ``tlr_mm`` kernel.  With narrow U/V (a mixed policy) this is the
+    SYRK widening boundary: the reference forms the product in the narrow
+    dtype and subtracts it from the wide diagonal, and so does the kernel's
+    narrow instance given the wide tiles as ``acc`` (the product widened
+    exactly in its epilogue).
     """
-    if uk.dtype == diag_live.dtype:
-        ops.tlr_mm(uk, vk, uk, vk, diag_live, out=diag_live)
-        return
-    neg = torch.zeros(diag_live.shape, dtype=uk.dtype, device=uk.device)
-    ops.tlr_mm(uk, vk, uk, vk, neg, out=neg)
-    diag_live += neg.to(diag_live.dtype)
+    ops.tlr_mm(uk, vk, uk, vk, diag_live, out=diag_live)
 
 
 def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs):

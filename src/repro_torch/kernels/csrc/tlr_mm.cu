@@ -14,7 +14,7 @@
 // 3.35 TB/s, against 6.3 GFLOP, 0.095 ms at the 67 TFLOP/s of the FP64
 // tensor cores: both matter, the bytes a little more.
 //
-// Two instances, picked by the dtype:
+// Two instances, picked by the dtypes:
 //
 // dmma_f64 (f64): all three products on the FP64 tensor cores (mma.sync
 // m16n8k8, dmma.cuh), in two programmatic dependent launches:
@@ -43,13 +43,37 @@
 // stage 2 has 504 blocks.  Loads beyond nb or k read zero, so zero-padded
 // rank columns add exact zeros.
 //
-// fma_f32 (f32): the first kernel of this file, on the FP32 CUDA
-// cores, in the same two stages: W by 64 x 64 tiles reduced over nb in
-// chunks of 16 staged in shared memory; then per (b, 64-row panel) T =
-// U_a[rows] W formed into dynamic shared memory and out[rows, :] = acc -
-// T U_b^T swept by 64-column tiles.  256 threads as 16 x 16, a thread owning
-// a 4 x 4 set of outputs; each output element is read from acc and written
-// by the same thread, so out = acc is safe here too.
+// fma_f32 (f32 factors): on the FP32 CUDA cores in full f32, not TF32 (the
+// reference forms the product in f32).  acc and out are f32, or f64 for
+// the SYRK of a mixed precision policy: the epilogue then widens the f32
+// product y exactly and subtracts in f64, out = acc - (double) y, bit for
+// bit the f32 form into a zero batch, cast and added.  At the mixed SYRK's
+// first step (15, 512, 128) the operations bound it: 1.51 GFLOP, 0.0225 ms
+// at 67 TFLOP/s, against 47 MB, 0.0141 ms at 3.35 TB/s.  Three launches,
+// chained by PDL:
+//   stage 1  W^T = (V_a^T V_b)^T into scratch, by 64 x 64 tiles.  nb is cut
+//            into up to 8 slices of at least 64 rows, one block each, the
+//            blocks of a tile forming one cluster, so that B = 1 still has
+//            32 blocks (B = 15: 480).  Each block sums its slice in
+//            registers (32-row chunks through a cp.async ring); the
+//            partials are added through distributed shared memory in slice
+//            order, with no atomics, so every run gives the same bits.
+//   stage 2  T = U_a W into a second scratch (B, nb, k): formed once, not
+//            once per output tile.
+//   stage 3  out = acc - T U_b^T, by 64 x 64 tiles at every batch (B = 15
+//            at nb = 512: 960 blocks, B = 1: 64).
+// Stages 2 and 3 are one product kernel (tlr_mm_gemm_f32): 256 threads, a
+// 4 x 4 register tile a thread fed by 16-byte shared loads, 32-wide k-slabs
+// through a 3-stage cp.async ring, at least two blocks an SM, and an
+// epilogue through shared memory that reads acc and writes out 16 bytes a
+// thread.  Every output's sum runs over the rank index in order, so the
+// tile edge changes no bit.  A thread reads each element of acc before it
+// writes that element of out, and no other thread touches it, so out = acc
+// is safe.  Loads beyond nb or k read zero, so zero-padded rank columns add
+// exact zeros.  scripts/tlr_mm_f32_variants.py times other work shapes
+// against this one (PERF.md section 6): a second stage-3 kernel with
+// 128 x 128 tiles and 8 x 8 outputs a thread gained 4% at B = 15 and
+// nothing over the mixed sweep, and was left out.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -337,171 +361,370 @@ int launch_f64(const double* ua, const double* va, const double* ub,
 // fma_f32
 // ---------------------------------------------------------------------------
 
+// Work shapes of the instance; scripts/tlr_mm_f32_variants.py builds copies
+// of this file with other values, by replacing text, to time them.
+constexpr int kFThreads = 256;      // 16 x 16 threads, warps of 4 x 8
+constexpr int kFSlab = 32;          // stages 2, 3: k-slab of the ring
+constexpr int kFLd = kFSlab + 4;    // row stride of a staged slab
+constexpr int kFStages = 3;         // stages 2, 3: depth of the cp.async ring
+constexpr int kFBlocks = 2;         // stages 2, 3: blocks an SM at least
+constexpr int kFW = 64;             // stage 1: W tile edge
+constexpr int kFWRows = 32;         // stage 1: rows of V a chunk
+constexpr int kFWStages = 2;        // stage 1: depth of its cp.async ring
+// stage 1's shared memory: the ring, then this block's partial W tile
+constexpr int kFWRing = kFWStages * 2 * kFWRows * kFW;
+constexpr int kFWSmem = kFWRing > kFW * (kFW + 1) ? kFWRing : kFW * (kFW + 1);
+constexpr int kFSliceMin = 64;      // stage 1: rows of a slice at least
+constexpr int kFSplitMax = 8;       // stage 1: slices of nb at most (a cluster)
+static_assert(kFSplitMax >= 1 && kFSplitMax <= 8, "a portable cluster");
 
-constexpr int kTile = 64;  // output tile edge
-constexpr int kChunk = 16;  // reduction chunk staged in shared memory
-constexpr int kThreads = 256;
+// This thread's place in the 16 x 16 grid of a block: each warp covers 4
+// rows x 8 columns of it, so the rows a warp reads in one shared load fall
+// in 4 (ty) or 8 (tx) distinct 16-byte bank groups.
+__device__ __forceinline__ void f32_place(int tid, int& ty, int& tx) {
+  const int warp = tid / 32, lane = tid % 32;
+  ty = 4 * (warp / 2) + lane / 8;
+  tx = 8 * (warp % 2) + lane % 8;
+}
 
-template <typename T>
-__device__ __forceinline__ void fma_chunk(T (*sa)[kTile + 1],
-                                          T (*sb)[kTile + 1], T acc[4][4],
-                                          int ty, int tx) {
+__device__ __forceinline__ void cp_async4f(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16f(float* dst, const float* src,
+                                            bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Copy a ROWS x COLS tile of a row-major global matrix (row stride ld_src)
+// into shared memory (row stride ld_dst), zero-filling rows >= rv and
+// columns >= cv, by all threads of the block.  With vec4 the copies are 16
+// bytes: cv, ld_src and ld_dst are multiples of 4 and src 16-byte aligned.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void cp_tile_f32(float* dst, int ld_dst,
+                                            const float* src, long long ld_src,
+                                            int rv, int cv, bool vec4,
+                                            int tid) {
+  if (vec4) {
+    constexpr int Q = COLS / 4, N = ROWS * Q;
 #pragma unroll
-  for (int l = 0; l < kChunk; ++l) {
-    T ra[4], rb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ra[i] = sa[l][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) rb[j] = sb[l][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += ra[i] * rb[j];
+    for (int e0 = 0; e0 < N; e0 += kFThreads) {
+      const int e = e0 + tid;
+      if (N % kFThreads == 0 || e < N) {
+        const int r = e / Q, c = 4 * (e % Q);
+        const bool ok = r < rv && c < cv;
+        cp_async16f(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
+      }
+    }
+  } else {
+    constexpr int N = ROWS * COLS;
+#pragma unroll 4
+    for (int e0 = 0; e0 < N; e0 += kFThreads) {
+      const int e = e0 + tid;
+      if (N % kFThreads == 0 || e < N) {
+        const int r = e / COLS, c = e % COLS;
+        const bool ok = r < rv && c < cv;
+        cp_async4f(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
+      }
+    }
   }
 }
 
-// Stage 1: W[b][i][j] = sum_n Va[b][n][i] * Vb[b][n][j].
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tlr_mm_w_kernel(const T* __restrict__ va, const T* __restrict__ vb,
-                    T* __restrict__ w, int nb, int k) {
-  __shared__ T sa[kChunk][kTile + 1];
-  __shared__ T sb[kChunk][kTile + 1];
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-  const T* A = va + (size_t)b * nb * k;
-  const T* B = vb + (size_t)b * nb * k;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-  T acc[4][4] = {};
-  for (int n0 = 0; n0 < nb; n0 += kChunk) {
-    for (int e = tid; e < kChunk * kTile; e += kThreads) {
-      const int l = e / kTile, c = e % kTile;  // c runs along k: coalesced
-      const int n = n0 + l;
-      sa[l][c] = (n < nb && i0 + c < k) ? A[(size_t)n * k + i0 + c] : T(0);
-      sb[l][c] = (n < nb && j0 + c < k) ? B[(size_t)n * k + j0 + c] : T(0);
-    }
-    __syncthreads();
-    fma_chunk<T>(sa, sb, acc, ty, tx);
-    __syncthreads();
-  }
-  T* W = w + (size_t)b * k * k;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = i0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = j0 + tx + 16 * j;
-      if (r < k && c < k) W[(size_t)r * k + c] = acc[i][j];
-    }
-  }
+__device__ __forceinline__ void cluster_sync_f32() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Stage 2: out[b][r0:r0+64, :] = acc - (Ua[b][r0:r0+64, :] W[b]) Ub[b]^T.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    tlr_mm_out_kernel(const T* __restrict__ ua, const T* __restrict__ ub,
-                      const T* __restrict__ w, const T* acc_in, T* out,
-                      int nb, int k) {
-  extern __shared__ unsigned char smem_raw[];
-  T* st = reinterpret_cast<T*>(smem_raw);  // [kTile][k]: T = Ua[rows] W
-  __shared__ T sa[kChunk][kTile + 1];
-  __shared__ T sb[kChunk][kTile + 1];
+// The float at address p of the shared memory of block `rank` of the
+// cluster (distributed shared memory).
+__device__ __forceinline__ float cluster_load_f32(const float* p, int rank) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  unsigned d;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(rank));
+  // volatile keeps the load after the cluster barrier; without a memory
+  // clobber the loads of one sum may be in flight together
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(d));
+  return x;
+}
+
+// Stage 1: W^T, Wt[b][j][i] = sum_n V_a[b][n][i] V_b[b][n][j], by 64 x 64
+// tiles.  nb is cut into `splits` slices of `slice` rows (the last may be
+// short or empty); a cluster of `splits` blocks owns one tile, block s
+// forming slice s's partial sum in registers (rows n in order, kFWRows at a
+// time through a cp.async ring).  The partials meet in shared memory, and block
+// s of the cluster adds up its share of the tile's rows from all of them
+// through distributed shared memory, in the order 0, 1, ..., splits - 1:
+// the result does not depend on the batch, the schedule or the run.
+__global__ void __launch_bounds__(kFThreads)
+    tlr_mm_w_f32(const float* __restrict__ va, const float* __restrict__ vb,
+                 float* __restrict__ wt, int nb, int k, int splits, int slice,
+                 int vec4) {
+  __shared__ __align__(16) float wsm[kFWSmem];
+  float(*part)[kFW + 1] = reinterpret_cast<float(*)[kFW + 1]>(wsm);  // [j][i]
+  const int s = blockIdx.x % splits, tile = blockIdx.x / splits;
+  const int kt = (k + kFW - 1) / kFW;
+  const int i0 = (tile / kt) * kFW, j0 = (tile % kt) * kFW;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kTile;
-  const T* Ua = ua + (size_t)b * nb * k;
-  const T* Ub = ub + (size_t)b * nb * k;
-  const T* W = w + (size_t)b * k * k;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
-
-  // Phase 1: st = Ua[r0:r0+64, :] W, 64 columns at a time.
-  for (int j0 = 0; j0 < k; j0 += kTile) {
-    T acc[4][4] = {};
-    for (int l0 = 0; l0 < k; l0 += kChunk) {
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int r = e / kChunk, l = e % kChunk;  // l runs along k in Ua
-        sa[l][r] = (r0 + r < nb && l0 + l < k)
-                       ? Ua[(size_t)(r0 + r) * k + l0 + l] : T(0);
-        const int l2 = e / kTile, c = e % kTile;   // c runs along k in W
-        sb[l2][c] = (l0 + l2 < k && j0 + c < k)
-                        ? W[(size_t)(l0 + l2) * k + j0 + c] : T(0);
-      }
-      __syncthreads();
-      fma_chunk<T>(sa, sb, acc, ty, tx);
-      __syncthreads();
+  const int n0 = s * slice, n1 = min(nb, n0 + slice);
+  const float* A = va + (size_t)b * nb * k + i0;
+  const float* B = vb + (size_t)b * nb * k + j0;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  f32_place(tid, ty, tx);
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+  float acc[4][4] = {};
+  const int nch = n1 > n0 ? (n1 - n0 + kFWRows - 1) / kFWRows : 0;
+  auto load = [&](int st, int ch) {
+    const int r0 = n0 + ch * kFWRows;
+    float* sa = wsm + 2 * st * kFWRows * kFW;
+    cp_tile_f32<kFWRows, kFW>(sa, kFW, A + (size_t)r0 * k, k, n1 - r0, k - i0,
+                              vec4, tid);
+    cp_tile_f32<kFWRows, kFW>(sa + kFWRows * kFW, kFW, B + (size_t)r0 * k, k,
+                              n1 - r0, k - j0, vec4, tid);
+  };
+  auto compute = [&](int st, int) {
+    const float* sa = wsm + 2 * st * kFWRows * kFW;
+    const float* sb = sa + kFWRows * kFW;
+#pragma unroll
+    for (int r = 0; r < kFWRows; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(sa + r * kFW + 4 * ty);
+      const float4 c = *reinterpret_cast<const float4*>(sb + r * kFW + 4 * tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], cv[q], acc[p][q]);
     }
+  };
+  dmma::cp_async_ring<kFWStages>(nch, load, compute);
+  // the ring has drained: the partial takes its place
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = j0 + tx + 16 * j;
-        if (c < k) st[(ty + 16 * i) * k + c] = acc[i][j];
-      }
+    for (int q = 0; q < 4; ++q) part[4 * tx + q][4 * ty + p] = acc[p][q];
+  cluster_sync_f32();  // every partial of the tile is complete
+  float* W = wt + (size_t)b * k * k;
+  const int rows = (kFW - s + splits - 1) / splits;  // j = s, s + splits, ...
+  for (int e = tid; e < rows * kFW; e += kFThreads) {
+    const int j = s + splits * (e / kFW), i = e % kFW;
+    float x = cluster_load_f32(&part[j][i], 0);
+    for (int r = 1; r < splits; ++r) x += cluster_load_f32(&part[j][i], r);
+    if (j0 + j < k && i0 + i < k) W[(size_t)(j0 + j) * k + i0 + i] = x;
   }
-  __syncthreads();
+  cluster_sync_f32();  // no block leaves while others read its partial
+}
 
-  // Phase 2: out[rows, c0:c0+64] = acc - st Ub[c0:c0+64, :]^T.
-  for (int c0 = 0; c0 < nb; c0 += kTile) {
-    T acc[4][4] = {};
-    for (int l0 = 0; l0 < k; l0 += kChunk) {
-      for (int e = tid; e < kChunk * kTile; e += kThreads) {
-        const int c = e / kChunk, l = e % kChunk;  // l runs along k in Ub
-        sb[l][c] = (c0 + c < nb && l0 + l < k)
-                       ? Ub[(size_t)(c0 + c) * k + l0 + l] : T(0);
+// The epilogues of the product kernel, given four neighbouring columns
+// (col .. col + 3) of row `row` of batch entry b's product tile.
+struct StoreT {  // stage 2: T[b] = the product, (M x N) row-major
+  float* t;
+  int vec4;
+  __device__ __forceinline__ void operator()(int b, int row, int col, int M,
+                                             int N, float4 c) const {
+    float* o = t + ((size_t)b * M + row) * N;
+    if (vec4 && col + 3 < N) {
+      *reinterpret_cast<float4*>(o + col) = c;
+      return;
+    }
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (col + q < N) o[col + q] = cv[q];
+  }
+};
+
+// Stage 3: out[b] = acc[b] - the product, the product widened exactly when
+// acc and out are double.  acc and out may be the same storage: a thread
+// reads each element of acc before it writes that element of out, and no
+// other thread touches it.
+template <typename AccT>
+struct SubAcc {
+  const AccT* acc;
+  AccT* out;
+  int vec;  // 16-byte accesses: rows of acc and out 16-byte aligned
+  __device__ __forceinline__ void operator()(int b, int row, int col, int M,
+                                             int N, float4 c) const {
+    const size_t base = ((size_t)b * M + row) * N;
+    const AccT* a = acc + base;
+    AccT* o = out + base;
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+    if (vec && col + 3 < N) {
+      if constexpr (sizeof(AccT) == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(a + col);
+        *reinterpret_cast<float4*>(o + col) =
+            make_float4(x.x - cv[0], x.y - cv[1], x.z - cv[2], x.w - cv[3]);
+      } else {
+        const double2 x0 = *reinterpret_cast<const double2*>(a + col);
+        const double2 x1 = *reinterpret_cast<const double2*>(a + col + 2);
+        *reinterpret_cast<double2*>(o + col) =
+            make_double2(x0.x - (double)cv[0], x0.y - (double)cv[1]);
+        *reinterpret_cast<double2*>(o + col + 2) =
+            make_double2(x1.x - (double)cv[2], x1.y - (double)cv[3]);
       }
-      __syncthreads();
-#pragma unroll
-      for (int l = 0; l < kChunk; ++l) {
-        if (l0 + l >= k) break;
-        T ra[4], rb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ra[i] = st[(ty + 16 * i) * k + l0 + l];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) rb[j] = sb[l][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += ra[i] * rb[j];
-      }
-      __syncthreads();
+      return;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty + 16 * i;
+    for (int q = 0; q < 4; ++q)
+      if (col + q < N) o[col + q] = a[col + q] - (AccT)cv[q];
+  }
+};
+
+// The product kernel of stages 2 and 3 (C = X Y^T for X, Y stored by rows,
+// the reduction along their rows):
+//   C[b][m][n] = sum_l X[b][m][l] Y[b][n][l],  m < M, n < N, l < K,
+// one (16 TM) x (16 TN) tile a block, each thread owning TM x TN outputs
+// (rows ty + 16 i, columns tx + 16 j) in registers.  32-wide k-slabs of X's
+// and Y's rows stream through a cp.async ring (dmma::cp_async_ring) at a
+// row stride of 36 floats, so a warp's 16-byte fragment loads (4 rows of
+// X, 8 rows of Y, 4 consecutive l each) meet no bank conflict; a thread
+// loads TM + TN float4 for 4 TM TN FMAs.  Every output's sum runs over l in
+// order, whatever the tile, so the tile edge changes no bit.
+// The tile then goes through shared memory so that the epilogue reads and
+// writes whole rows, four columns a thread.
+template <int TM, int TN>
+struct Gemm {
+  static constexpr int BM = 16 * TM, BN = 16 * TN;
+  static constexpr int STAGE = (BM + BN) * kFLd;  // floats
+  static constexpr int LDC = BN + 8;  // the staged tile [BM][LDC]
+  static constexpr int RING = kFStages * STAGE;
+  static constexpr int SMEM =
+      (RING > BM * LDC ? RING : BM * LDC) * (int)sizeof(float);
+};
+
+template <int TM, int TN, typename Epi>
+__global__ void __launch_bounds__(kFThreads, kFBlocks)
+    tlr_mm_gemm_f32(const float* __restrict__ X, const float* __restrict__ Y,
+                    int M, int N, int K, int vec4, Epi epi) {
+  using G = Gemm<TM, TN>;
+  extern __shared__ __align__(16) float fsmem[];
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * G::BN;
+  const float* Xb = X + (size_t)b * M * K + (size_t)m0 * K;
+  const float* Yb = Y + (size_t)b * N * K + (size_t)n0 * K;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  f32_place(tid, ty, tx);
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+  float acc[TM][TN] = {};
+  auto load = [&](int st, int q) {
+    const int l0 = q * kFSlab;
+    float* sx = fsmem + st * G::STAGE;
+    cp_tile_f32<G::BM, kFSlab>(sx, kFLd, Xb + l0, K, M - m0, K - l0, vec4, tid);
+    cp_tile_f32<G::BN, kFSlab>(sx + G::BM * kFLd, kFLd, Yb + l0, K, N - n0,
+                               K - l0, vec4, tid);
+  };
+  auto compute = [&](int st, int) {
+    const float* sx = fsmem + st * G::STAGE;
+    const float* sy = sx + G::BM * kFLd;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (r < nb && c < nb) {
-          const size_t idx = ((size_t)b * nb + r) * nb + c;
-          out[idx] = acc_in[idx] - acc[i][j];
+    for (int kk = 0; kk < kFSlab; kk += 4) {
+      float4 xa[TM], yb[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        xa[i] =
+            *reinterpret_cast<const float4*>(sx + (ty + 16 * i) * kFLd + kk);
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        yb[j] =
+            *reinterpret_cast<const float4*>(sy + (tx + 16 * j) * kFLd + kk);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(xa[i].x, yb[j].x, acc[i][j]);
+          acc[i][j] = fmaf(xa[i].y, yb[j].y, acc[i][j]);
+          acc[i][j] = fmaf(xa[i].z, yb[j].z, acc[i][j]);
+          acc[i][j] = fmaf(xa[i].w, yb[j].w, acc[i][j]);
         }
-      }
     }
+  };
+  dmma::cp_async_ring<kFStages>((K + kFSlab - 1) / kFSlab, load, compute);
+  float* sc = fsmem;  // the ring has drained: the tile takes its place
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      sc[(ty + 16 * i) * G::LDC + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+  constexpr int Q = G::BN / 4;
+#pragma unroll 4
+  for (int e = tid; e < G::BM * Q; e += kFThreads) {
+    const int r = e / Q, c = 4 * (e % Q);
+    if (m0 + r < M && n0 + c < N)
+      epi(b, m0 + r, n0 + c, M, N,
+          *reinterpret_cast<const float4*>(sc + r * G::LDC + c));
   }
 }
 
+template <int TM, int TN, typename Epi>
+cudaError_t launch_gemm_f32(const float* x, const float* y, int batch, int M,
+                            int N, int K, int vec4, Epi epi,
+                            cudaStream_t stream) {
+  using G = Gemm<TM, TN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      tlr_mm_gemm_f32<TM, TN, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM, batch);
+  return dmma::launch_pdl(tlr_mm_gemm_f32<TM, TN, Epi>, grid, kFThreads,
+                          G::SMEM, stream, x, y, M, N, K, vec4, epi);
+}
+
+template <typename AccT>
 int launch_f32(const float* ua, const float* va, const float* ub,
-               const float* vb, const float* acc, float* w, float* out,
-               int batch, int nb, int k, cudaStream_t stream) {
+               const float* vb, const AccT* acc, float* w, float* t,
+               AccT* out, int batch, int nb, int k, cudaStream_t stream) {
   if (batch <= 0 || nb <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
-  const dim3 block(16, 16);
-  const int kt = (k + kTile - 1) / kTile;
-  tlr_mm_w_kernel<float><<<dim3(kt, kt, batch), block, 0, stream>>>(va, vb, w,
-                                                                   nb, k);
-  cudaError_t err = cudaGetLastError();
+  const int vec4 = k % 4 == 0 && aligned16(ua) && aligned16(va) &&
+                   aligned16(ub) && aligned16(vb) && aligned16(w) &&
+                   aligned16(t);
+  // stage 1: slices of at least 64 rows, at most kFSplitMax of them, each a
+  // multiple of the kFWRows-row chunk; one cluster of `splits` blocks a W
+  // tile
+  const int splits = std::min(kFSplitMax, (nb + kFSliceMin - 1) / kFSliceMin);
+  const int per = (nb + splits - 1) / splits;
+  const int slice = (per + kFWRows - 1) / kFWRows * kFWRows;
+  const int kt = (k + kFW - 1) / kFW;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(splits * kt * kt), batch);
+  cfg.blockDim = dim3(kFThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, tlr_mm_w_f32, va, vb, w, nb, k,
+                                       splits, slice, vec4);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)kTile * k * sizeof(float);
-  err = cudaFuncSetAttribute(tlr_mm_out_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  // stage 2: T = U_a W, (nb x k), into scratch
+  err = launch_gemm_f32<4, 4>(ua, w, batch, nb, k, k, vec4, StoreT{t, vec4},
+                              stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((nb + kTile - 1) / kTile, batch);
-  tlr_mm_out_kernel<float><<<grid, block, smem, stream>>>(ua, ub, w, acc, out,
-                                                          nb, k);
-  return (int)cudaGetLastError();
+  // stage 3: out = acc - T U_b^T, by 64 x 64 tiles at every batch (B = 15
+  // at nb = 512: 960 blocks, B = 1: 64)
+  const int vec = nb % (16 / (int)sizeof(AccT)) == 0 && aligned16(acc) &&
+                  aligned16(out);
+  const SubAcc<AccT> epi{acc, out, vec};
+  return (int)launch_gemm_f32<4, 4>(t, ub, batch, nb, nb, k, vec4, epi,
+                                    stream);
 }
 
 }  // namespace
@@ -518,10 +741,25 @@ extern "C" int tlr_mm_f64(const double* ua, const double* va, const double* ub,
                     static_cast<cudaStream_t>(stream));
 }
 
-// The fma_f32 instance, with the same arguments.
+// The fma_f32 instance: f32 factors, acc and out; w (batch, k, k) and t
+// (batch, nb, k) are f32 scratch the caller allocates (16-byte aligned),
+// which may overlap nothing else.
 extern "C" int tlr_mm_f32(const float* ua, const float* va, const float* ub,
                           const float* vb, const float* acc, float* w,
-                          float* out, int batch, int nb, int k, void* stream) {
-  return launch_f32(ua, va, ub, vb, acc, w, out, batch, nb, k,
-                    static_cast<cudaStream_t>(stream));
+                          float* t, float* out, int batch, int nb, int k,
+                          void* stream) {
+  return launch_f32<float>(ua, va, ub, vb, acc, w, t, out, batch, nb, k,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The same instance with f64 acc and out (the SYRK of a mixed precision
+// policy): out = acc - (double) y, y the f32 product rounded as the all-f32
+// form rounds it.
+extern "C" int tlr_mm_f32_wide(const float* ua, const float* va,
+                               const float* ub, const float* vb,
+                               const double* acc, float* w, float* t,
+                               double* out, int batch, int nb, int k,
+                               void* stream) {
+  return launch_f32<double>(ua, va, ub, vb, acc, w, t, out, batch, nb, k,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -58,7 +58,9 @@ def matern_correlation(u, nu, *, amp=1.0) -> torch.Tensor:
 def tlr_mm(u_a, v_a, u_b, v_b, acc, *, out=None) -> torch.Tensor:
     """acc - U_a (V_a^T V_b) U_b^T for a batch of tile pairs.  With ``out``
     the result is written there and returned; ``out`` may be ``acc``
-    itself (the update in place) and may share memory with nothing else."""
+    itself (the update in place) and may share memory with nothing else.
+    float32 factors may update a float64 ``acc``: the product is formed in
+    float32 and subtracted in float64 (the mixed SYRK's widening)."""
     if _on_cpu(acc, "tlr_mm"):
         res = ref.tlr_mm_ref(u_a, v_a, u_b, v_b, acc)
         if out is None:

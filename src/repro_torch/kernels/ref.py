@@ -30,7 +30,13 @@ def matern_corr_ref(u, amp, nu) -> torch.Tensor:
 
 
 def tlr_mm_ref(u_a, v_a, u_b, v_b, acc) -> torch.Tensor:
-    """acc - U_a (V_a^T V_b) U_b^T, batched over the leading dim."""
+    """acc - U_a (V_a^T V_b) U_b^T, batched over the leading dim.
+
+    With float32 factors and a float64 ``acc`` the product y is formed in
+    float32 and torch promotes ``acc - y`` to float64, widening y exactly:
+    the form that the kernel's ``fma_f32`` instance computes for a wide
+    ``acc``, and what the reference's mixed SYRK computes (``diag - upd``,
+    jnp promoting to float64)."""
     w = v_a.mT @ v_b
     return acc - (u_a @ w) @ u_b.mT
 

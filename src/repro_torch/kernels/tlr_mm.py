@@ -3,10 +3,13 @@
 Counterpart of the Pallas kernel ``repro.kernels.tlr_mm.tlr_mm``:
 acc - U_a (V_a^T V_b) U_b^T, batched over tile pairs.  The plain version is
 ``kernels.ref.tlr_mm_ref``; ``kernels.ops`` chooses between the two by the
-tensors' device.  The dtype picks one of the kernel's two instances:
+tensors' device.  The dtypes pick one of the kernel's two instances:
 float64 runs ``dmma_f64`` (the three products on the FP64 tensor cores),
-float32 ``fma_f32`` (the FP32 CUDA cores).  The result may be written into
-``acc`` itself (``out=acc``).
+float32 factors ``fma_f32`` (the FP32 CUDA cores), with a float32 ``acc``
+or, for the SYRK of a mixed precision policy, a float64 one: the f32
+product is then widened exactly and subtracted in f64 (``out = acc -
+(double) y``, y rounded as the all-f32 form rounds it).  The result may be
+written into ``acc`` itself (``out=acc``).
 """
 
 from __future__ import annotations
@@ -17,24 +20,34 @@ import torch
 
 from . import _build
 
-# dtype -> (instance, its C symbol)
+# (factor dtype, acc dtype) -> (instance, its C symbol)
 _INSTANCES = {
-    torch.float64: ("dmma_f64", "tlr_mm_f64"),
-    torch.float32: ("fma_f32", "tlr_mm_f32"),
+    (torch.float64, torch.float64): ("dmma_f64", "tlr_mm_f64"),
+    (torch.float32, torch.float32): ("fma_f32", "tlr_mm_f32"),
+    (torch.float32, torch.float64): ("fma_f32", "tlr_mm_f32_wide"),
 }
 
 
-def instance(dtype: torch.dtype) -> str:
-    """Name of the kernel instance that takes ``dtype``; raises on any other."""
-    if dtype not in _INSTANCES:
-        raise ValueError(f"tlr_mm takes float32 or float64, got {dtype}")
-    return _INSTANCES[dtype][0]
+def instance(dtype: torch.dtype, acc_dtype: torch.dtype | None = None) -> str:
+    """Name of the kernel instance that takes factors of ``dtype`` and an
+    ``acc`` of ``acc_dtype`` (by default ``dtype``); raises on any other
+    pair: all float64, all float32, or float32 factors with a float64
+    ``acc``."""
+    key = (dtype, dtype if acc_dtype is None else acc_dtype)
+    if key not in _INSTANCES:
+        raise ValueError(
+            "tlr_mm takes float32 or float64 factors with an acc of their dtype, "
+            f"or float32 factors with a float64 acc; got {key[0]} and {key[1]}"
+        )
+    return _INSTANCES[key][0]
 
 
-def _fn(dtype: torch.dtype):
-    fn = getattr(_build.library(), _INSTANCES[dtype][1])
+def _fn(key):
+    fn = getattr(_build.library(), _INSTANCES[key][1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
+    # f64: the factors, acc, W scratch, out; f32: a second scratch for T
+    pointers = 7 if key[0] == torch.float64 else 8
+    fn.argtypes = [p] * pointers + [i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,16 +83,17 @@ def check_out(out: torch.Tensor, acc: torch.Tensor, inputs) -> None:
 def tlr_mm_cuda(u_a, v_a, u_b, v_b, acc, out=None) -> torch.Tensor:
     """Launch the CUDA kernel.
 
-    u_a, v_a, u_b, v_b: (B, nb, k); acc: (B, nb, nb); all contiguous CUDA
-    tensors of one dtype (float32 or float64) on one device.  Writes the
-    result into ``out`` when one is given (a contiguous (B, nb, nb) tensor,
-    which may be ``acc`` itself and overlap nothing else), else into a new
-    tensor, and returns it.  Raises on anything the kernel does not take and
-    if a launch fails.
+    u_a, v_a, u_b, v_b: (B, nb, k) of one dtype; acc: (B, nb, nb) of that
+    dtype, or float64 beside float32 factors; all contiguous CUDA tensors
+    on one device.  Writes the result into ``out`` when one is given (a
+    contiguous (B, nb, nb) tensor of acc's dtype, which may be ``acc``
+    itself and overlap nothing else), else into a new tensor, and returns
+    it.  Raises on anything the kernel does not take, before the library is
+    built, and if a launch fails.
     """
     args = {"u_a": u_a, "v_a": v_a, "u_b": u_b, "v_b": v_b, "acc": acc}
-    dtype, device = u_a.dtype, u_a.device
-    inst = instance(dtype)
+    dtype, acc_dtype, device = u_a.dtype, acc.dtype, u_a.device
+    inst = instance(dtype, acc_dtype)
     if u_a.dim() != 3:
         raise ValueError(f"u_a must have shape (B, nb, k), got {tuple(u_a.shape)}")
     b, nb, k = u_a.shape
@@ -88,8 +102,9 @@ def tlr_mm_cuda(u_a, v_a, u_b, v_b, acc, out=None) -> torch.Tensor:
     for name, t in args.items():
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{name} must be a CUDA tensor on {device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        want_dtype = acc_dtype if name in ("acc", "out") else dtype
+        if t.dtype != want_dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, expected {want_dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         want = (b, nb, nb) if name in ("acc", "out") else (b, nb, k)
@@ -106,11 +121,14 @@ def tlr_mm_cuda(u_a, v_a, u_b, v_b, acc, out=None) -> torch.Tensor:
         check_out(out, acc, factors)
     if b == 0:
         return out
-    scratch = torch.empty((b, k, k), dtype=dtype, device=device)
+    # W = V_a^T V_b (B, k, k); the f32 instance also keeps T = U_a W
+    scratch = [torch.empty((b, k, k), dtype=dtype, device=device)]
+    if dtype == torch.float32:
+        scratch.append(torch.empty((b, nb, k), dtype=dtype, device=device))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [t.data_ptr() for t in (u_a, v_a, u_b, v_b, acc, scratch, out)]
-        rc = _fn(dtype)(*ptrs, b, nb, k, stream)
+        ptrs = [t.data_ptr() for t in (u_a, v_a, u_b, v_b, acc, *scratch, out)]
+        rc = _fn((dtype, acc_dtype))(*ptrs, b, nb, k, stream)
     _build.check(rc, f"tlr_mm ({inst})")
     tlr_mm_cuda.launches += 1
     tlr_mm_cuda.launches_by_instance[inst] += 1

@@ -8,12 +8,16 @@ The CUDA kernels themselves are held against the plain versions on the card
 by chip_smoke.py.
 """
 
+import re
 import shutil
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# The suite runs in several pytest workers on one CPU: one torch thread a
+# worker keeps them from contending (the tensors here are small).
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -33,6 +37,7 @@ from repro_torch.kernels.chol_tiles import (  # noqa: E402
 from repro_torch.kernels.matern_corr import matern_corr_cuda  # noqa: E402
 from repro_torch.kernels.matern_tile import matern_tile_cuda  # noqa: E402
 from repro_torch.kernels.tlr_mm import check_out, tlr_mm_cuda  # noqa: E402
+from repro_torch.kernels.tlr_mm import instance as tlr_mm_instance  # noqa: E402
 
 DTYPES = {
     "float32": (jnp.float32, torch.float32),
@@ -315,6 +320,112 @@ def test_dmma_tlr_mm_order_of_work_matches_pallas(b, nb, k, padded):
         np.testing.assert_allclose(got.numpy(), plain.numpy(), **_tol("float64"))
 
 
+# The f32 instance of the CUDA tlr_mm (csrc/tlr_mm.cu, fma_f32): stage 1
+# cuts nb into at most kFSplitMax slices of at least kFSliceMin rows, each a
+# multiple of the kFWRows-row chunk; the constants are read from the source.
+def _fma_f32_constant(name):
+    text = (_build.CSRC / "tlr_mm.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _fma_f32_slices(nb):
+    split_max, slice_min, chunk = (
+        _fma_f32_constant(n) for n in ("kFSplitMax", "kFSliceMin", "kFWRows")
+    )
+    splits = min(split_max, -(-nb // slice_min))
+    per = -(-nb // splits)
+    rows = -(-per // chunk) * chunk
+    return [(s * rows, min(nb, (s + 1) * rows)) for s in range(splits)]
+
+
+def _emulate_tlr_mm_fma_f32(ua, va, ub, vb, acc):
+    """The fma_f32 tlr_mm instance's order of work in plain f32 torch: W =
+    V_a^T V_b as the sum of its slices' partials in slice order (an empty
+    slice adds zeros); T = U_a W, rounded to f32; then out[strip, chunk] =
+    acc - T U_b^T by 64 x 64 tiles, the f32 product widened when acc is
+    float64."""
+    b, nb, k = ua.shape
+    w = torch.zeros((b, k, k), dtype=torch.float32)
+    for n0, n1 in _fma_f32_slices(nb):
+        w = w + va[:, n0:n1].mT @ vb[:, n0:n1]
+    t = ua @ w
+    out = torch.empty_like(acc)
+    for r0 in range(0, nb, STRIP):
+        rs = slice(r0, r0 + STRIP)
+        for c0 in range(0, nb, STRIP):
+            cs = slice(c0, c0 + STRIP)
+            out[:, rs, cs] = acc[:, rs, cs] - t[:, rs] @ ub[:, cs].mT
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,nb,k,padded",
+    [
+        (1, 64, 8, False),
+        (4, 40, 16, False),
+        (3, 64, 32, False),
+        (2, 130, 16, True),  # three slices, a ragged tile, half the rank zero
+        (2, 70, 200, False),  # two slices, k past 128
+        (1, 512, 8, False),  # the path's nb: eight slices of 64 rows
+        (1, 301, 8, False),  # the ragged nb: five slices, the last short
+        (1, 520, 8, False),  # eight 96-row slices: the last two empty
+    ],
+)
+def test_fma_f32_tlr_mm_order_of_work_matches_pallas(b, nb, k, padded):
+    """The f32 CUDA instance's order of work against the Pallas tlr_mm in
+    interpret mode, in float32, at the tolerance of
+    test_tlr_mm_ref_matches_pallas; its W slices cover nb in order, one
+    after another (an empty one at the end adds zeros); zero-padded rank
+    columns add exact zeros."""
+    slices = _fma_f32_slices(nb)
+    assert slices[0][0] == 0 and max(n1 for _, n1 in slices) == nb
+    assert all(n0 == prev_n1 for (_, prev_n1), (n0, _) in zip(slices, slices[1:])
+               if n0 < nb)
+    assert len(slices) <= 8 and all(n1 - n0 >= 64 or n1 == nb for n0, n1 in slices)
+    rng = np.random.default_rng(9)
+    ua, va, ub, vb = (rng.normal(size=(b, nb, k)) for _ in range(4))
+    if padded:
+        for arr in (ua, va, ub, vb):
+            arr[:, :, k // 2 :] = 0.0
+    acc = rng.normal(size=(b, nb, nb))
+    args = [x.astype(np.float32) for x in (ua, va, ub, vb, acc)]
+    got = _emulate_tlr_mm_fma_f32(*(torch.as_tensor(x) for x in args))
+    want = j_tlr_mm(*(jnp.asarray(x) for x in args), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **_tol("float32"))
+    if padded:
+        short = [torch.as_tensor(x[:, :, : k // 2]) for x in args[:4]]
+        plain = ref.tlr_mm_ref(*short, torch.as_tensor(args[4]))
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), **_tol("float32"))
+
+
+def test_ops_tlr_mm_widens_f32_factors_into_a_float64_acc_as_the_two_step_form():
+    """f32 factors with a float64 acc (the mixed SYRK): in place, bit for bit
+    the f32 form into a zero batch, widened and added, as the path computed
+    it before; the instance's order of work gives the same; and within the
+    f32 tolerance of the reference's SYRK, diag - upd with jnp promoting."""
+    rng = np.random.default_rng(8)
+    u, v = (torch.as_tensor(rng.normal(size=(3, 24, 5)), dtype=torch.float32)
+            for _ in range(2))
+    diag = torch.as_tensor(rng.normal(size=(5, 24, 24)))
+    neg = torch.zeros((3, 24, 24), dtype=torch.float32)
+    ops.tlr_mm(u, v, u, v, neg, out=neg)
+    want = diag[2:] + neg.to(torch.float64)
+    before = diag.clone()
+    got = ops.tlr_mm(u, v, u, v, diag[2:], out=diag[2:])
+    assert got.data_ptr() == diag[2:].data_ptr() and got.dtype == torch.float64
+    assert torch.equal(diag[2:], want)
+    assert torch.equal(diag[:2], before[:2])
+    emulated = _emulate_tlr_mm_fma_f32(u, v, u, v, before[2:])
+    assert emulated.dtype == torch.float64
+    np.testing.assert_allclose(emulated.numpy(), want.numpy(), **_tol("float32"))
+    un, vn = u.numpy(), v.numpy()
+    w = jnp.einsum("tnk,tnl->tkl", vn, vn)
+    upd = jnp.einsum("tnk,tkl,tml->tnm", un, w, un)
+    reference = jnp.asarray(before[2:].numpy()) - upd
+    assert reference.dtype == jnp.float64
+    np.testing.assert_allclose(got.numpy(), np.asarray(reference), **_tol("float32"))
+
+
 @pytest.mark.parametrize("dname", ["float32", "float64"])
 def test_ops_tlr_mm_in_place_equals_out_of_place_and_writes_acc(dname):
     _, tdt = DTYPES[dname]
@@ -346,7 +457,10 @@ def test_tlr_mm_out_refuses_overlap_other_than_acc_itself():
 def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
     """CPU tensors, dtypes without an instance and overlapping ``out`` are
     refused before the library is built; each dtype names its instance, for
-    potrf, tlr_mm, trsm and syrk alike, and the counts by instance reset."""
+    potrf, tlr_mm, trsm and syrk alike, and the counts by instance reset.
+    tlr_mm takes three dtype pairs (factors, acc): all float64, all
+    float32, and float32 factors with a float64 acc; it refuses every other
+    mix."""
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
     for fn in (potrf_cuda, tlr_mm_cuda, trsm_cuda, syrk_cuda):
         assert set(fn.launches_by_instance) == {"dmma_f64", "fma_f32"}
@@ -356,6 +470,25 @@ def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
         for dtype in (torch.float16, torch.bfloat16, torch.int32):
             with pytest.raises(ValueError, match="float32 or float64"):
                 pick(dtype)
+    assert tlr_mm_instance(torch.float64) == "dmma_f64"
+    assert tlr_mm_instance(torch.float32) == "fma_f32"
+    assert tlr_mm_instance(torch.float32, torch.float64) == "fma_f32"
+    # the wide acc is the one mix: every other pair is refused
+    mixes = [(torch.float64, torch.float32), (torch.float32, torch.float16),
+             (torch.bfloat16, torch.float64), (torch.float16, torch.float32),
+             (torch.float64, torch.bfloat16)]
+    for factors, acc_dtype in mixes:
+        with pytest.raises(ValueError, match="float32 or float64"):
+            tlr_mm_instance(factors, acc_dtype)
+        u = torch.zeros((2, 8, 4), dtype=factors)
+        acc = torch.zeros((2, 8, 8), dtype=acc_dtype)
+        with pytest.raises(ValueError, match="float32 or float64"):
+            tlr_mm_cuda(u, u, u, u, acc)
+        with pytest.raises(ValueError, match="float32 or float64"):
+            tlr_mm_cuda(u, u, u, u, acc, out=acc)
+    u32 = torch.zeros((2, 8, 4), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tlr_mm_cuda(u32, u32, u32, u32, torch.zeros((2, 8, 8), dtype=torch.float64))
     for dtype in (torch.float64, torch.float16, torch.int32):
         u = torch.zeros((2, 8, 4), dtype=dtype)
         acc = torch.zeros((2, 8, 8), dtype=dtype)

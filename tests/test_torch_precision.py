@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# The suite runs in several pytest workers on one CPU: one torch thread a
+# worker keeps them from contending (the tensors here are small).
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -113,7 +116,9 @@ def test_mixed_f32_stores_uv_narrow_and_keeps_the_spine_wide(case):
 
 def test_mixed_f32_widens_at_the_trsm_and_syrk_boundaries(case, monkeypatch):
     """The TRSM reaches the trsm kernel's f64 instance on V cast up; the
-    SYRK reaches tlr_mm's f32 instance, accumulating into a zero batch."""
+    SYRK reaches tlr_mm's f32 instance with the float64 diagonal tiles
+    themselves as acc and out (the product widened in its epilogue), not a
+    zero batch."""
     seen = {"trsm": set(), "tlr_mm": set()}
     trsm, tlr_mm = ops.trsm, ops.tlr_mm
 
@@ -122,6 +127,7 @@ def test_mixed_f32_widens_at_the_trsm_and_syrk_boundaries(case, monkeypatch):
         return trsm(lo, b)
 
     def spy_tlr_mm(u_a, v_a, u_b, v_b, acc, *, out=None):
+        assert out is acc
         seen["tlr_mm"].add((u_a.dtype, acc.dtype, bool((acc == 0).all())))
         return tlr_mm(u_a, v_a, u_b, v_b, acc, out=out)
 
@@ -129,7 +135,7 @@ def test_mixed_f32_widens_at_the_trsm_and_syrk_boundaries(case, monkeypatch):
     monkeypatch.setattr(ops, "tlr_mm", spy_tlr_mm)
     _port(case, "mixed_f32")
     assert seen["trsm"] == {(torch.float64, torch.float64)}
-    assert seen["tlr_mm"] == {(torch.float32, torch.float32, True)}
+    assert seen["tlr_mm"] == {(torch.float32, torch.float64, False)}
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# The suite runs in several pytest workers on one CPU: one torch thread a
+# worker keeps them from contending (the tensors here are small).
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
