@@ -39,8 +39,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             instances take (bf16 on wgmma, f32 on FMAs), potrf, tlr_mm,
             trsm and syrk at the shapes of both of theirs (f64 on DMMA, f32
             on FMAs), each record naming its instance.  potrf is also timed
-            at (1, 2048, 2048) and (1, 4096, 4096), and failed on a bad
-            pivot in the first panel of a 4096 tile; tlr_mm at B = 63, 8
+            at (1, 2048, 2048) and (1, 4096, 4096), and failed on bad tiles
+            and on a bad pivot in the first panel of a 4096 tile, in both
+            instances; tlr_mm at B = 63, 8
             and 1, with out=acc (checked against the plain version on a
             copy), and summed over a factorization's sweep of B = 63 down to
             1; at the dist phase's first SYRK (B = 15) in both instances and
@@ -53,9 +54,10 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             nb = 4096 (the exact phase's panel, its first and last solves),
             held on a real Matérn L_kk, and held and summed over one TLR
             factorization's panel TRSMs; syrk is timed at the exact phase's
-            first update at panel 512 and at panel 4096, and held and
-            summed over the panel-512 path's 63 updates, each beside its
-            library call.  Times are the card's: cuda_ms queues the runs
+            first update at panel 512 (both instances) and at panel 4096,
+            and held and summed over the panel-512 paths' 63 updates in
+            both instances (the exact and exact_f32 phases'), each beside
+            its library call.  Times are the card's: cuda_ms queues the runs
             behind a sleep on the card, so the host's launch overhead
             between short calls does not enter.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
@@ -90,7 +92,23 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             and trsm 2 nk - 1 times (nk = m / panel: 63 / 64 / 127 and
             7 / 8 / 15), all of the dmma_f64 instances, and Sigma's pairs
             through matern_corr (its general instance for nu12).
-6. mle      Nelder–Mead estimation through ``fit`` with the generator-direct
+6. exact_f32 the reference's float32 exact path (``dist_loglik_lowerable``'s
+            dtype): ``dist_exact_loglik`` at panel 512 on the same distances,
+            Matérn parameters and z cast to float32, at the exact phase's
+            nugget 1e-8 where the float32 factor holds there, else at the
+            reference's float32 default 1e-6 beside an f64 evaluation at
+            that nugget.  It fails unless the loglik is float32 and finite,
+            within 1e-3 (relative, the reference's float32 tolerance) of the
+            f64 exact loglik at its nugget, and potrf, trsm and syrk
+            launched 64, 127 and 63 times, all of their fma_f32 instances,
+            with Sigma's pairs through matern_corr.
+7. grad     the nugget gradient of ``tlr_loglik(from_tiles=True)`` on the
+            card (n = 16^2, tile 64, max rank 16, TLR7, nugget 1e-3, f64):
+            autograd through the kernels' Functions (kernels/ops.py) and
+            the guarded QR and SVD, against central differences at rel
+            1e-4, with matern_tile, tlr_mm, potrf and trsm launched, and a
+            Matérn range that requires grad refused by matern_tile.
+8. mle      Nelder–Mead estimation through ``fit`` with the generator-direct
             TLR backend (tile 512, max rank 128, TLR7, all six parameters
             free) on n = 48^2 locations of the same jittered grid (depth cut
             for time: one evaluation at n = 16384 takes minutes), z simulated
@@ -101,7 +119,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             fitted loglik to 1e-10 (relative), and matern_tile (its general
             instance: nu is free), tlr_mm, potrf and trsm were launched
             during the fit.
-7. assess   the paper's Algorithm 1 (MLOE/MMOM) at the main cell's full
+9. assess   the paper's Algorithm 1 (MLOE/MMOM) at the main cell's full
             size: n = 16384 observation locations (m = 32768), 1024 uniform
             prediction locations, theta_a the main Matérn with its range
             x 1.2.  ``mloe_mmom`` (GEN: two dense Sigmas through
@@ -116,7 +134,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             the cokriging one by more than 1e-6, and matern_corr ran (its
             general instance for nu12).  It reports the GEN / FACT / COMP
             seconds (the paper's Figs. 10-11 split) and the peak memory.
-8. dist     the single-device forms of the distributed TLR likelihood and
+10. dist    the single-device forms of the distributed TLR likelihood and
             the precision policy at the main cell's widths (tile 512, max
             rank 128, TLR7), n cut to 64^2 = 4096 (m = 8192, 16 tiles) for
             time: (1) ``tlr_loglik(from_tiles=True)``, (2)
@@ -137,7 +155,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             tile, row split; syrk: tile edge; each a kernel of its own) is
             one that a kernel check of phase 2 held against the plain
             version.
-9. lm       LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
+11. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
             against ``attn_impl="naive"`` on (1, 4096) tokens, relative gap
@@ -157,15 +175,16 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
 ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
-serve, exact (panel 512), exact4096, mle, assess, dist (its five
-evaluations) and lm runs, where lm is the timed prefill forward and the
-engine's ``generate``, and ``launches_by_path`` splits them), the
-nvidia-smi line,
-and, as the last line, ``{"ok": true, "device": {...}}``.  Any failed phase
-makes the script exit non-zero without that last line; so does a missing
-CUDA device or a missing checkout around the script.  The geostat paths
-(main, serve, exact, exact4096, mle) fail if an fma_f32 instance of
-potrf, tlr_mm, trsm or syrk was launched during them (dist: only its
+serve, exact (panel 512), exact4096, exact_f32, grad, mle, assess, dist
+(its five evaluations) and lm runs, where lm is the timed prefill forward
+and the engine's ``generate``; ``launches_by_path`` splits them and
+``launches_by_instance_by_path`` splits each path's by instance), the
+nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
+Any failed phase makes the script exit non-zero without that last line; so
+does a missing CUDA device or a missing checkout around the script.  The
+f64 geostat paths (main, serve, exact, exact4096, grad, mle) fail if an
+fma_f32 instance of potrf, tlr_mm, trsm or syrk was launched during them
+(exact_f32 must launch only those of potrf, trsm and syrk; dist: only its
 mixed_f32 evaluation may, and must, launch tlr_mm's), and every geostat
 path fails if the plain K_nu (``core.matern.kv``) ran on a CUDA tensor
 during it: every order of their GEN runs in matern_tile or matern_corr.
@@ -276,6 +295,9 @@ DMMA_PRODUCT_KERNELS = (
 )
 # The sources of the dmma_f64 instances.
 DMMA_SOURCES = ("potrf.cu", "tlr_mm.cu", "trsm.cu", "syrk.cu")
+# The sources whose fma_f32 kernels the device phase reports (registers,
+# spills): the redesigned f32 potrf and syrk.
+FMA_F32_SOURCES = ("potrf.cu", "syrk.cu")
 # The sources of the Matérn kernels (instances halfint and general).
 MATERN_SOURCES = ("matern_tile.cu", "matern_corr.cu")
 # The tolerances of tests/test_kernels.py's flash attention tests: _tol for
@@ -306,6 +328,17 @@ EXACT_PANEL = 4096
 MATERN = dict(sigma11=1.0, sigma22=1.0, a=0.03, nu11=0.5, nu22=1.5, beta=0.5)
 # The kernels the main and serve paths run (the exact path adds syrk).
 TLR_KERNELS = ("matern_tile", "tlr_mm", "potrf", "trsm")
+# The exact_f32 phase: the nuggets it tries in turn (the exact phase's,
+# then the reference's float32 default, dist_loglik_lowerable's), and its
+# gap to the f64 exact loglik at the same nugget (the reference's float32
+# tolerance, tests/test_distributed.py).
+EXACT_F32_NUGGETS, EXACT_F32_GAP = (NUGGET, 1e-6), 1e-3
+# The grad phase: tests/test_tlr_tiles.py's gradient test at a size the
+# kernels take (n = 16^2, m = 512, tile 64, 8 tiles; 2 kmax <= tile), its
+# Matérn truth, nugget, difference step and gate.
+GRAD_N_SIDE, GRAD_TILE, GRAD_KMAX = 16, 64, 16
+GRAD_MATERN = dict(a=0.09, nu11=0.5, nu22=1.5, beta=0.5)
+GRAD_NUGGET, GRAD_EPS, GRAD_REL = 1e-3, 1e-6, 1e-4
 # The mle phase: grid side (n = 48^2, m = 4608, 9 tiles of 512) and the
 # Nelder–Mead iterations.
 MLE_N_SIDE, MLE_ITERS = 48, 3
@@ -408,6 +441,9 @@ def phase_device(torch, st):
     regs_ok = len(regs) == 4 and all(want in ln for ln in regs)
     sass = flash_sass(lib)
     dmma = dmma_report(text, lib)
+    fma = {}
+    for src in FMA_F32_SOURCES:
+        fma.update(ptxas_entries(text, src, lambda n: "_f32" in n))
     matern = matern_report(text, lib)
     st["flash_ok"] = regs_ok and sass.get("ok", True)
     ok = st["flash_ok"] and dmma["ok"] and matern["ok"]
@@ -425,6 +461,7 @@ def phase_device(torch, st):
             "flash_ptxas": flash,
             "flash_sass": sass,
             "dmma_f64": dmma,
+            "fma_f32": fma,
             "matern": matern,
         }
     )
@@ -1005,28 +1042,30 @@ def check_potrf(torch, gen, tag, b, nb, dtype, timed):
     return rec
 
 
-def check_potrf_failure(torch, gen):
+def check_potrf_failure(torch, gen, dtype):
     """Two bad tiles (indefinite; a negative last pivot) between good ones:
     the bad ones come back all NaN, the good ones as cholesky_ex gives."""
-    from repro_torch.kernels.chol_tiles import potrf_cuda
+    from repro_torch.kernels.chol_tiles import potrf_cuda, potrf_instance
 
     nb = 512
-    a = _spd(torch, gen, 4, nb, torch.float64)
+    dname = str(dtype).split(".")[-1]
+    a = _spd(torch, gen, 4, nb, dtype)
     a[1] -= 1e4 * torch.eye(nb, dtype=a.dtype, device="cuda")
     a[2, nb - 1, nb - 1] = -1.0
     got = potrf_cuda(a)
     want, info = torch.linalg.cholesky_ex(a)
     torch.cuda.synchronize()
     nan_tiles = [bool(torch.isnan(got[t]).all()) for t in range(4)]
-    err, good = max_err(torch, got[0::3], want[0::3], **CHOL_TOL["potrf"]["float64"])
+    err, good = max_err(torch, got[0::3], want[0::3], **CHOL_TOL["potrf"][dname])
     ok = nan_tiles == [False, True, True, False] and good
     ok = ok and [int(x) for x in info.cpu()][1:3] != [0, 0]
     rec = {
         "phase": "kernel_check",
         "kernel": "potrf",
+        "instance": potrf_instance(dtype),
         "case": "non_spd",
         "shape": [4, nb, nb],
-        "dtype": "float64",
+        "dtype": dname,
         "all_nan_tiles": nan_tiles,
         "max_abs_err_good_tiles": err,
         "ok": ok,
@@ -1035,13 +1074,13 @@ def check_potrf_failure(torch, gen):
     return rec
 
 
-def check_potrf_failure_first_panel(torch, gen):
+def check_potrf_failure_first_panel(torch, gen, dtype):
     """A (1, 4096, 4096) tile whose pivot 10, in the first panel, is bad:
     it comes back all NaN, and cholesky_ex reports the failure."""
-    from repro_torch.kernels.chol_tiles import potrf_cuda
+    from repro_torch.kernels.chol_tiles import potrf_cuda, potrf_instance
 
     nb = 4096
-    a = _spd(torch, gen, 1, nb, torch.float64)
+    a = _spd(torch, gen, 1, nb, dtype)
     a[0, 10, 10] = -5.0
     got = potrf_cuda(a)
     info = torch.linalg.cholesky_ex(a)[1]
@@ -1050,10 +1089,10 @@ def check_potrf_failure_first_panel(torch, gen):
     rec = {
         "phase": "kernel_check",
         "kernel": "potrf",
-        "instance": "dmma_f64",
+        "instance": potrf_instance(dtype),
         "case": "bad_pivot_first_panel_4096",
         "shape": [1, nb, nb],
-        "dtype": "float64",
+        "dtype": str(dtype).split(".")[-1],
         "all_nan": all_nan,
         "cholesky_ex_info": int(info[0]),
         "ok": all_nan and int(info[0]) != 0,
@@ -1301,16 +1340,18 @@ def check_syrk_64bit(torch, gen):
     return rec
 
 
-def check_syrk_sweep(torch, gen, panel=TILE):
+def check_syrk_sweep(torch, gen, dtype, panel=TILE):
     """The trailing update of every panel step of the exact path at the main
     configuration (m = 32768, panel 512): nb = 32256 down to 512, C the
     trailing block of a larger matrix and A column-major, as the path
     passes them, each held against baddbmm's result; the kernel's summed
-    time beside the library's."""
-    from repro_torch.kernels.chol_tiles import syrk_cuda
+    time beside the library's.  float64 is the exact phase's, float32 the
+    exact_f32 phase's."""
+    from repro_torch.kernels.chol_tiles import syrk_cuda, syrk_instance
 
+    dname = str(dtype).split(".")[-1]
     m = (SWEEP_B + 1) * TILE  # 32768
-    kw = dict(generator=gen, dtype=torch.float64, device="cuda")
+    kw = dict(generator=gen, dtype=dtype, device="cuda")
     big = torch.randn((1, m, m), **kw)
     pan = torch.randn((1, panel, m), **kw)
     ms = lib = bnd = err = 0.0
@@ -1322,23 +1363,23 @@ def check_syrk_sweep(torch, gen, panel=TILE):
         want = torch.baddbmm(c, a, a.mT, alpha=-1.0)
         for r0 in range(0, nb, 4096):  # 1 GB temporaries at a time
             rows = slice(r0, r0 + 4096)
-            e, good = max_err(torch, got[:, rows], want[:, rows], **TOL["float64"])
+            e, good = max_err(torch, got[:, rows], want[:, rows], **TOL[dname])
             err, ok = max(err, e), ok and good
         del got, want
         ms += cuda_ms(torch, lambda: syrk_cuda(c, a), reps=3, warmup=1)
         lib += cuda_ms(
             torch, lambda: torch.baddbmm(c, a, a.mT, alpha=-1.0), reps=3, warmup=1
         )
-        bnd += _syrk_bound(1, nb, panel, 8)[0]
+        bnd += _syrk_bound(1, nb, panel, big.element_size())[0]
     rec = {
         "phase": "kernel_check",
         "kernel": "syrk",
-        "instance": "dmma_f64",
+        "instance": syrk_instance(dtype),
         "case": "sweep_exact_panel512",
         "shapes": [[1, m - panel, panel], [1, panel, panel]],
-        "dtype": "float64",
+        "dtype": dname,
         "max_abs_err": err,
-        "tol": TOL["float64"],
+        "tol": TOL[dname],
         "ms_sum": ms,
         "library_ms_sum": lib,
         "bound_ms_sum": bnd,
@@ -1432,6 +1473,80 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
     return rec
 
 
+def check_potrfs(torch, st, gen, dtypes=None):
+    """potrf at the kernels phase's shapes (see phase_kernels), in
+    ``dtypes`` (both instances by default); the path shape timed in both,
+    the serving and exact-panel tiles timed too."""
+    f64, f32 = torch.float64, torch.float32
+    both = (f64, f32)
+    cases = (
+        ("path", 1, 512, both),
+        ("batch", 8, 512, both),
+        ("multiwave", 40, 512, both),
+        ("multiwave4096", 8, 4096, both),
+        ("ragged", 3, 200, both),
+        ("nb1", 1, 1, both),
+        ("tile2048", 1, 2048, both),
+        ("tile4096", 1, 4096, both),
+    )
+    records = []
+    for tag, b, nb, kinds in cases:
+        for dtype in kinds:
+            if dtypes is not None and dtype not in dtypes:
+                continue
+            timed = tag in ("path", "tile2048", "tile4096")
+            rec = check_potrf(torch, gen, tag, b, nb, dtype, timed)
+            records.append(rec)
+            if tag == "path" and dtype == f64:
+                st.setdefault("summary", {})["potrf"] = rec
+            elif timed:
+                st.setdefault("extra", {}).setdefault("potrf", []).append(rec)
+    return records
+
+
+def check_syrks(torch, st, gen, dtypes=None):
+    """syrk at the kernels phase's shapes, in ``dtypes`` (both instances by
+    default): the exact path's first update at panel 512 (timed in both)
+    and 4096 (f64, timed), a batch, the JAX test shapes, a ragged nb
+    (row-major A; and odd nb and k in the path layout, whose copies are
+    element by element), the path's last step (the f64 instance's 64 x 64
+    tiles), k = 1, offsets past 2^31 (f64), and each dtype's sweep of the
+    63 updates."""
+    f64, f32 = torch.float64, torch.float32
+    both = (f64, f32)
+    cases = (
+        ("path", 1, 32256, 512, True, both),
+        ("batch", 4, 512, 128, False, both),
+        ("jax_2x64x64", 2, 64, 64, False, both),
+        ("jax_4x32x16", 4, 32, 16, False, both),
+        ("ragged", 2, 1000, 200, False, both),
+        ("ragged_path", 2, 1001, 203, True, both),
+        ("last_step", 1, 512, 512, True, both),
+        ("k1", 2, 300, 1, False, both),
+        ("path4096", 1, 28672, 4096, True, (f64,)),
+    )
+    extra = st.setdefault("extra", {}).setdefault("syrk", [])
+    records = []
+    for tag, b, nb, k, path_layout, kinds in cases:
+        for dtype in kinds:
+            if dtypes is not None and dtype not in dtypes:
+                continue
+            timed = tag in ("path", "path4096") or (tag == "batch" and dtype == f64)
+            rec = check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout)
+            records.append(rec)
+            if tag == "path" and dtype == f64:
+                st.setdefault("summary", {})["syrk"] = rec
+            elif timed:
+                extra.append(rec)
+    if dtypes is None or f64 in dtypes:
+        records.append(check_syrk_64bit(torch, gen))
+    for dtype in both:
+        if dtypes is None or dtype in dtypes:
+            records.append(check_syrk_sweep(torch, gen, dtype))
+            extra.append(records[-1])
+    return records
+
+
 def phase_kernels(torch, st, n_side: int):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -1484,34 +1599,16 @@ def phase_kernels(torch, st, n_side: int):
         rec = check_tlr_mm_sweep(torch, gen, DIST_SWEEP_B, f32, acc_dtype)
         records.append(rec)
         st.setdefault("extra", {}).setdefault("tlr_mm", []).append(rec)
-    # potrf: the panel-head tile of the main path (timed in both instances,
-    # though the f32 one runs on no path), a batch, a ragged nb,
-    # nb = 1, the README's serving tile (2048) and the reference's default
-    # exact panel (4096), bad tiles and a real Matérn tile.  The two
-    # multiwave batches give the f64 panel launch more blocks than the card
-    # holds at once (about two a SM): 40 x 7 and 8 x 63 at the first panel.
-    cases = (
-        ("path", 1, 512, (torch.float64, torch.float32)),
-        ("batch", 8, 512, (torch.float64, torch.float32)),
-        ("multiwave", 40, 512, (torch.float64,)),
-        ("multiwave4096", 8, 4096, (torch.float64,)),
-        ("ragged", 3, 200, (torch.float64, torch.float32)),
-        ("nb1", 1, 1, (torch.float64, torch.float32)),
-        ("tile2048", 1, 2048, (torch.float64, torch.float32)),
-        ("tile4096", 1, 4096, (torch.float64,)),
-    )
-    for tag, b, nb, dtypes in cases:
-        for dtype in dtypes:
-            # the f32 instance, on no path, is timed at the path's shape
-            timed = tag == "path" or (tag in ("tile2048", "tile4096") and dtype == f64)
-            rec = check_potrf(torch, gen, tag, b, nb, dtype, timed)
-            records.append(rec)
-            if tag == "path" and dtype == f64:
-                st.setdefault("summary", {})["potrf"] = rec
-            elif timed:
-                st.setdefault("extra", {}).setdefault("potrf", []).append(rec)
-    records.append(check_potrf_failure(torch, gen))
-    records.append(check_potrf_failure_first_panel(torch, gen))
+    # potrf, both instances: the panel-head tile of the main path (the f32
+    # one's on the exact_f32 path), a batch, a ragged nb, nb = 1, the
+    # README's serving tile (2048) and the reference's default exact panel
+    # (4096), bad tiles and a real Matérn tile.  The multiwave batches give
+    # the panel launch more blocks than the card holds at once (about two a
+    # SM): 40 x 7 and 8 x 63 at the first panel.
+    records.extend(check_potrfs(torch, st, gen))
+    for dtype in (f64, f32):
+        records.append(check_potrf_failure(torch, gen, dtype))
+        records.append(check_potrf_failure_first_panel(torch, gen, dtype))
     records.append(check_potrf_matern(torch, locs, params))
     # trsm in both instances: the panel TRSM (one L_kk for the 63 live V
     # tiles of step 0: r = 63 x 128 = 8064 columns in all; timed in both,
@@ -1554,40 +1651,11 @@ def phase_kernels(torch, st, n_side: int):
     rec = check_trsm_sweep(torch, gen)
     records.append(rec)
     st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
-    # syrk: the first trailing update of the exact phase (m_k = 32256,
-    # panel 512) in the operands' path layout (timed in both instances,
-    # though the f32 one runs on no path), a batch in both dtypes, the
-    # JAX test shapes, a ragged nb (row-major A; and odd nb and k in the
-    # path layout, whose copies are 8 bytes), the path's last step (the f64
-    # instance's 64 x 64 tiles), k = 1, and offsets past 2^31
-    cases = (
-        ("path", 1, 32256, 512, True, (torch.float64, torch.float32)),
-        ("batch", 4, 512, 128, False, (torch.float64, torch.float32)),
-        ("jax_2x64x64", 2, 64, 64, False, (torch.float64, torch.float32)),
-        ("jax_4x32x16", 4, 32, 16, False, (torch.float64, torch.float32)),
-        ("ragged", 2, 1000, 200, False, (torch.float64, torch.float32)),
-        ("ragged_path", 2, 1001, 203, True, (torch.float64, torch.float32)),
-        ("last_step", 1, 512, 512, True, (torch.float64,)),
-        ("k1", 2, 300, 1, False, (torch.float64,)),
-    )
-    for tag, b, nb, k, path_layout, dtypes in cases:
-        for dtype in dtypes:
-            timed = tag == "path" or (tag == "batch" and dtype == f64)
-            rec = check_syrk(torch, gen, tag, b, nb, k, dtype, timed, path_layout)
-            records.append(rec)
-            if tag == "path" and dtype == f64:
-                st.setdefault("summary", {})["syrk"] = rec
-            elif timed:
-                st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
-    records.append(check_syrk_64bit(torch, gen))
-    # the exact path's panel-4096 shapes (first step) and the summed sweep
-    # of the panel-512 path's 63 updates
-    rec = check_syrk(torch, gen, "path4096", 1, 28672, 4096, torch.float64, True, True)
-    records.append(rec)
-    st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
-    rec = check_syrk_sweep(torch, gen)
-    records.append(rec)
-    st.setdefault("extra", {}).setdefault("syrk", []).append(rec)
+    # syrk, both instances: the first trailing update of the exact phase
+    # (m_k = 32256, panel 512) in the operands' path layout, the JAX test
+    # shapes, ragged nb, the panel-4096 path's first step, offsets past 2^31,
+    # and the summed sweeps of the panel-512 paths' 63 updates (check_syrks)
+    records.extend(check_syrks(torch, st, gen))
     # flash_attention, both instances: qwen3-4b prefill at B = 2, S = 4096
     # (the path's shape, timed), the f32 shape of the lm phase's depth-4
     # check (timed), a window, right-aligned decode and a short query block
@@ -1899,7 +1967,7 @@ def phase_exact(torch, st):
     from repro_torch.core.dist_cholesky import dist_exact_loglik
     from repro_torch.kernels import ops
 
-    ref = st.pop("exact_ref")
+    ref = st["exact_ref"]  # exact_f32 takes it after this phase
     locs, z, params = ref["locs"], ref["z"], ref["params"]
     dev = torch.device("cuda")
     m = z.shape[-1]
@@ -1969,6 +2037,169 @@ def phase_exact(torch, st):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"exact panel path failed its checks at panel {failed}")
+
+
+def phase_exact_f32(torch, st):
+    """The reference's float32 exact path: ``dist_exact_loglik`` with the
+    distances, the Matérn parameters and z in float32 at panel 512, so that
+    POTRF, TRSM and SYRK run their fma_f32 instances; at the exact phase's
+    nugget where the float32 factor holds there, else at the reference's
+    float32 default, then beside an f64 evaluation at that nugget."""
+    from repro_torch.core.covariance import MaternParams, pairwise_distances
+    from repro_torch.core.dist_cholesky import dist_exact_loglik
+    from repro_torch.kernels import ops
+
+    ref = st.pop("exact_ref")
+    locs, z, params = ref["locs"], ref["z"], ref["params"]
+    dev = torch.device("cuda")
+    m = z.shape[-1]
+    nk = m // TILE
+    dists = pairwise_distances(torch.as_tensor(locs, device=dev))
+    params32 = MaternParams(*(x.float() for x in params))
+    z32 = z.float()
+    tried = []
+    for nugget in EXACT_F32_NUGGETS:
+        dists32 = dists.float()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        res = dist_exact_loglik(
+            dists32, z32, params32, nugget=nugget, panel=TILE, times=times
+        )
+        ll = float(res.loglik)
+        total_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        instances = ops.instance_counts()
+        peak = torch.cuda.max_memory_allocated()
+        dtype = str(res.loglik.dtype).split(".")[-1]
+        del res, dists32
+        tried.append({"nugget": nugget, "loglik": ll})
+        if math.isfinite(ll):
+            break
+    st.setdefault("launches", {})["exact_f32"] = launches
+    st.setdefault("instances", {})["exact_f32"] = instances
+    if nugget == NUGGET:
+        want, want_s = ref["loglik"], None
+    else:  # the f64 exact loglik at the float32 path's nugget
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = dist_exact_loglik(dists, z, params, nugget=nugget, panel=TILE)
+        want = float(res.loglik)
+        want_s = time.perf_counter() - t0
+    del dists
+    torch.cuda.empty_cache()
+    rel = abs(ll - want) / abs(want)
+    expect = {"syrk": nk - 1, "potrf": nk, "trsm": 2 * nk - 1}
+    ok = math.isfinite(ll) and rel <= EXACT_F32_GAP and dtype == "float32"
+    for name, count in expect.items():
+        ok = ok and launches[name] == count
+        ok = ok and instances[name] == {"dmma_f64": 0, "fma_f32": count}
+    ok = ok and gen_on_kernels(st, instances, "exact_f32", "matern_corr")
+    emit(
+        {
+            "phase": "exact_f32",
+            "ok": ok,
+            "n": len(locs),
+            "m": m,
+            "panel": TILE,
+            "panel_steps": nk,
+            "dtype": dtype,
+            "nugget": nugget,
+            "nuggets_tried": tried,
+            "exact_panel_loglik_s": total_s,
+            "phase_s": times,
+            "loglik_f32": ll,
+            "loglik_f64": want,
+            "loglik_f64_s": want_s,
+            "rel_gap": rel,
+            "rel_gap_limit": EXACT_F32_GAP,
+            "launches": launches,
+            "launches_by_instance": instances,
+            "launches_expected": expect,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("exact_f32", 0),
+            "peak_bytes": peak,
+        }
+    )
+    if not ok:
+        raise AssertionError("the float32 exact path failed its checks")
+
+
+def phase_grad(torch, st):
+    """The nugget gradient of ``tlr_loglik(from_tiles=True)`` through the
+    kernels: autograd's against central differences of the loglik, at a
+    small size (n = 16^2, tile 64, max rank 16, TLR7, nugget 1e-3, f64);
+    the Matérn kernels must refuse a parameter that requires grad."""
+    from repro_torch.core import tlr as tlr_module
+    from repro_torch.core.covariance import MaternParams, morton_order
+    from repro_torch.core.simulate import grid_locations
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    locs = grid_locations(GRAD_N_SIDE, jitter=0.2, seed=0)
+    locs = locs[morton_order(locs)]
+    params = MaternParams.bivariate(**GRAD_MATERN, device=dev)
+    z = np.random.default_rng(5).normal(size=2 * len(locs))
+    kw = dict(tol=TOL_TLR, max_rank=GRAD_KMAX, tile_size=GRAD_TILE, locs=locs)
+    kw.update(from_tiles=True, gen="kernel", device=dev)
+
+    def loglik(nugget):
+        return tlr_module.tlr_loglik(None, z, params, nugget=nugget, **kw).loglik
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ng = torch.tensor(GRAD_NUGGET, requires_grad=True, **f64)
+    ll = loglik(ng)
+    (grad,) = torch.autograd.grad(ll, ng)
+    g = float(grad)
+    grad_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    instances = path_instances(ops, st, "grad")
+    st.setdefault("launches", {})["grad"] = launches
+    with torch.no_grad():
+        hi = float(loglik(torch.tensor(GRAD_NUGGET + GRAD_EPS, **f64)))
+        lo = float(loglik(torch.tensor(GRAD_NUGGET - GRAD_EPS, **f64)))
+    fd = (hi - lo) / (2 * GRAD_EPS)
+    rel = abs(g - fd) / abs(fd)
+    # a Matérn parameter that requires grad is refused on the card
+    a = params.a.clone().requires_grad_()
+    try:
+        tlr_module.tlr_loglik(
+            None, z, params._replace(a=a), nugget=GRAD_NUGGET, **kw
+        )
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    ok = math.isfinite(g) and rel <= GRAD_REL and refused is not None
+    ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
+    ok = ok and f64_only(instances)
+    emit(
+        {
+            "phase": "grad",
+            "ok": ok,
+            "n": len(locs),
+            "m": 2 * len(locs),
+            "tile_size": GRAD_TILE,
+            "max_rank": GRAD_KMAX,
+            "nugget": GRAD_NUGGET,
+            "loglik": float(ll.detach()),
+            "grad": g,
+            "finite_difference": fd,
+            "eps": GRAD_EPS,
+            "rel_gap": rel,
+            "rel_gap_limit": GRAD_REL,
+            "loglik_and_grad_s": grad_s,
+            "matern_grad_refused": refused,
+            "launches": launches,
+            "launches_by_instance": instances,
+        }
+    )
+    if not ok:
+        raise AssertionError("the gradient through the kernels failed its checks")
 
 
 def phase_mle(torch, st, n_side: int):
@@ -2641,6 +2872,8 @@ def main() -> int:
         ("main", lambda: phase_main(torch, st, args.n_side)),
         ("serve", lambda: phase_serve(torch, st)),
         ("exact", lambda: phase_exact(torch, st)),
+        ("exact_f32", lambda: phase_exact_f32(torch, st)),
+        ("grad", lambda: phase_grad(torch, st)),
         ("mle", lambda: phase_mle(torch, st, args.n_side)),
         ("assess", lambda: phase_assess(torch, st, args.n_side)),
         ("dist", lambda: phase_dist(torch, st, args.n_side)),
@@ -2686,6 +2919,11 @@ def main() -> int:
                 for inst, count in counts.get(name, {}).items():
                     by_inst[inst] = by_inst.get(inst, 0) + count
             kernels[-1]["launches_by_instance"] = by_inst
+            kernels[-1]["launches_by_instance_by_path"] = {
+                path: counts[name]
+                for path, counts in st["instances"].items()
+                if name in counts
+            }
         if name == "flash_attention":
             f32 = st["flash_f32"]
             kernels[-1]["f32_instance"] = {

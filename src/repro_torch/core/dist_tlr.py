@@ -49,6 +49,8 @@ from .tlr import (
     TLRMatrix,
     _lap,
     _loglik_of,
+    _put,
+    _sub,
     choose_tile_size,
     compress_columns,
     factorize,
@@ -333,20 +335,23 @@ def dist_tlr_solve_lower_pairs(diag_l, up, vp, z, *, layout: PairLayout):
     ``z`` may be (m,) or (m, r): the r right-hand sides (a serving c0 panel
     batch) share the one sweep over the factor.  Step k solves the diagonal
     tile with the ``trsm`` kernel and subtracts U_ik (V_ik^T w_k) from the
-    rows i > k, whose tiles it reads through ``pos[k+1:, k]``.
+    rows i > k, whose tiles it reads through ``pos[k+1:, k]``.  In place
+    on a copy of z, or into new tensors while autograd records the inputs.
     """
     T, nb = diag_l.shape[0], diag_l.shape[1]
+    fresh = ops.records_grad(diag_l, up, vp, z)
     z, single = _rhs(z, T, nb)
     out = torch.empty_like(z)
     for k in range(T):
         wk = ops.trsm(diag_l[k : k + 1], z[k : k + 1])
-        out[k] = wk[0]
+        out = _put(out, k, wk[0], fresh)
         if k + 1 < T:
             col = index_of(layout.pos[k + 1 :, k], z.device)
             # narrow U/V (a mixed policy) widened, as the reference's einsum
             # promotes them
             vk, uk = vp[col].to(z.dtype), up[col].to(z.dtype)
-            z[k + 1 :] -= uk @ (vk.mT @ wk)  # (T-1-k, nb, r)
+            # (T-1-k, nb, r)
+            z = _sub(z, slice(k + 1, T), uk @ (vk.mT @ wk), fresh)
     return out.reshape(-1) if single else out.reshape(T * nb, -1)
 
 
@@ -362,6 +367,7 @@ def dist_tlr_solve_upper_pairs(diag_l, up, vp, y, *, layout: PairLayout):
     (m,) or (m, r) convention as the forward solve.
     """
     T, nb = diag_l.shape[0], diag_l.shape[1]
+    fresh = ops.records_grad(diag_l, up, vp, y)
     y, single = _rhs(y, T, nb)
     out = torch.empty_like(y)
     for k in range(T - 1, -1, -1):
@@ -371,7 +377,8 @@ def dist_tlr_solve_upper_pairs(diag_l, up, vp, y, *, layout: PairLayout):
             uk, vk = up[col].to(y.dtype), vp[col].to(y.dtype)
             wu = uk.mT @ out[k + 1 :]  # (T-1-k, kmax, r)
             rhs = rhs - (vk @ wu).sum(0)
-        out[k] = torch.linalg.solve_triangular(diag_l[k].mT, rhs, upper=True)
+        xk = torch.linalg.solve_triangular(diag_l[k].mT, rhs, upper=True)
+        out = _put(out, k, xk, fresh)
     return out.reshape(-1) if single else out.reshape(T * nb, -1)
 
 

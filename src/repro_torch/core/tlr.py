@@ -402,20 +402,88 @@ def tlr_to_dense(t: TLRMatrix, symmetric: bool = True) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _bumped_rinv_t(r1, y):
+    """y R_s^{-T}, R_s the square upper-triangular ``r1`` with every
+    diagonal entry of magnitude at most 1e-40 + 1e-12 max|diag| raised by 1
+    (those directions are the zero-padded rank columns, which the rank
+    mask zeroes downstream)."""
+    d = torch.diagonal(r1, dim1=-2, dim2=-1)
+    lim = 1e-40 + 1e-12 * d.abs().amax(-1, keepdim=True)
+    r_safe = r1 + torch.diag_embed((d.abs() <= lim).to(r1.dtype))
+    return torch.linalg.solve_triangular(r_safe.mT, y, upper=False, left=False)
+
+
+class _SafeQR(torch.autograd.Function):
+    """Reduced QR with a derivative that survives the recompress concats'
+    zero-padded rank columns (R exactly singular), as the reference's
+    ``_safe_qr``: the forward is ``torch.linalg.qr``; the backward is the
+    transpose of the reference's JVP, whose triangular solve against R
+    takes R's (near-)zero diagonal entries raised by 1.  A wide R (2 kmax
+    > nb) solves against its leading square block only."""
+
+    @staticmethod
+    def forward(ctx, a):
+        q, r = torch.linalg.qr(a)
+        ctx.save_for_backward(q, r)
+        return q, r
+
+    @staticmethod
+    def backward(ctx, gq, gr):
+        q, r = ctx.saved_tensors
+        kk = r.shape[-2]
+        qtgq = q.mT @ gq
+        m = qtgq - gr @ r.mT
+        low = torch.tril(m - m.mT, -1)
+        if r.shape[-1] == kk:
+            return _bumped_rinv_t(r, gq + q @ (low - m))
+        ga = q @ gr
+        ga[..., :kk] += _bumped_rinv_t(r[..., :kk], gq + q @ (low - qtgq))
+        return ga
+
+
+class _CoreSVD(torch.autograd.Function):
+    """SVD of the square recompress core (``_svd_or_nan``) with a derivative
+    that survives its repeated zero singular values, as the reference's
+    ``_core_svd``: the backward is the transpose of the reference's JVP,
+    whose 1 / (s_j^2 - s_i^2) terms are zero where the gap is at most
+    1e-40 + 1e-12 max s^2."""
+
+    @staticmethod
+    def forward(ctx, core):
+        u, s, vt = _svd_or_nan(core)
+        ctx.save_for_backward(u, s, vt)
+        return u, s, vt
+
+    @staticmethod
+    def backward(ctx, gu, gs, gvt):
+        u, s, vt = ctx.saved_tensors
+        s2 = s * s
+        gap = s2[..., None, :] - s2[..., :, None]  # gap[i, j] = s_j^2 - s_i^2
+        lim = 1e-40 + 1e-12 * s2.amax(-1, keepdim=True)[..., None]
+        safe = gap.abs() > lim
+        f = torch.where(safe, 1.0 / torch.where(safe, gap, 1.0), 0.0)
+        au = f * (u.mT @ gu)
+        bv = f * (vt @ gvt.mT)
+        gp = torch.diag_embed(gs) + (au + au.mT) * s[..., None, :]
+        gp = gp + s[..., :, None] * (bv + bv.mT)
+        return u @ gp @ vt
+
+
 def _recompress_parts(u1, v1, u2, v2, tol, scale):
     """(B..., nb, k) pairs -> recompressed sum with rank <= kmax, batched.
 
-    QR(U')·QR(V') then SVD of the small core.  Returns (U, V, ranks, cs):
-    ranks counts the singular values kept (int32) and cs is the raw
+    QR(U')·QR(V') then SVD of the small core, both with the reference's
+    guarded derivatives (``_SafeQR``, ``_CoreSVD``).  Returns (U, V, ranks,
+    cs): ranks counts the singular values kept (int32) and cs is the raw
     spectrum (a NaN input tile surfaces there as non-finite values).  When
     2 kmax > nb, R is wide (nb, 2k) and the core is (nb, nb), as in the
     reference.
     """
     kmax = u1.shape[-1]
-    qu, ru = torch.linalg.qr(torch.cat([u1, u2], dim=-1))
-    qv, rv = torch.linalg.qr(torch.cat([v1, v2], dim=-1))
+    qu, ru = _SafeQR.apply(torch.cat([u1, u2], dim=-1))
+    qv, rv = _SafeQR.apply(torch.cat([v1, v2], dim=-1))
     core = ru @ rv.mT
-    cu, cs, cvt = _svd_or_nan(core)
+    cu, cs, cvt = _CoreSVD.apply(core)
     mask = cs[..., :kmax] > _threshold(tol, scale, cs)
     s_m = torch.where(mask, cs[..., :kmax], 0.0)
     unew = (qu @ cu[..., :kmax]) * s_m[..., None, :]
@@ -455,6 +523,26 @@ class TLRCholesky(NamedTuple):
     status: FactorStatus | None = None  # breakdown accounting (if tracked)
 
 
+def _put(x, index, value, fresh: bool):
+    """x[index] = value, in place or, when ``fresh``, into a copy of x.
+
+    The factorization and the solves pass ``fresh`` while autograd records
+    their tensors (``ops.records_grad``): a tensor they would overwrite may
+    be saved for the backward.  Without grad they write in place."""
+    if fresh:
+        x = x.clone()
+    x[index] = value
+    return x
+
+
+def _sub(x, index, value, fresh: bool):
+    """x[index] -= value, in place or, when ``fresh``, into a copy of x."""
+    if fresh:
+        x = x.clone()
+    x[index] -= value
+    return x
+
+
 def index_of(sel: np.ndarray, device):
     """An index for the sorted positions ``sel``: a slice (a view, no copy)
     where they are consecutive, else an index tensor."""
@@ -463,15 +551,17 @@ def index_of(sel: np.ndarray, device):
     return torch.as_tensor(sel, device=device)
 
 
-def _gemm_recompress(u, v, ranks, dst, uk, vk, li, lj, status, *, tol, scale):
-    """The GEMM + recompress task on a batch of active pairs, in place:
+def _gemm_recompress(u, v, ranks, dst, uk, vk, li, lj, status, *, tol, scale, fresh):
+    """The GEMM + recompress task on a batch of active pairs (in place
+    unless ``fresh``):
 
         A[i, j] += -U_ik (V_ik^T V_jk) U_jk^T,  recompressed by QR + core SVD
 
     ``dst`` indexes the pairs' storage in ``u``, ``v``, ``ranks`` (a grid
     index ``(gi, gj)`` or a pair-slot index); ``li``, ``lj`` index their
     rows i and j in the panel column's live tiles ``uk``, ``vk``.  Returns
-    ``status`` with the non-finite singular values of these pairs added.
+    ``(u, v, status)``, ``status`` with the non-finite singular values of
+    these pairs added.
     """
     wij = vk[li].mT @ vk[lj]  # V_ik^T V_jk
     du = uk[li] @ wij  # U_ik W
@@ -479,10 +569,10 @@ def _gemm_recompress(u, v, ranks, dst, uk, vk, li, lj, status, *, tol, scale):
     un, vn, rn, bad = sharded_recompress(
         u[dst], v[dst], du, dv, tol, scale, with_count=True
     )
-    u[dst] = un
-    v[dst] = vn
+    u = _put(u, dst, un, fresh)
+    v = _put(v, dst, vn, fresh)
     ranks[dst] = rn
-    return None if status is None else status.add_nonfinite(bad)
+    return u, v, None if status is None else status.add_nonfinite(bad)
 
 
 def _trsm_widened(lkk, vk):
@@ -492,20 +582,26 @@ def _trsm_widened(lkk, vk):
     return ops.trsm(lkk, vk.to(lkk.dtype)).to(vk.dtype)
 
 
-def _syrk_update(diag_live, uk, vk) -> None:
-    """D_i -= U_ik (V_ik^T V_ik) U_ik^T on the live diagonal tiles, in place,
-    by the ``tlr_mm`` kernel.  With narrow U/V (a mixed policy) this is the
-    SYRK widening boundary: the reference forms the product in the narrow
-    dtype and subtracts it from the wide diagonal, and so does the kernel's
-    narrow instance given the wide tiles as ``acc`` (the product widened
-    exactly in its epilogue).
+def _syrk_update(diag, live, uk, vk, fresh: bool):
+    """D_i -= U_ik (V_ik^T V_ik) U_ik^T on the live diagonal tiles
+    ``diag[live]`` by the ``tlr_mm`` kernel, in place (its ``out=`` form)
+    or, when ``fresh``, into a copy of ``diag``; returns ``diag``.  With
+    narrow U/V (a mixed policy) this is the SYRK widening boundary: the
+    reference forms the product in the narrow dtype and subtracts it from
+    the wide diagonal, and so does the kernel's narrow instance given the
+    wide tiles as ``acc`` (the product widened exactly in its epilogue).
     """
+    if fresh:
+        return _put(diag, live, ops.tlr_mm(uk, vk, uk, vk, diag[live]), True)
+    diag_live = diag[live]
     ops.tlr_mm(uk, vk, uk, vk, diag_live, out=diag_live)
+    return diag
 
 
 def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs):
     """One right-looking panel step k, updating ``diag``/``u``/``v``/
-    ``ranks`` in place (the reference's ``pairs=(il, jl)`` form):
+    ``ranks`` in place, or into new tensors while autograd records them
+    (``ops.records_grad``); the reference's ``pairs=(il, jl)`` form:
 
         POTRF — factor diagonal tile (k, k) (the ``potrf`` kernel)
         TRSM  — solve column k's V tiles of the rows i > k against it (the
@@ -530,6 +626,7 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     passed.
     """
     T = diag.shape[0]
+    fresh = ops.records_grad(diag, u, v)
     il, jl = (np.asarray(x) for x in pairs)
     lkk = ops.potrf(diag[k : k + 1])
     if status is not None:
@@ -538,10 +635,10 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     if k + 1 < T:
         # ---- TRSM on the live rows of panel column k (V only; §5.3).
         vk = _trsm_widened(lkk, v[live, k])
-        v[live, k] = vk
+        v = _put(v, (live, k), vk, fresh)
         uk = u[live, k].contiguous()
-        # ---- SYRK onto the trailing diagonal tiles, in place.
-        _syrk_update(diag[live], uk, vk)
+        # ---- SYRK onto the trailing diagonal tiles.
+        diag = _syrk_update(diag, live, uk, vk, fresh)
         # ---- GEMM + recompress on the active pairs i > j > k.
         act = jl > k
         if act.any():
@@ -550,10 +647,21 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
             dst = (torch.as_tensor(ia, device=dev), torch.as_tensor(ja, device=dev))
             li = torch.as_tensor(ia - (k + 1), device=dev)
             lj = torch.as_tensor(ja - (k + 1), device=dev)
-            status = _gemm_recompress(
-                u, v, ranks, dst, uk, vk, li, lj, status, tol=tol, scale=scale
+            u, v, status = _gemm_recompress(
+                u,
+                v,
+                ranks,
+                dst,
+                uk,
+                vk,
+                li,
+                lj,
+                status,
+                tol=tol,
+                scale=scale,
+                fresh=fresh,
             )
-    diag[k] = lkk[0]
+    diag = _put(diag, k, lkk[0], fresh)
     if status is not None:
         return diag, u, v, ranks, status
     return diag, u, v, ranks
@@ -562,8 +670,8 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
 def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, scale):
     """One right-looking panel step k on pair-major strict-lower storage
     (``distribution.block_cyclic.PairLayout``), updating ``diag``, ``up``,
-    ``vp``, ``ranks`` in place: the reference's ``tlr_panel_body_bc`` on one
-    device.
+    ``vp``, ``ranks`` in place (into new tensors while autograd records
+    them): the reference's ``tlr_panel_body_bc`` on one device.
 
     Panel column k is read through ``layout.pos[k+1:, k]``, the slots of
     its rows i > k only; the reference instead gathers all T rows through
@@ -576,6 +684,7 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
     """
     T = diag.shape[0]
     dev = up.device
+    fresh = ops.records_grad(diag, up, vp)
     lkk = ops.potrf(diag[k : k + 1])
     if status is not None:
         status = status.update_potrf(lkk)
@@ -583,17 +692,17 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
         col = index_of(layout.pos[k + 1 :, k], dev)
         # ---- TRSM on panel column k (V only; U untouched, §5.3).
         vk = _trsm_widened(lkk, vp[col])
-        vp[col] = vk
+        vp = _put(vp, col, vk, fresh)
         uk = up[col]
-        # ---- SYRK onto the trailing diagonal tiles i > k, in place.
-        _syrk_update(diag[k + 1 :], uk, vk)
+        # ---- SYRK onto the trailing diagonal tiles i > k.
+        diag = _syrk_update(diag, slice(k + 1, T), uk, vk, fresh)
         # ---- GEMM + recompress over the active pairs (pads fail il > jl).
         il, jl = layout.il, layout.jl
         act = np.nonzero((il > jl) & (jl > k))[0]
         if len(act):
             li = torch.as_tensor(il[act] - (k + 1), device=dev)
             lj = torch.as_tensor(jl[act] - (k + 1), device=dev)
-            status = _gemm_recompress(
+            up, vp, status = _gemm_recompress(
                 up,
                 vp,
                 ranks,
@@ -605,18 +714,21 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
                 status,
                 tol=tol,
                 scale=scale,
+                fresh=fresh,
             )
-    diag[k] = lkk[0]
+    diag = _put(diag, k, lkk[0], fresh)
     if status is not None:
         return diag, up, vp, ranks, status
     return diag, up, vp, ranks
 
 
 def _loop(body, diag, u, v, ranks, k_lo: int, k_hi: int, status, **kw):
-    """``body`` for k in [k_lo, k_hi), in place; a ``status`` passed rides
-    along and the result is then a 5-tuple."""
+    """``body`` for k in [k_lo, k_hi), in place unless autograd records the
+    tensors; a ``status`` passed rides along and the result is then a
+    5-tuple."""
     for k in range(k_lo, k_hi):
         out = body(k, diag, u, v, ranks, status, **kw)
+        diag, u, v, ranks = out[:4]
         if status is not None:
             status = out[4]
     if status is not None:
@@ -662,7 +774,8 @@ def factorize(
     ``track_status``.
 
     The inputs are cloned once; the panel steps then update the copy in
-    place, in ``super_panels`` super-steps (``super_steps``), each with its
+    place (while autograd records the tensors, each step builds new ones
+    instead), in ``super_panels`` super-steps (``super_steps``), each with its
     own status accumulation, merged as the reference merges its slices'.
     The last tile needs only its POTRF (the ``potrf`` kernel).
     """
@@ -673,10 +786,11 @@ def factorize(
     for k_lo, k_hi in super_steps(T, super_panels):
         part = init_status(diag.dtype, diag.device) if track_status else None
         out = loop(diag, u, v, ranks, k_hi, k_lo=k_lo, status=part)
+        diag, u, v, ranks = out[:4]
         if track_status:
             status = out[4] if status is None else status.merge(out[4])
     lkk = ops.potrf(diag[T - 1 :])
-    diag[T - 1] = lkk[0]
+    diag = _put(diag, T - 1, lkk[0], ops.records_grad(diag, u, v))
     _lap(times, "factorize", t0, diag)
     if track_status:
         return diag, u, v, ranks, status.update_potrf(lkk)
@@ -701,18 +815,21 @@ def tlr_cholesky(
 
 def solve_lower_grid(diag_l, u, v, z) -> torch.Tensor:
     """Forward substitution L alpha = z on grid-form TLR factors; each
-    diagonal tile's solve is the ``trsm`` kernel."""
+    diagonal tile's solve is the ``trsm`` kernel.  In place on a copy of z,
+    or into new tensors while autograd records the inputs."""
     T, nb = diag_l.shape[0], diag_l.shape[1]
+    fresh = ops.records_grad(diag_l, u, v, z)
     z = z.reshape(T, nb).clone()
     out = torch.empty_like(z)
     for k in range(T):
-        out[k] = ops.trsm(diag_l[k : k + 1], z[k][None, :, None])[0, :, 0]
+        a = ops.trsm(diag_l[k : k + 1], z[k][None, :, None])[0, :, 0]
+        out = _put(out, k, a, fresh)
         if k + 1 < T:
             # z_i -= U_ik (V_ik^T a_k) for i > k (narrow U/V widened, as
             # the reference's einsum promotes them)
             vk, uk = v[k + 1 :, k].to(z.dtype), u[k + 1 :, k].to(z.dtype)
-            wk = torch.einsum("tnk,n->tk", vk, out[k])
-            z[k + 1 :] -= torch.einsum("tnk,tk->tn", uk, wk)
+            wk = torch.einsum("tnk,n->tk", vk, a)
+            z = _sub(z, slice(k + 1, T), torch.einsum("tnk,tk->tn", uk, wk), fresh)
     return out.reshape(-1)
 
 

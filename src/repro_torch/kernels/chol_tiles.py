@@ -7,10 +7,12 @@ Counterparts of the Pallas kernels ``repro.kernels.chol_tiles.potrf``,
 ``trsm_ref`` and ``syrk_ref``; ``kernels.ops`` chooses by the tensors'
 device.  The dtype picks one of each kernel's two instances: float64 runs
 ``dmma_f64`` (every product on the FP64 tensor cores; potrf and, past 512
-rows, trsm blocked over the card), float32 ``fma_f32`` (the first kernels,
-on the FP32 CUDA cores).  The host-side plans of the f64 instances (trsm's
-strip width, super-block, update tile and row split; syrk's tile edge) are
-the plain functions ``trsm_plan`` and ``syrk_tile``.
+rows, trsm blocked over the card), float32 ``fma_f32`` (on the FP32 CUDA
+cores: potrf the f64 instance's blocked schedule, syrk 128 x 128 tiles of
+8 x 8 outputs a thread; trsm the first kernel).  The host-side plans of
+the f64 instances (trsm's strip width, super-block, update tile and row
+split; syrk's tile edge) are the plain functions ``trsm_plan`` and
+``syrk_tile``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ _SYRK = {
     torch.float64: ("dmma_f64", "syrk_f64"),
     torch.float32: ("fma_f32", "syrk_f32"),
 }
-SYRK_TILE = 64  # output tile edge of one fma_f32 syrk block
+# syrk: the smallest output tile edge of the two instances, whose grid
+# bounds the shapes the kernels take
+SYRK_TILE = 64
 # dmma_f64 syrk: output tile edges
 SYRK_DMMA_TILES = (128, 64)
 # fma_f32 trsm: dynamic shared memory a block may take for its
@@ -74,8 +78,8 @@ def syrk_instance(dtype: torch.dtype) -> str:
 def _potrf_fn(dtype: torch.dtype):
     fn = getattr(_build.library(), _POTRF[dtype][1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    # the f64 instance takes its scratch (failure flags, tickets) after out
-    fn.argtypes = [p, p, p, i, i, p] if dtype == torch.float64 else [p, p, i, i, p]
+    # a, out, the scratch (failure flags, tickets), batch, nb, stream
+    fn.argtypes = [p, p, p, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -119,8 +123,8 @@ def potrf_cuda(a: torch.Tensor) -> torch.Tensor:
     ``a`` is a contiguous float32 or float64 CUDA tensor; only its lower
     triangle is read.  Returns a new tensor holding the lower factors,
     zeros above the diagonal; a tile whose factorization meets a pivot that
-    is not positive and finite comes back all NaN.  The f64 instance issues
-    its whole sequence of launches in one call, on the current stream,
+    is not positive and finite comes back all NaN.  Both instances issue
+    their whole sequence of launches in one call, on the current stream,
     without a host sync.  Raises on anything the kernel does not take and if
     a launch fails.
     """
@@ -136,11 +140,9 @@ def potrf_cuda(a: torch.Tensor) -> torch.Tensor:
     name = potrf_instance(a.dtype)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = [a.data_ptr(), out.data_ptr()]
-        if a.dtype == torch.float64:
-            # per tile: its failure flag, then its panel launches' ticket
-            scratch = torch.zeros(2 * b, dtype=torch.int32, device=a.device)
-            ptrs.append(scratch.data_ptr())
+        # per tile: its failure flag, then its panel launches' ticket
+        scratch = torch.zeros(2 * b, dtype=torch.int32, device=a.device)
+        ptrs = (a.data_ptr(), out.data_ptr(), scratch.data_ptr())
         code = _potrf_fn(a.dtype)(*ptrs, b, nb, stream)
     _build.check(code, f"potrf ({name})")
     potrf_cuda.launches += 1

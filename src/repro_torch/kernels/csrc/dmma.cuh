@@ -1,5 +1,6 @@
 // FP64 tensor-core (DMMA) building blocks shared by the f64 instances of
-// potrf.cu, tlr_mm.cu, trsm.cu and syrk.cu.
+// potrf.cu, tlr_mm.cu, trsm.cu and syrk.cu; the cp.async copies, the ring
+// and the programmatic dependent launch serve the f32 instances too.
 //
 // Hopper has no wgmma for f64; its FP64 tensor cores are reached through
 // mma.sync.  The m16n8k{4,8,16} shapes run at the card's full FP64
@@ -130,18 +131,20 @@ __device__ __forceinline__ void store_pair(double* row, int col, int n, int vec,
   if (col + 1 < n) row[col + 1] = x1;
 }
 
-// Asynchronous global -> shared copies (cp.async, Ampere and later) that
-// zero-fill when `ok` is false; the source address is then not read.
-__device__ __forceinline__ void cp_async8(double* dst, const double* src,
-                                          bool ok) {
+// Asynchronous global -> shared copies (cp.async, Ampere and later) of one
+// element (4 or 8 bytes) or of 16 bytes, which zero-fill when `ok` is
+// false; the source address is then not read.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src, bool ok) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "a 4- or 8-byte element");
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 8 : 0)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"((int)sizeof(T)), "r"(ok ? (int)sizeof(T) : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(double* dst, const double* src,
-                                           bool ok) {
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0)
@@ -161,19 +164,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // into shared memory (row stride ld_dst), zero-filling rows >= rv and
 // columns >= cv; issued by the NT threads of the block, tid = this thread's
 // index.  The shape is fixed at compile time so that the index arithmetic is
-// shifts.  With vec2 the copies are 16 bytes: cv, ld_src and ld_dst must be
-// even and src 16-byte aligned.
-template <int ROWS, int COLS, int NT>
-__device__ __forceinline__ void cp_tile(double* dst, int ld_dst,
-                                        const double* src, long long ld_src,
-                                        int rv, int cv, bool vec2, int tid) {
-  if (vec2) {
-    constexpr int HALF = COLS / 2, N = ROWS * HALF;
+// shifts.  With vec the copies are 16 bytes (V = 16 / sizeof(T) elements):
+// cv, ld_src and ld_dst must be multiples of V and src 16-byte aligned.
+template <int ROWS, int COLS, int NT, typename T>
+__device__ __forceinline__ void cp_tile(T* dst, int ld_dst, const T* src,
+                                        long long ld_src, int rv, int cv,
+                                        bool vec, int tid) {
+  if (vec) {
+    constexpr int V = 16 / (int)sizeof(T), HALF = COLS / V, N = ROWS * HALF;
 #pragma unroll
     for (int e0 = 0; e0 < N; e0 += NT) {
       const int e = e0 + tid;
       if (N % NT == 0 || e < N) {
-        const int r = e / HALF, c = 2 * (e % HALF);
+        const int r = e / HALF, c = V * (e % HALF);
         const bool ok = r < rv && c < cv;
         cp_async16(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
       }
@@ -186,7 +189,7 @@ __device__ __forceinline__ void cp_tile(double* dst, int ld_dst,
       if (N % NT == 0 || e < N) {
         const int r = e / COLS, c = e % COLS;
         const bool ok = r < rv && c < cv;
-        cp_async8(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
+        cp_async_elem(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
       }
     }
   }

@@ -20,7 +20,7 @@
 // follow one another across the card.  At nb = 4096 the operations bound
 // it: 22.9 GFLOP, 0.34 ms at the 67 TFLOP/s of the FP64 tensor cores.
 //
-// Two instances, picked by the dtype:
+// Two instances, picked by the dtype, one code templated on it:
 //
 // dmma_f64 (f64): a blocked right-looking Cholesky spread over the card, in
 // panels of kP = 64 columns.  The C entry point issues every launch of the
@@ -64,11 +64,14 @@
 // was not measured; at nb = 512 the panel launches take most of the time
 // (PERF.md), and their pivot chain is what a look-ahead would have to hide.
 //
-// fma_f32 (f32): the first kernel of this file, one 256-thread block
-// a tile on the FP32 CUDA cores, right-looking in 32-column panels: the
-// diagonal block factored unblocked in shared memory, the rows below solved
-// against it, the trailing triangle updated in 64 x 64 tiles of 4 x 4
-// outputs a thread.  DMMA has no f32 form.
+// fma_f32 (f32): the same launches, the same blocked schedule and the same
+// failure handling, in full f32 on the FP32 CUDA cores (no TF32): the panel
+// kernel is the f64 one's code in float, its rank-32 update of the second
+// half spread over all 256 threads, and the update kernel takes 256
+// threads a tile, each owning a 4 x 4 (2 x 2 on 32 x 32 tiles) block of
+// outputs, its operands read as float4 along the panel's columns.  It
+// replaces the first kernel of this file, one 256-thread block a tile with
+// three barriers a column, which left all but one SM idle at B = 1.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -95,28 +98,46 @@ __device__ __forceinline__ float quiet_nan<float>() {
 }
 
 // ---------------------------------------------------------------------------
-// dmma_f64
+// The blocked factorization, both instances
 // ---------------------------------------------------------------------------
 
 constexpr int kP = 64;              // panel width
 constexpr int kH = 32;              // half panel: one warp's factor
 constexpr int kPanelThreads = 256;
-constexpr int kUpdThreads = 128;    // 4 warps, 2 x 2
-constexpr int kLd = kP + 4;         // update panels' row stride (4 mod 16)
-constexpr int kLs = kP + 2;         // panel kernel's row stride (16-byte rows)
-constexpr int kPanelSmem = 3 * kP * kLs * (int)sizeof(double);
+constexpr int kUpdThreads = 128;    // dmma_f64 update: 4 warps, 2 x 2
+constexpr int kFUpdThreads = 256;   // fma_f32 update: 16 x 16 threads
+constexpr int kLd = kP + 4;         // update panels' row stride (4 mod 16
+                                    // doubles; 16-byte rows of floats)
+constexpr int kLs = kP + 2;         // panel kernel's row stride (8-byte pairs)
+template <typename T>
+constexpr int kPanelSmem = 3 * kP * kLs * (int)sizeof(T);
 
-__global__ void potrf_copy_f64(const double* __restrict__ a,
-                               double* __restrict__ out, int nb) {
+template <typename T>
+struct Pair;
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+
+template <typename T>
+__global__ void potrf_copy(const T* __restrict__ a, T* __restrict__ out,
+                           int nb) {
   dmma::grid_wait();
   dmma::grid_launch_dependents();
   const size_t nn = (size_t)nb * nb;
-  const double* A = a + blockIdx.y * nn;
-  double* L = out + blockIdx.y * nn;
+  const T* A = a + blockIdx.y * nn;
+  T* L = out + blockIdx.y * nn;
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < nn;
        e += (size_t)gridDim.x * blockDim.x) {
     const int r = (int)(e / nb), c = (int)(e % nb);
-    L[e] = c <= r ? A[e] : 0.0;
+    L[e] = c <= r ? A[e] : T(0);
   }
 }
 
@@ -129,37 +150,41 @@ __global__ void potrf_copy_f64(const double* __restrict__ a,
 // place, lane i on row o + i, and writes the factor's transpose into slt.
 // Within an 8-column block the next pivot comes straight from the lane that
 // owns it (a shuffle of x[c+1] - l^2), so the chain from one pivot to the
-// next is a shuffle, a reciprocal square root and two FP64 ops; the block's
-// columns reach the other lanes through sblk.  Sets *fail on a pivot that is
-// not positive and finite.
-__device__ __forceinline__ void factor_half(double* sd, double* slt,
-                                            double* sblk, double* sinv,
+// next is a shuffle, a reciprocal square root and two operations; the
+// column's values reach the block's later lanes by shuffles too, and the
+// later blocks through sblk.  A bad pivot is checked once a block, off the
+// chain.  Sets *fail on a pivot that is not positive and finite.
+template <typename T>
+__device__ __forceinline__ void factor_half(T* sd, T* slt, T* sblk, T* sinv,
                                             int* fail, int o, int i) {
-  double* row = sd + (o + i) * kLs + o;
+  T* row = sd + (o + i) * kLs + o;
 #pragma unroll 1
   for (int cb = 0; cb < kH; cb += 8) {
-    double xb[8];
+    T xb[8];
 #pragma unroll
     for (int l = 0; l < 8; ++l) xb[l] = row[cb + l];
-    double p = __shfl_sync(0xffffffffu, xb[0], cb);
+    T p = __shfl_sync(0xffffffffu, xb[0], cb);
+    bool bad = false;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      if (!good_pivot(p)) {  // p is the same in every lane
-        if (i == 0) *fail = 1;
-        return;
-      }
+      bad |= !good_pivot(p);  // p is the same in every lane
       const int pc = cb + c;
-      const double rinv = rsqrt(p);
-      const double lic = i == pc ? p * rinv : (i > pc ? xb[c] * rinv : 0.0);
+      const T rinv = rsqrt_t(p);
+      const T lic = i == pc ? p * rinv : (i > pc ? xb[c] * rinv : T(0));
       if (c + 1 < 8)
         p = __shfl_sync(0xffffffffu, xb[(c + 1) % 8] - lic * lic, pc + 1);
       xb[c] = lic;
       sblk[i * 9 + c] = lic;
       if (i == 0) sinv[o + pc] = rinv;
-      __syncwarp();
 #pragma unroll
-      for (int l = c + 1; l < 8; ++l)
-        if (cb + l <= i) xb[l] -= lic * sblk[(cb + l) * 9 + c];
+      for (int l = c + 1; l < 8; ++l) {
+        const T llc = __shfl_sync(0xffffffffu, lic, cb + l);  // L[cb+l][pc]
+        if (cb + l <= i) xb[l] -= lic * llc;
+      }
+    }
+    if (bad) {  // NaN has spread past a bad pivot; the tile fails
+      if (i == 0) *fail = 1;
+      return;
     }
 #pragma unroll
     for (int l = 0; l < 8; ++l) {
@@ -170,7 +195,7 @@ __device__ __forceinline__ void factor_half(double* sd, double* slt,
     // The row's later columns: x[l] -= sum_c L[i][cb+c] L[l][cb+c], l <= i.
 #pragma unroll 1
     for (int lb = cb + 8; lb < kH; lb += 8) {
-      double z[8];
+      T z[8];
 #pragma unroll
       for (int l = 0; l < 8; ++l) z[l] = row[lb + l];
 #pragma unroll
@@ -185,17 +210,20 @@ __device__ __forceinline__ void factor_half(double* sd, double* slt,
   }
 }
 
-// One thread solves its row y (in shared memory, 16-byte aligned) against
-// the first ncol columns of a lower factor whose transpose is slt:
-// y <- y L^{-T}, right-looking, in 8-column blocks.
-__device__ __forceinline__ void solve_row(double* y, const double* slt,
-                                          const double* sinv, int ncol) {
+// One thread solves its row y (in shared memory, 8-byte aligned in f32,
+// 16 in f64) against the first ncol columns of a lower factor whose
+// transpose is slt: y <- y L^{-T}, right-looking, in 8-column blocks, the
+// values moved in pairs.
+template <typename T>
+__device__ __forceinline__ void solve_row(T* y, const T* slt, const T* sinv,
+                                          int ncol) {
+  using P = typename Pair<T>::type;
 #pragma unroll 1
   for (int cb = 0; cb < ncol; cb += 8) {
-    double yb[8];
+    T yb[8];
 #pragma unroll
     for (int l = 0; l < 8; l += 2) {
-      const double2 v = *reinterpret_cast<const double2*>(y + cb + l);
+      const P v = *reinterpret_cast<const P*>(y + cb + l);
       yb[l] = v.x;
       yb[l + 1] = v.y;
     }
@@ -207,78 +235,120 @@ __device__ __forceinline__ void solve_row(double* y, const double* slt,
     }
 #pragma unroll
     for (int l = 0; l < 8; l += 2)
-      *reinterpret_cast<double2*>(y + cb + l) = make_double2(yb[l], yb[l + 1]);
+      *reinterpret_cast<P*>(y + cb + l) = P{yb[l], yb[l + 1]};
 #pragma unroll 1
     for (int lb = cb + 8; lb < ncol; lb += 8) {
-      double z[8];
+      T z[8];
 #pragma unroll
       for (int l = 0; l < 8; l += 2) {
-        const double2 v = *reinterpret_cast<const double2*>(y + lb + l);
+        const P v = *reinterpret_cast<const P*>(y + lb + l);
         z[l] = v.x;
         z[l + 1] = v.y;
       }
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        const double* lc = slt + (cb + c) * kLs + lb;
+        const T* lc = slt + (cb + c) * kLs + lb;
 #pragma unroll
         for (int l = 0; l < 8; l += 2) {
-          const double2 v = *reinterpret_cast<const double2*>(lc + l);
+          const P v = *reinterpret_cast<const P*>(lc + l);
           z[l] -= yb[c] * v.x;
           z[l + 1] -= yb[c] * v.y;
         }
       }
 #pragma unroll
       for (int l = 0; l < 8; l += 2)
-        *reinterpret_cast<double2*>(y + lb + l) = make_double2(z[l], z[l + 1]);
+        *reinterpret_cast<P*>(y + lb + l) = P{z[l], z[l + 1]};
     }
   }
 }
 
-// Panel step at columns j0..j0+w-1 (w <= 64).  Every block factors the
-// diagonal block: warp 0 the first 32 columns and the rows below them,
-// three warps the rank-32 update of the second half on DMMA, warp 0 the
-// second half.  The last block to finish its factor writes L_kk; then
-// threads 0..63 each solve one of the block's 64 rows below the panel.
-// flag holds the tiles' failure flags, then their tickets (2 B ints).
-__global__ void __launch_bounds__(kPanelThreads, 1)
-    potrf_panel_f64(double* __restrict__ out, int* __restrict__ flag, int nb,
-                    int j0, int w, int vec2) {
-  extern __shared__ __align__(16) double panel_smem[];
-  double* sd = panel_smem;            // [64][kLs]: the diagonal block, L_kk
-  double* sy = sd + kP * kLs;         // [64][kLs]: the block's panel rows
-  double* slt = sy + kP * kLs;        // [64][kLs]: slt[c][l] = L_kk[l][c]
-  __shared__ double sblk[kH * 9];
-  __shared__ double sinv[kP];         // 1 / L_kk[c][c]
+// y[32 + l] -= sum_c y[c] L21[l][c] for l, c < 32, each sum over c in
+// order; L21 is rows 32.. of the diagonal block sd.
+template <typename T>
+__device__ __forceinline__ void subtract_l21(T* y, const T* sd) {
+  using P = typename Pair<T>::type;
+  T x[kH];
+#pragma unroll
+  for (int c = 0; c < kH; c += 2) {
+    const P v = *reinterpret_cast<const P*>(y + c);
+    x[c] = v.x;
+    x[c + 1] = v.y;
+  }
+#pragma unroll 1
+  for (int l = 0; l < kH; ++l) {
+    const T* lr = sd + (kH + l) * kLs;
+    T z = y[kH + l];
+#pragma unroll
+    for (int c = 0; c < kH; c += 2) {
+      const P v = *reinterpret_cast<const P*>(lr + c);
+      z -= x[c] * v.x;
+      z -= x[c + 1] * v.y;
+    }
+    y[kH + l] = z;
+  }
+}
+
+// Copy a 64 x 64 tile (row stride nb in global memory, kLs in shared
+// memory), zero-filled past rv rows and cv columns.  With vec: 16-byte
+// copies of doubles; floats in 8-byte pairs (kLs floats are 8-byte rows).
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int nb, int rv,
+                                      int cv, int vec, int tid) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      dmma::cp_tile<kP, kP / 2, kPanelThreads>(
+          reinterpret_cast<double*>(dst), kLs / 2,
+          reinterpret_cast<const double*>(src), nb / 2, rv, cv / 2, false, tid);
+      return;
+    }
+  }
+  dmma::cp_tile<kP, kP, kPanelThreads>(dst, kLs, src, nb, rv, cv,
+                                       sizeof(T) == 8 && vec, tid);
+}
+
+// Panel step at columns j0..j0+w-1 (w <= 64), the body of the panel kernel
+// of both instances.  Every block factors the diagonal block: warp 0 the
+// first 32 columns and the rows below them, then the rank-32 update of the
+// second half (three warps on DMMA in f64; all threads on the FP32 units in
+// f32), then warp 0 the second half while warps 2 and 3 solve the block's
+// 64 rows below the panel against the first half.  The last block to
+// finish its factor writes L_kk; then threads 0..63 each finish one row
+// against the second half.  flag holds the tiles' failure flags, then
+// their tickets (2 B ints); sd is the kernel's dynamic shared memory.
+template <typename T>
+__device__ __forceinline__ void panel_step(T* __restrict__ out,
+                                           int* __restrict__ flag, int nb,
+                                           int j0, int w, int vec, T* sd) {
+  T* sy = sd + kP * kLs;              // [64][kLs]: the block's panel rows
+  T* slt = sy + kP * kLs;             // [64][kLs]: slt[c][l] = L_kk[l][c]
+  // sd, [64][kLs]: the diagonal block, then L_kk
+  __shared__ T sblk[kH * 9];
+  __shared__ T sinv[kP];              // 1 / L_kk[c][c]
   __shared__ int fail, last;
   dmma::grid_wait();
   dmma::grid_launch_dependents();
   const int bt = blockIdx.y;
   if (flag[bt]) return;
-  double* L = out + (size_t)bt * nb * nb;
+  T* L = out + (size_t)bt * nb * nb;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
   const int t0 = j0 + w, r0 = t0 + blockIdx.x * kP;
 
   // Stage the diagonal block and this block's rows (zero past nb and w).
-  const double* diag = L + (size_t)j0 * nb + j0;
-  dmma::cp_tile<kP, kP, kPanelThreads>(sd, kLs, diag, nb, w, w, vec2, tid);
-  if (r0 < nb)
-    dmma::cp_tile<kP, kP, kPanelThreads>(sy, kLs, L + (size_t)r0 * nb + j0, nb,
-                                         nb - r0, w, vec2, tid);
+  // Above the diagonal the block holds zeros (the copy launch wrote them,
+  // the updates write only the lower triangle), and no step reads there.
+  stage(sd, L + (size_t)j0 * nb + j0, nb, w, w, vec, tid);
+  if (r0 < nb) stage(sy, L + (size_t)r0 * nb + j0, nb, nb - r0, w, vec, tid);
   dmma::cp_async_commit();
   if (tid == 0) fail = 0;
   dmma::cp_async_wait<0>();
   __syncthreads();
-  // Zeros above the diagonal, the identity past w.
-  for (int e = tid; e < kP * kP; e += kPanelThreads) {
-    const int r = e / kP, c = e % kP;
-    if (c > r) sd[r * kLs + c] = 0.0;
-    else if (r >= w && c == r) sd[r * kLs + c] = 1.0;
-  }
-  __syncthreads();
 
-  // L11, then L21 = A21 L11^{-T} (warp 0, lane i on row 32 + i).
+  // The identity past w, then L11 and L21 = A21 L11^{-T} (warp 0, lane i
+  // on rows i and 32 + i).
   if (warp == 0) {
+    if (lane >= w) sd[lane * kLs + lane] = T(1);
+    if (kH + lane >= w) sd[(kH + lane) * kLs + kH + lane] = T(1);
+    __syncwarp();
     factor_half(sd, slt, sblk, sinv, &fail, 0, lane);
     __syncwarp();
     if (!fail) solve_row(sd + (kH + lane) * kLs, slt, sinv, kH);
@@ -288,31 +358,57 @@ __global__ void __launch_bounds__(kPanelThreads, 1)
     if (tid == 0) flag[bt] = 1;
     return;
   }
-  // A22 -= L21 L21^T on DMMA: warps 0, 1, 2 take the 16 x 16 quadrants
-  // (0, 0), (1, 0), (1, 1) of the lower triangle.
-  if (warp < 3) {
-    const int mi = warp == 0 ? 0 : 1, ni = warp == 2 ? 1 : 0;
-    double acc[2][4] = {};
+  if constexpr (sizeof(T) == 8) {
+    // A22 -= L21 L21^T on DMMA: warps 0, 1, 2 take the 16 x 16 quadrants
+    // (0, 0), (1, 0), (1, 1) of the lower triangle.
+    const int g = lane / 4, t = lane % 4;
+    if (warp < 3) {
+      const int mi = warp == 0 ? 0 : 1, ni = warp == 2 ? 1 : 0;
+      double acc[2][4] = {};
 #pragma unroll
-    for (int k0 = 0; k0 < kH; k0 += 8) {
-      double a[4], b[2][2];
-      dmma::load_a_rows(a, sd, kLs, kH + 16 * mi, k0, g, t);
-      dmma::load_b_rows(b[0], sd, kLs, kH + 16 * ni, k0, g, t);
-      dmma::load_b_rows(b[1], sd, kLs, kH + 16 * ni + 8, k0, g, t);
-      dmma::mma_16x8x8(acc[0], a, b[0]);
-      dmma::mma_16x8x8(acc[1], a, b[1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int r = 16 * mi + g + 8 * (v / 2);
-        const int c = 16 * ni + 8 * j + 2 * t + v % 2;
-        if (c <= r) sd[(kH + r) * kLs + kH + c] -= acc[j][v];
+      for (int k0 = 0; k0 < kH; k0 += 8) {
+        double a[4], b[2][2];
+        dmma::load_a_rows(a, sd, kLs, kH + 16 * mi, k0, g, t);
+        dmma::load_b_rows(b[0], sd, kLs, kH + 16 * ni, k0, g, t);
+        dmma::load_b_rows(b[1], sd, kLs, kH + 16 * ni + 8, k0, g, t);
+        dmma::mma_16x8x8(acc[0], a, b[0]);
+        dmma::mma_16x8x8(acc[1], a, b[1]);
       }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int r = 16 * mi + g + 8 * (v / 2);
+          const int c = 16 * ni + 8 * j + 2 * t + v % 2;
+          if (c <= r) sd[(kH + r) * kLs + kH + c] -= acc[j][v];
+        }
+    }
+  } else {
+    // A22 -= L21 L21^T on the FP32 units: each thread forms up to four
+    // entries of the lower triangle, each a sum over the 32 columns in
+    // order.
+    for (int e = tid; e < kH * kH; e += kPanelThreads) {
+      const int r = e / kH, c = e % kH;
+      if (c > r) continue;
+      const T* x = sd + (kH + r) * kLs;
+      const T* y = sd + (kH + c) * kLs;
+      T acc = T(0);
+#pragma unroll 8
+      for (int l = 0; l < kH; ++l) acc += x[l] * y[l];
+      sd[(kH + r) * kLs + kH + c] -= acc;
+    }
   }
   __syncthreads();
-  if (warp == 0) factor_half(sd, slt, sblk, sinv, &fail, kH, lane);
+  // Warp 0 factors the second half; meanwhile warps 2 and 3 solve the
+  // block's rows against L11 and subtract their L21 share from the second
+  // half (the same sums, in the same order, as one solve against L_kk).
+  if (warp == 0) {
+    factor_half(sd, slt, sblk, sinv, &fail, kH, lane);
+  } else if (warp / 2 == 1 && r0 < nb) {
+    T* y = sy + (tid - kP) * kLs;
+    solve_row(y, slt, sinv, kH);
+    subtract_l21(y, sd);
+  }
   __syncthreads();
   if (fail) {
     if (tid == 0) flag[bt] = 1;
@@ -342,8 +438,10 @@ __global__ void __launch_bounds__(kPanelThreads, 1)
   if (r0 >= nb) return;
   __syncthreads();
 
-  // Panel solve: row tid of the block, y L_kk^T = a.
-  if (tid < kP) solve_row(sy + tid * kLs, slt, sinv, kP);
+  // Panel solve, the second half: row tid of the block, y2 L22^T = a2 -
+  // y1 L21^T.
+  if (tid < kP)
+    solve_row(sy + tid * kLs + kH, slt + kH * kLs + kH, sinv + kH, kH);
   __syncthreads();
   for (int e = tid; e < kP * kP; e += kPanelThreads) {
     const int r = e / kP, c = e % kP;
@@ -351,10 +449,32 @@ __global__ void __launch_bounds__(kPanelThreads, 1)
   }
 }
 
-// Trailing update after the panel at j0..j0+w-1: one block per TM x TM tile
-// (ti >= tc) of the lower triangle from row t0 = j0 + w on.  The two panel
-// slices come in by cp.async while the tile's old values are loaded into
-// registers; the product runs on DMMA, warps of TM/2 x TM/2.
+__global__ void __launch_bounds__(kPanelThreads, 1)
+    potrf_panel_f64(double* __restrict__ out, int* __restrict__ flag, int nb,
+                    int j0, int w, int vec) {
+  extern __shared__ __align__(16) double panel_smem[];
+  panel_step(out, flag, nb, j0, w, vec, panel_smem);
+}
+
+__global__ void __launch_bounds__(kPanelThreads, 1)
+    potrf_panel_f32(float* __restrict__ out, int* __restrict__ flag, int nb,
+                    int j0, int w, int vec) {
+  extern __shared__ __align__(16) float panel_smem_f32[];
+  panel_step(out, flag, nb, j0, w, vec, panel_smem_f32);
+}
+
+// Lower-triangle tile x of the trailing update -> its tile row and column.
+__device__ __forceinline__ void lower_tile(int x, int& ti, int& tc) {
+  ti = (int)((sqrt(8.0 * x + 1.0) - 1.0) * 0.5);
+  while ((ti + 1) * (ti + 2) / 2 <= x) ++ti;
+  while (ti * (ti + 1) / 2 > x) --ti;
+  tc = x - ti * (ti + 1) / 2;
+}
+
+// dmma_f64 trailing update after the panel at j0..j0+w-1: one block per
+// TM x TM tile (ti >= tc) of the lower triangle from row t0 = j0 + w on.
+// The two panel slices come in by cp.async while the tile's old values are
+// loaded into registers; the product runs on DMMA, warps of TM/2 x TM/2.
 template <int TM>
 __global__ void __launch_bounds__(kUpdThreads)
     potrf_update_f64(double* __restrict__ out, const int* __restrict__ flag,
@@ -368,11 +488,8 @@ __global__ void __launch_bounds__(kUpdThreads)
   const int bt = blockIdx.y;
   if (flag[bt]) return;
   double* L = out + (size_t)bt * nb * nb;
-  const int x = blockIdx.x;
-  int ti = (int)((sqrt(8.0 * x + 1.0) - 1.0) * 0.5);
-  while ((ti + 1) * (ti + 2) / 2 <= x) ++ti;
-  while (ti * (ti + 1) / 2 > x) --ti;
-  const int tc = x - ti * (ti + 1) / 2;
+  int ti, tc;
+  lower_tile(blockIdx.x, ti, tc);
   const int t0 = j0 + w;
   const int r0 = t0 + ti * TM, c0 = t0 + tc * TM;
   const int tid = threadIdx.x;
@@ -446,208 +563,158 @@ __global__ void __launch_bounds__(kUpdThreads)
       }
 }
 
+// fma_f32 trailing update, the same tiles as potrf_update_f64 on the FP32
+// units in full f32: 256 threads, each owning (TM/16)^2 outputs (rows
+// ty + 16 i, columns tx + 16 j) in registers.  Both panel slices land in
+// shared memory by cp.async at a row stride of 68 floats, so that a warp's
+// 16-byte loads along the panel's columns (4 rows of one slice, 8 of the
+// other) meet no bank conflict, while the tile's old values are loaded;
+// each output's sum runs over the panel's columns in order.
 template <int TM>
-int launch_update(double* out, int* flag, int batch, int nb, int j0, int w,
-                  int vec2, cudaStream_t stream) {
-  constexpr int smem = 2 * TM * kLd * (int)sizeof(double);
-  cudaError_t err = cudaFuncSetAttribute(
-      potrf_update_f64<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nt = (nb - j0 - w + TM - 1) / TM;
-  return (int)dmma::launch_pdl(potrf_update_f64<TM>,
-                               dim3(nt * (nt + 1) / 2, batch), kUpdThreads,
-                               smem, stream, out, flag, nb, j0, w, vec2);
+__global__ void __launch_bounds__(kFUpdThreads)
+    potrf_update_f32(float* __restrict__ out, const int* __restrict__ flag,
+                     int nb, int j0, int w, int vec4) {
+  constexpr int R = TM / 16;
+  extern __shared__ __align__(16) float fsmem[];
+  float* sa = fsmem;             // [TM][kLd]: rows r0.., panel columns
+  float* sc = fsmem + TM * kLd;  // [TM][kLd]: rows c0..
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+  const int bt = blockIdx.y;
+  if (flag[bt]) return;
+  float* L = out + (size_t)bt * nb * nb;
+  int ti, tc;
+  lower_tile(blockIdx.x, ti, tc);
+  const int t0 = j0 + w;
+  const int r0 = t0 + ti * TM, c0 = t0 + tc * TM;
+  const int tid = threadIdx.x;
+  dmma::cp_tile<TM, kP, kFUpdThreads>(sa, kLd, L + (size_t)r0 * nb + j0, nb,
+                                       nb - r0, w, vec4, tid);
+  dmma::cp_tile<TM, kP, kFUpdThreads>(sc, kLd, L + (size_t)c0 * nb + j0, nb,
+                                       nb - c0, w, vec4, tid);
+  dmma::cp_async_commit();
+  // each warp covers 4 rows x 8 columns of the 16 x 16 thread grid
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = 4 * (warp / 2) + lane / 8, tx = 8 * (warp % 2) + lane % 8;
+  float cv[R][R];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int row = r0 + ty + 16 * i, col = c0 + tx + 16 * j;
+      cv[i][j] = row < nb && col <= row ? L[(size_t)row * nb + col] : 0.0f;
+    }
+  dmma::cp_async_wait<0>();
+  __syncthreads();
+  float acc[R][R] = {};
+  const int kw = (w + 3) & ~3;  // the slices are zero past w
+#pragma unroll 4
+  for (int kk = 0; kk < kw; kk += 4) {
+    float4 xa[R], yb[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      xa[i] = *reinterpret_cast<const float4*>(sa + (ty + 16 * i) * kLd + kk);
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      yb[j] = *reinterpret_cast<const float4*>(sc + (tx + 16 * j) * kLd + kk);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        acc[i][j] = fmaf(xa[i].x, yb[j].x, acc[i][j]);
+        acc[i][j] = fmaf(xa[i].y, yb[j].y, acc[i][j]);
+        acc[i][j] = fmaf(xa[i].z, yb[j].z, acc[i][j]);
+        acc[i][j] = fmaf(xa[i].w, yb[j].w, acc[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int row = r0 + ty + 16 * i, col = c0 + tx + 16 * j;
+      if (row < nb && col <= row) L[(size_t)row * nb + col] = cv[i][j] - acc[i][j];
+    }
 }
 
-__global__ void potrf_nan_f64(double* __restrict__ out,
-                              const int* __restrict__ flag, int nb) {
+template <typename T, int TM>
+int launch_update(T* out, int* flag, int batch, int nb, int j0, int w,
+                  int vec, cudaStream_t stream) {
+  constexpr bool f64 = sizeof(T) == 8;
+  constexpr int smem = 2 * TM * kLd * (int)sizeof(T);
+  constexpr int threads = f64 ? kUpdThreads : kFUpdThreads;
+  void (*kernel)(T*, const int*, int, int, int, int);
+  if constexpr (f64)
+    kernel = potrf_update_f64<TM>;
+  else
+    kernel = potrf_update_f32<TM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (nb - j0 - w + TM - 1) / TM;
+  return (int)dmma::launch_pdl(kernel, dim3(nt * (nt + 1) / 2, batch), threads,
+                               smem, stream, out, flag, nb, j0, w, vec);
+}
+
+template <typename T>
+__global__ void potrf_nan(T* __restrict__ out, const int* __restrict__ flag,
+                          int nb) {
   dmma::grid_wait();
   if (!flag[blockIdx.y]) return;
   const size_t nn = (size_t)nb * nb;
-  double* L = out + blockIdx.y * nn;
-  const double nan = quiet_nan<double>();
+  T* L = out + blockIdx.y * nn;
+  const T nan = quiet_nan<T>();
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < nn;
        e += (size_t)gridDim.x * blockDim.x)
     L[e] = nan;
 }
 
-int launch_f64(const double* a, double* out, int* flag, int batch, int nb,
-               cudaStream_t stream) {
+template <typename T>
+int launch(const T* a, T* out, int* flag, int batch, int nb,
+           cudaStream_t stream) {
   if (batch <= 0 || batch > 65535 || nb <= 0 ||
       (long long)nb * nb >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  constexpr bool f64 = sizeof(T) == 8;
+  void (*panel)(T*, int*, int, int, int, int);
+  if constexpr (f64)
+    panel = potrf_panel_f64;
+  else
+    panel = potrf_panel_f32;
   cudaError_t err = cudaFuncSetAttribute(
-      potrf_panel_f64, cudaFuncAttributeMaxDynamicSharedMemorySize, kPanelSmem);
+      panel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPanelSmem<T>);
   if (err != cudaSuccess) return (int)err;
   const long long nn = (long long)nb * nb;
   const int fill_blocks = (int)std::min<long long>((nn + 255) / 256, 1024);
-  err = dmma::launch_pdl(potrf_copy_f64, dim3(fill_blocks, batch), 256, 0,
+  err = dmma::launch_pdl(potrf_copy<T>, dim3(fill_blocks, batch), 256, 0,
                          stream, a, out, nb);
   if (err != cudaSuccess) return (int)err;
   const int sms = dmma::sm_count();
-  // 16-byte copies of the panel slices need even rows and an aligned tile
-  const int vec2 = nb % 2 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  // 16-byte copies of the panel slices need rows of whole 16-byte chunks
+  // and an aligned tile; the panel kernel's f32 rows (kLs floats) are only
+  // 8-byte aligned, so it copies floats in pairs (even nb)
+  constexpr int per16 = 16 / (int)sizeof(T);
+  const auto aligned = reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  const int vec = nb % per16 == 0 && aligned;
+  const int vec_panel = f64 ? vec : nb % 2 == 0 && aligned;
   for (int j0 = 0; j0 < nb; j0 += kP) {
     const int w = std::min(kP, nb - j0);
     const int rows = nb - j0 - w;
     const int row_blocks = std::max(1, (rows + kP - 1) / kP);
-    err = dmma::launch_pdl(potrf_panel_f64, dim3(row_blocks, batch),
-                           kPanelThreads, kPanelSmem, stream, out, flag, nb, j0,
-                           w, vec2);
+    err = dmma::launch_pdl(panel, dim3(row_blocks, batch), kPanelThreads,
+                           kPanelSmem<T>, stream, out, flag, nb, j0, w,
+                           vec_panel);
     if (err != cudaSuccess) return (int)err;
     if (rows == 0) break;
     // 64 x 64 tiles, or 32 x 32 while the 64 x 64 ones fill under two waves
     const int nt = (rows + kP - 1) / kP;
-    const int rc = (long long)nt * (nt + 1) / 2 * batch < 2 * sms
-                       ? launch_update<32>(out, flag, batch, nb, j0, w, vec2, stream)
-                       : launch_update<64>(out, flag, batch, nb, j0, w, vec2, stream);
+    const int rc =
+        (long long)nt * (nt + 1) / 2 * batch < 2 * sms
+            ? launch_update<T, 32>(out, flag, batch, nb, j0, w, vec, stream)
+            : launch_update<T, 64>(out, flag, batch, nb, j0, w, vec, stream);
     if (rc != 0) return rc;
   }
-  return (int)dmma::launch_pdl(potrf_nan_f64, dim3(fill_blocks, batch), 256, 0,
+  return (int)dmma::launch_pdl(potrf_nan<T>, dim3(fill_blocks, batch), 256, 0,
                                stream, out, flag, nb);
-}
-
-// ---------------------------------------------------------------------------
-// fma_f32
-// ---------------------------------------------------------------------------
-
-constexpr int kPanel = 32;   // panel width
-constexpr int kOut = 64;     // trailing-update output tile edge
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    potrf_fma_kernel(const T* __restrict__ a, T* __restrict__ out, int nb) {
-  __shared__ T sd[kPanel][kPanel + 1];   // diagonal block
-  __shared__ T si[kPanel][kOut + 1];     // panel rows of an output tile, l-major
-  __shared__ T sc[kPanel][kOut + 1];     // panel rows of its column tile
-  __shared__ int fail;
-  const int nn = nb * nb;  // the wrapper keeps nb * nb below 2^31
-  const T* A = a + (size_t)blockIdx.x * nn;
-  T* L = out + (size_t)blockIdx.x * nn;
-  const int tid = threadIdx.x;
-
-  // Copy the lower triangle; zeros above it.
-  for (int e = tid; e < nn; e += kThreads) {
-    const int r = e / nb, c = e % nb;
-    L[e] = c <= r ? A[e] : T(0);
-  }
-  if (tid == 0) fail = 0;
-  __syncthreads();
-
-  for (int j0 = 0; j0 < nb; j0 += kPanel) {
-    const int w = min(kPanel, nb - j0);
-    // ---- 1. factor the diagonal block in shared memory.
-    for (int e = tid; e < kPanel * kPanel; e += kThreads) {
-      const int r = e / kPanel, c = e % kPanel;
-      T x;
-      if (r < w && c < w)
-        x = c <= r ? L[(size_t)(j0 + r) * nb + j0 + c] : T(0);
-      else
-        x = r == c ? T(1) : T(0);
-      sd[r][c] = x;
-    }
-    __syncthreads();
-    for (int c = 0; c < kPanel; ++c) {
-      if (tid == 0) {
-        const T p = sd[c][c];
-        if (!good_pivot(p)) fail = 1;
-        sd[c][c] = sqrt(p);
-      }
-      __syncthreads();
-      if (fail) break;
-      if (tid > c && tid < kPanel) sd[tid][c] /= sd[c][c];
-      __syncthreads();
-      for (int e = tid; e < kPanel * kPanel; e += kThreads) {
-        const int r = e / kPanel, l = e % kPanel;
-        if (l > c && r >= l) sd[r][l] -= sd[r][c] * sd[l][c];
-      }
-      __syncthreads();
-    }
-    if (fail) break;
-    for (int e = tid; e < kPanel * kPanel; e += kThreads) {
-      const int r = e / kPanel, c = e % kPanel;
-      if (r < w && c <= r) L[(size_t)(j0 + r) * nb + j0 + c] = sd[r][c];
-    }
-    const int t0 = j0 + w;  // first trailing row
-    if (t0 >= nb) break;
-
-    // ---- 2. panel solve: L[r, j0:j0+w] = A[r, j0:j0+w] L_D^{-T}.  The
-    // diagonal block is read through a volatile pointer so that its 528
-    // values are not hoisted out of the row loop into (spilled) registers.
-    const volatile T* dv = &sd[0][0];
-    for (int r = t0 + tid; r < nb; r += kThreads) {
-      T* row = L + (size_t)r * nb + j0;
-      T x[kPanel];
-#pragma unroll
-      for (int c = 0; c < kPanel; ++c) x[c] = c < w ? row[c] : T(0);
-#pragma unroll
-      for (int c = 0; c < kPanel; ++c) {
-        T s = x[c];
-#pragma unroll
-        for (int l = 0; l < c; ++l) s -= x[l] * dv[c * (kPanel + 1) + l];
-        x[c] = s / dv[c * (kPanel + 1) + c];
-      }
-#pragma unroll
-      for (int c = 0; c < kPanel; ++c)
-        if (c < w) row[c] = x[c];
-    }
-    __syncthreads();
-
-    // ---- 3. trailing update of the lower triangle, 64 x 64 tiles.
-    const int nt = (nb - t0 + kOut - 1) / kOut;
-    const int tx = tid % 16, ty = tid / 16;
-    for (int ti = 0; ti < nt; ++ti) {
-      for (int tc = 0; tc <= ti; ++tc) {
-        const int r0 = t0 + ti * kOut, c0 = t0 + tc * kOut;
-        for (int e = tid; e < kOut * kPanel; e += kThreads) {
-          const int q = e / kPanel, l = e % kPanel;  // l runs along a row
-          const bool in_l = l < w;
-          si[l][q] = (in_l && r0 + q < nb)
-                         ? L[(size_t)(r0 + q) * nb + j0 + l] : T(0);
-          sc[l][q] = (in_l && c0 + q < nb)
-                         ? L[(size_t)(c0 + q) * nb + j0 + l] : T(0);
-        }
-        __syncthreads();
-        T acc[4][4] = {};
-        for (int l = 0; l < w; ++l) {
-          T ra[4], rb[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ra[i] = si[l][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) rb[j] = sc[l][tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] += ra[i] * rb[j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = r0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = c0 + tx + 16 * j;
-            if (r < nb && c <= r) L[(size_t)r * nb + c] -= acc[i][j];
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  __syncthreads();
-  if (fail) {
-    const T nan = quiet_nan<T>();
-    for (int e = tid; e < nn; e += kThreads) L[e] = nan;
-  }
-}
-
-int launch_f32(const float* a, float* out, int batch, int nb,
-               cudaStream_t stream) {
-  if (batch <= 0 || nb <= 0 || (long long)nb * nb >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  potrf_fma_kernel<float><<<batch, kThreads, 0, stream>>>(a, out, nb);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -660,11 +727,11 @@ int launch_f32(const float* a, float* out, int batch, int nb,
 // success).
 extern "C" int potrf_f64(const double* a, double* out, int* flag, int batch,
                          int nb, void* stream) {
-  return launch_f64(a, out, flag, batch, nb, static_cast<cudaStream_t>(stream));
+  return launch(a, out, flag, batch, nb, static_cast<cudaStream_t>(stream));
 }
 
-// The fma_f32 instance: a, out as above; one launch.
-extern "C" int potrf_f32(const float* a, float* out, int batch, int nb,
-                         void* stream) {
-  return launch_f32(a, out, batch, nb, static_cast<cudaStream_t>(stream));
+// The fma_f32 instance: the same operands and launches in float32.
+extern "C" int potrf_f32(const float* a, float* out, int* flag, int batch,
+                         int nb, void* stream) {
+  return launch(a, out, flag, batch, nb, static_cast<cudaStream_t>(stream));
 }

@@ -41,15 +41,17 @@
 // band, so the blocks on the card at one time share a few row panels of A
 // in L2 instead of sweeping all of A.
 //
-// fma_f32 (f32): the first kernel of this file, on the FP32 CUDA cores.
-// One block of 256 threads owns one 64 x 64 output tile of the lower
-// triangle (a 1-D grid over those tiles, the batch on grid.y).  The k
-// dimension is walked in chunks of 32: the two 64 x 32 row slabs of A
-// (rows of tile I and of tile J) are staged in shared memory, k-major, and
-// each thread accumulates a 4 x 4 set of outputs (rows ty + 16 i, columns
-// tx + 16 j) in registers.  The transposed write goes through shared memory
-// so both writes are coalesced.  Sums run in the input type (the Pallas
-// kernel's promote_types(dtype, f32)).
+// fma_f32 (f32): the lower-triangle products on the FP32 CUDA cores in
+// full f32 (no TF32), the f64 instance's tiling: one 256-thread block per
+// 128 x 128 output tile, walked in the same bands, two blocks an SM, each
+// thread owning 8 x 8
+// outputs in registers (rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, columns
+// likewise), so that four 16-byte shared loads feed 64 FMAs.  The k
+// dimension streams through a three-stage cp.async ring of 32-wide slabs,
+// staged k-major (column-major A, the path's layout, in 16-byte runs;
+// row-major A float by float); C is read where it lies and both writes go
+// out as float4, the transposed one through shared memory.  Each output
+// sums over k in order.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -273,138 +275,221 @@ int launch_f64(const double* c, const double* a, double* out, int batch,
 // fma_f32
 // ---------------------------------------------------------------------------
 
-constexpr int kOut = 64;      // output tile edge
-constexpr int kK = 32;        // k chunk staged in shared memory
-constexpr int kThreads = 256;
-constexpr int kLd = kOut + 1;  // padded row of a staged slab
+constexpr int kFThreads = 256;        // 16 x 16 threads, warps of 4 x 8
+constexpr int kFBlocks = 2;           // blocks an SM (128 registers a thread)
+constexpr int kFTile = 128;           // output tile edge
+constexpr int kFK = 32;               // k-slab
+constexpr int kFStages = 3;           // cp.async ring
+constexpr int kFLd = kFTile + 4;      // row stride of a k-major slab
+constexpr int kFSlab = kFK * kFLd;
+constexpr int kFRing = kFStages * 2 * kFSlab;
+constexpr int kFTrans = kFTile * kFLd;  // the transposed tile [TM][kFLd]
+constexpr int kFSmem = (kFRing > kFTrans ? kFRing : kFTrans) * (int)sizeof(float);
 
-template <typename T>
-__device__ __forceinline__ void load_slab(T* __restrict__ s,
-                                          const T* __restrict__ A, int r0,
-                                          int k0, int nb, int k,
-                                          long long a_rs, long long a_cs,
-                                          int tid) {
-  // s[q][r] = A[r0 + r, k0 + q], zero outside the matrix.  Consecutive
-  // threads walk the unit-stride dimension of A.
-  if (a_cs == 1) {
-    for (int e = tid; e < kOut * kK; e += kThreads) {
-      const int r = e / kK, q = e % kK;
-      const int gr = r0 + r, gq = k0 + q;
-      s[q * kLd + r] =
-          (gr < nb && gq < k) ? A[(long long)gr * a_rs + gq] : T(0);
-    }
-  } else {
-    for (int e = tid; e < kOut * kK; e += kThreads) {
-      const int q = e / kOut, r = e % kOut;
-      const int gr = r0 + r, gq = k0 + q;
-      s[q * kLd + r] = (gr < nb && gq < k)
-                           ? A[(long long)gr * a_rs + (long long)gq * a_cs]
-                           : T(0);
-    }
+// s[q][r] = A[r0 + r, k0 + q] for a slab of kFK columns of A and the
+// kFTile rows from r0 (zero outside the matrix).  Column-major A (AK) is
+// copied in runs along its rows (16 bytes with vec); row-major A float by
+// float, consecutive threads along its rows' unit stride.
+template <bool AK>
+__device__ __forceinline__ void load_kslab(float* s, const float* A, int r0,
+                                           int k0, int nb, int k,
+                                           long long a_rs, long long a_cs,
+                                           bool vec, int tid) {
+  if (AK) {
+    dmma::cp_tile<kFK, kFTile, kFThreads>(s, kFLd, A + k0 * a_cs + r0, a_cs,
+                                          k - k0, nb - r0, vec, tid);
+    return;
+  }
+#pragma unroll 4
+  for (int e = tid; e < kFTile * kFK; e += kFThreads) {
+    const int r = e / kFK, q = e % kFK;
+    const bool ok = r0 + r < nb && k0 + q < k;
+    const float* src = A + (long long)(r0 + r) * a_rs + (long long)(k0 + q) * a_cs;
+    dmma::cp_async_elem(s + q * kFLd + r, ok ? src : A, ok);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    syrk_kernel(const T* __restrict__ c, const T* __restrict__ a,
-                T* __restrict__ out, int nb, int k, long long c_bs,
-                long long c_rs, long long a_bs, long long a_rs,
-                long long a_cs) {
-  // Two k-major slabs during the k loop; the transposed tile afterwards.
-  __shared__ T smem[2 * kK * kLd];
-  static_assert(2 * kK * kLd >= kOut * kLd, "transpose buffer too small");
-  T* sa = smem;
-  T* sb = smem + kK * kLd;
+// Four neighbours row[col..col + 3] of a row of n values (zeros past n),
+// and their store: one 16-byte access where vec (the row 16-byte aligned,
+// col a multiple of 4) and all four lie inside, else one access a value.
+__device__ __forceinline__ float4 load4(const float* row, int col, int n,
+                                        int vec) {
+  if (vec && col + 3 < n) return *reinterpret_cast<const float4*>(row + col);
+  float v[4] = {};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (col + q < n) v[q] = row[col + q];
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
 
-  // Lower-triangle tile t -> (ti, tj), tj <= ti, row-major over the triangle.
-  const long long t = blockIdx.x;
-  long long ti = (long long)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-  while (ti * (ti + 1) / 2 > t) --ti;
-  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  const long long tj = t - ti * (ti + 1) / 2;
-  const int r0 = (int)ti * kOut, c0 = (int)tj * kOut;
-
-  const T* C = c + (long long)blockIdx.y * c_bs;
-  const T* A = a + (long long)blockIdx.y * a_bs;
-  T* O = out + (long long)blockIdx.y * nb * (long long)nb;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  T acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-
-  for (int k0 = 0; k0 < k; k0 += kK) {
-    load_slab(sa, A, r0, k0, nb, k, a_rs, a_cs, tid);
-    load_slab(sb, A, c0, k0, nb, k, a_rs, a_cs, tid);
-    __syncthreads();
-#pragma unroll 8
-    for (int q = 0; q < kK; ++q) {
-      T av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sa[q * kLd + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = sb[q * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+__device__ __forceinline__ void store4(float* row, int col, int n, int vec,
+                                       float4 x) {
+  if (vec && col + 3 < n) {
+    *reinterpret_cast<float4*>(row + col) = x;
+    return;
   }
+  const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (col + q < n) row[col + q] = v[q];
+}
 
-  // out[I, J] = C[I, J] - P_IJ.
+__device__ __forceinline__ float4 sub4(float4 c, float p0, float p1, float p2,
+                                       float p3) {
+  return make_float4(c.x - p0, c.y - p1, c.z - p2, c.w - p3);
+}
+
+// One 128 x 128 tile of out = C - A A^T on the FP32 units.  Thread (ty, tx)
+// owns rows 4 ty + {0..3} and 64 + 4 ty + {0..3}, columns likewise with
+// tx: per k it reads four float4 (its 8 rows of the slab of tile I, its 8
+// of tile J) for 64 FMAs.  A warp's threads span 4 ty and 8 tx, so its
+// loads fall in 4 and 8 distinct 16-byte words of a 528-byte slab row: no
+// bank conflicts.  Each output sums over k in order.  Two blocks share an
+// SM (2 x 101 KB of ring): at 128 registers the compiler spills a few
+// bytes, and the first update ran 12% faster than at one block an SM and
+// 151 registers (scripts/chol_f32_variants.py).
+template <bool AK>
+__global__ void __launch_bounds__(kFThreads, kFBlocks)
+    syrk_fma_f32(const float* __restrict__ c, const float* __restrict__ a,
+                 float* __restrict__ out, int nb, int k, int side,
+                 long long c_bs, long long c_rs, long long a_bs,
+                 long long a_rs, long long a_cs, int vec_a, int vec_c) {
+  extern __shared__ __align__(16) float fsmem[];
+  int ti, tj;
+  band_tile(blockIdx.x, side, ti, tj);
+  const int r0 = ti * kFTile, c0 = tj * kFTile;
+  const float* A = a + blockIdx.y * a_bs;
+  const float* C = c + blockIdx.y * c_bs;
+  float* O = out + blockIdx.y * (long long)nb * nb;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ty = 4 * (warp / 2) + lane / 8, tx = 8 * (warp % 2) + lane % 8;
+
+  float acc[8][8] = {};
+  auto load = [&](int st, int q) {
+    float* sa = fsmem + st * 2 * kFSlab;
+    load_kslab<AK>(sa, A, r0, q * kFK, nb, k, a_rs, a_cs, vec_a, tid);
+    load_kslab<AK>(sa + kFSlab, A, c0, q * kFK, nb, k, a_rs, a_cs, vec_a, tid);
+  };
+  auto compute = [&](int st, int) {
+    const float* sa = fsmem + st * 2 * kFSlab;
+    const float* sb = sa + kFSlab;
+#pragma unroll 4
+    for (int q = 0; q < kFK; ++q) {
+      const float* xa = sa + q * kFLd + 4 * ty;
+      const float* yb = sb + q * kFLd + 4 * tx;
+      const float4 x0 = *reinterpret_cast<const float4*>(xa);
+      const float4 x1 = *reinterpret_cast<const float4*>(xa + kFTile / 2);
+      const float4 y0 = *reinterpret_cast<const float4*>(yb);
+      const float4 y1 = *reinterpret_cast<const float4*>(yb + kFTile / 2);
+      const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float y[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= nb) continue;
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cc = c0 + tx + 16 * j;
-      if (cc < nb)
-        O[(long long)r * nb + cc] = C[(long long)r * c_rs + cc] - acc[i][j];
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    }
+  };
+  dmma::cp_async_ring<kFStages>((k + kFK - 1) / kFK, load, compute);
+
+  // out[I, J] = C[I, J] - P_IJ, four rows' C loads in flight at a time.
+  const auto local = [](int i, int t) {
+    return (i / 4) * (kFTile / 2) + 4 * t + i % 4;
+  };
+#pragma unroll
+  for (int i0 = 0; i0 < 8; i0 += 4) {
+    float4 cv[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + local(i0 + i, ty);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + h * (kFTile / 2) + 4 * tx;
+        cv[i][h] = row < nb ? load4(C + row * c_rs, col, nb, vec_c)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r0 + local(i0 + i, ty);
+      if (row >= nb) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = c0 + h * (kFTile / 2) + 4 * tx;
+        const int q = 4 * h;
+        store4(O + (long long)row * nb, col, nb, vec_c,
+               sub4(cv[i][h], acc[i0 + i][q], acc[i0 + i][q + 1],
+                    acc[i0 + i][q + 2], acc[i0 + i][q + 3]));
+      }
     }
   }
   if (ti == tj) return;  // a diagonal tile wrote its whole square above
 
-  // out[J, I] = C[J, I] - P_IJ^T, staged so that the writes are coalesced:
-  // st[cl][rl] = P[rl][cl] (rl, cl local to the tile).
-  T* st = smem;
+  // out[J, I] = C[J, I] - P_IJ^T through shared memory: st[cl][rl] =
+  // P[rl][cl]; then each pass writes 8 rows of tile J, four values a
+  // thread, eight passes' loads in flight at once.
+  float* st = fsmem;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      st[(tx + 16 * j) * kLd + ty + 16 * i] = acc[i][j];
+    for (int j = 0; j < 8; ++j)
+      st[local(j, tx) * kFLd + local(i, ty)] = acc[i][j];
   __syncthreads();
+  constexpr int QUADS = kFTile / 4, ROWS = kFThreads / QUADS;
+  constexpr int PASSES = kFTile / ROWS, BATCH = 8;
+  const int il = 4 * (tid % QUADS), j0 = tid / QUADS;
+#pragma unroll 1
+  for (int p0 = 0; p0 < PASSES; p0 += BATCH) {
+    float4 cv[BATCH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = c0 + ty + 16 * i;  // a row of tile J
-    if (r >= nb) continue;
+    for (int u = 0; u < BATCH; ++u) {
+      const int row = c0 + j0 + (p0 + u) * ROWS;
+      cv[u] = row < nb ? load4(C + row * c_rs, r0 + il, nb, vec_c)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cc = r0 + tx + 16 * j;  // a column of tile I
-      if (cc < nb)
-        O[(long long)r * nb + cc] =
-            C[(long long)r * c_rs + cc] - st[(ty + 16 * i) * kLd + tx + 16 * j];
+    for (int u = 0; u < BATCH; ++u) {
+      const int jl = j0 + (p0 + u) * ROWS, row = c0 + jl;
+      if (row < nb) {
+        const float4 p = *reinterpret_cast<const float4*>(st + jl * kFLd + il);
+        store4(O + (long long)row * nb, r0 + il, nb, vec_c,
+               sub4(cv[u], p.x, p.y, p.z, p.w));
+      }
     }
   }
 }
 
-template <typename T>
-int launch(const T* c, const T* a, T* out, int batch, int nb, int k,
-           long long c_bs, long long c_rs, long long a_bs, long long a_rs,
-           long long a_cs, cudaStream_t stream) {
-  if (batch <= 0 || nb <= 0 || k < 0) return (int)cudaErrorInvalidValue;
-  if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
-  const long long side = (nb + kOut - 1) / kOut;
+template <bool AK>
+int launch_fma(const float* c, const float* a, float* out, int batch, int nb,
+               int k, long long c_bs, long long c_rs, long long a_bs,
+               long long a_rs, long long a_cs, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      syrk_fma_f32<AK>, cudaFuncAttributeMaxDynamicSharedMemorySize, kFSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long side = (nb + kFTile - 1) / kFTile;
   const long long tiles = side * (side + 1) / 2;
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, batch);
-  syrk_kernel<T><<<grid, kThreads, 0, stream>>>(c, a, out, nb, k, c_bs, c_rs,
-                                                a_bs, a_rs, a_cs);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  // 16-byte slab copies (column-major A only): runs of whole float4 along
+  // its rows, each starting aligned
+  const int vec_a = AK && aligned(a) && nb % 4 == 0 && a_cs % 4 == 0 && a_bs % 4 == 0;
+  const int vec_c = aligned(c) && aligned(out) && nb % 4 == 0 && c_rs % 4 == 0 &&
+                    c_bs % 4 == 0;
+  syrk_fma_f32<AK><<<dim3((unsigned)tiles, batch), kFThreads, kFSmem, stream>>>(
+      c, a, out, nb, k, (int)side, c_bs, c_rs, a_bs, a_rs, a_cs, vec_a, vec_c);
   return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* c, const float* a, float* out, int batch, int nb,
+               int k, long long c_bs, long long c_rs, long long a_bs,
+               long long a_rs, long long a_cs, cudaStream_t stream) {
+  if (batch <= 0 || nb <= 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
+  // column-major A: its rows are the unit-stride dimension
+  const bool ak = a_rs == 1 && a_cs != 1 && k > 1;
+  return ak ? launch_fma<true>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream)
+            : launch_fma<false>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs, stream);
 }
 
 }  // namespace
@@ -422,11 +507,11 @@ extern "C" int syrk_f64(const double* c, const double* a, double* out,
                     tile, static_cast<cudaStream_t>(stream));
 }
 
-// The fma_f32 instance: the same operands; 64 x 64 tiles.
+// The fma_f32 instance: the same operands; 128 x 128 tiles.
 extern "C" int syrk_f32(const float* c, const float* a, float* out, int batch,
                         int nb, int k, long long c_bs, long long c_rs,
                         long long a_bs, long long a_rs, long long a_cs,
                         void* stream) {
-  return launch<float>(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs,
-                       static_cast<cudaStream_t>(stream));
+  return launch_f32(c, a, out, batch, nb, k, c_bs, c_rs, a_bs, a_rs, a_cs,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -387,56 +387,6 @@ __device__ __forceinline__ void f32_place(int tid, int& ty, int& tx) {
   tx = 8 * (warp % 2) + lane % 8;
 }
 
-__device__ __forceinline__ void cp_async4f(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16f(float* dst, const float* src,
-                                            bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-// Copy a ROWS x COLS tile of a row-major global matrix (row stride ld_src)
-// into shared memory (row stride ld_dst), zero-filling rows >= rv and
-// columns >= cv, by all threads of the block.  With vec4 the copies are 16
-// bytes: cv, ld_src and ld_dst are multiples of 4 and src 16-byte aligned.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void cp_tile_f32(float* dst, int ld_dst,
-                                            const float* src, long long ld_src,
-                                            int rv, int cv, bool vec4,
-                                            int tid) {
-  if (vec4) {
-    constexpr int Q = COLS / 4, N = ROWS * Q;
-#pragma unroll
-    for (int e0 = 0; e0 < N; e0 += kFThreads) {
-      const int e = e0 + tid;
-      if (N % kFThreads == 0 || e < N) {
-        const int r = e / Q, c = 4 * (e % Q);
-        const bool ok = r < rv && c < cv;
-        cp_async16f(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
-      }
-    }
-  } else {
-    constexpr int N = ROWS * COLS;
-#pragma unroll 4
-    for (int e0 = 0; e0 < N; e0 += kFThreads) {
-      const int e = e0 + tid;
-      if (N % kFThreads == 0 || e < N) {
-        const int r = e / COLS, c = e % COLS;
-        const bool ok = r < rv && c < cv;
-        cp_async4f(dst + r * ld_dst + c, ok ? src + r * ld_src + c : src, ok);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void cluster_sync_f32() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
@@ -486,10 +436,11 @@ __global__ void __launch_bounds__(kFThreads)
   auto load = [&](int st, int ch) {
     const int r0 = n0 + ch * kFWRows;
     float* sa = wsm + 2 * st * kFWRows * kFW;
-    cp_tile_f32<kFWRows, kFW>(sa, kFW, A + (size_t)r0 * k, k, n1 - r0, k - i0,
-                              vec4, tid);
-    cp_tile_f32<kFWRows, kFW>(sa + kFWRows * kFW, kFW, B + (size_t)r0 * k, k,
-                              n1 - r0, k - j0, vec4, tid);
+    dmma::cp_tile<kFWRows, kFW, kFThreads>(sa, kFW, A + (size_t)r0 * k, k,
+                                           n1 - r0, k - i0, vec4, tid);
+    dmma::cp_tile<kFWRows, kFW, kFThreads>(sa + kFWRows * kFW, kFW,
+                                           B + (size_t)r0 * k, k, n1 - r0,
+                                           k - j0, vec4, tid);
   };
   auto compute = [&](int st, int) {
     const float* sa = wsm + 2 * st * kFWRows * kFW;
@@ -620,9 +571,10 @@ __global__ void __launch_bounds__(kFThreads, kFBlocks)
   auto load = [&](int st, int q) {
     const int l0 = q * kFSlab;
     float* sx = fsmem + st * G::STAGE;
-    cp_tile_f32<G::BM, kFSlab>(sx, kFLd, Xb + l0, K, M - m0, K - l0, vec4, tid);
-    cp_tile_f32<G::BN, kFSlab>(sx + G::BM * kFLd, kFLd, Yb + l0, K, N - n0,
-                               K - l0, vec4, tid);
+    dmma::cp_tile<G::BM, kFSlab, kFThreads>(sx, kFLd, Xb + l0, K, M - m0,
+                                            K - l0, vec4, tid);
+    dmma::cp_tile<G::BN, kFSlab, kFThreads>(sx + G::BM * kFLd, kFLd, Yb + l0, K,
+                                            N - n0, K - l0, vec4, tid);
   };
   auto compute = [&](int st, int) {
     const float* sx = fsmem + st * G::STAGE;

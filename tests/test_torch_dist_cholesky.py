@@ -318,3 +318,31 @@ def test_dmma_syrk_order_of_work_matches_pallas(b, nb, k, tile, dname):
 )
 def test_dmma_syrk_tile(batch, nb, want):
     assert syrk_tile(batch, nb, H100_SMS) == want
+
+
+def test_dist_exact_loglik_float32_matches_jax_and_dense(case):
+    """The reference's float32 exact path (``dist_loglik_lowerable``'s
+    default dtype and nugget 1e-6): distances, Matérn parameters and z in
+    float32, so POTRF, TRSM and SYRK run in float32 (their fma_f32
+    instances on the card).  The port against the reference's float32
+    evaluation at 1e-5 (two float32 evaluations that sum in other orders),
+    and against the float64 dense loglik at the reference's float32
+    tolerance (tests/test_distributed.py: 1e-3)."""
+    nugget, f32 = 1e-6, torch.float32
+    jp = jc.MaternParams.bivariate(**PARAMS, dtype=jnp.float32)
+    tp = tc.MaternParams.bivariate(**PARAMS, dtype=f32, device="cpu")
+    dists, z = case["dists"].astype(np.float32), case["z"].astype(np.float32)
+    want = jax.jit(
+        lambda d, y: jd.dist_exact_loglik(d, y, jp, nugget=nugget, panel=36)
+    )(jnp.asarray(dists), jnp.asarray(z))
+    # tensors keep their dtype (numpy input would be taken as float64)
+    dt, zt = torch.as_tensor(dists), torch.as_tensor(z)
+    got = td.dist_exact_loglik(dt, zt, tp, nugget=nugget, panel=36)
+    assert got.loglik.dtype == f32 and want.loglik.dtype == jnp.float32
+    for field in FIELDS:
+        g, w = float(getattr(got, field)), float(getattr(want, field))
+        assert g == pytest.approx(w, rel=1e-5), field
+    dense = exact_loglik(
+        None, case["z"], case["tp"], nugget=nugget, dists=case["dists"], device="cpu"
+    )
+    assert float(got.loglik) == pytest.approx(float(dense.loglik), rel=1e-3)
