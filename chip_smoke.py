@@ -50,14 +50,18 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             f32 instance summed over the mixed_f32 sweep of B = 15 down to
             1, all f32 and with the float64 acc; the f32 instance is held at
             a tolerance reasoned from its f32 sums (tlr_mm_f32_tol).  trsm
-            is timed at the panel, wide, alpha and predict shapes and at
-            nb = 4096 (the exact phase's panel, its first and last solves),
-            held on a real Matérn L_kk, and held and summed over one TLR
-            factorization's panel TRSMs; syrk is timed at the exact phase's
-            first update at panel 512 (both instances) and at panel 4096,
-            and held and summed over the panel-512 paths' 63 updates in
-            both instances (the exact and exact_f32 phases'), each beside
-            its library call.  Times are the card's: cuda_ms queues the runs
+            is timed in both instances at the panel, wide, alpha and predict
+            shapes and at nb = 4096, in f32 at the exact_f32 phase's first
+            and last panel solves (1, 512, 32256) and (1, 512, 512), in f64
+            at the exact4096 phase's; held on a real Matérn L_kk in both
+            (the f32 one the exact_f32 path's own first factor, with both
+            f32 solves' errors against an f64 solve), and held and summed
+            over one TLR factorization's panel TRSMs (f64) and over the
+            exact_f32 path's 63 panel solves (f32); syrk is timed at the
+            exact phase's first update at panel 512 (both instances) and at
+            panel 4096, and held and summed over the panel-512 paths' 63
+            updates in both instances (the exact and exact_f32 phases'),
+            each beside its library call.  Times are the card's: cuda_ms queues the runs
             behind a sleep on the card, so the host's launch overhead
             between short calls does not enter.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
@@ -150,11 +154,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             once a panel step (its float64-acc form) and its dmma_f64 never,
             and is within 1e-5 of (2).  The gap of (1) to the dense exact
             loglik is reported, not gated.
-   plans    every plan the f64 trsm and syrk took on the main, serve,
-            exact, mle, assess and dist paths (trsm: strip columns, update
-            tile, row split; syrk: tile edge; each a kernel of its own) is
-            one that a kernel check of phase 2 held against the plain
-            version.
+   plans    every plan the trsm (both instances) and the f64 syrk took on
+            the main, serve, exact, exact_f32, mle, assess and dist paths
+            (trsm: dtype, strip columns, update tile, row split; syrk: tile
+            edge; each a kernel of its own) is one that a kernel check of
+            phase 2 held against the plain version.
 11. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
@@ -296,8 +300,8 @@ DMMA_PRODUCT_KERNELS = (
 # The sources of the dmma_f64 instances.
 DMMA_SOURCES = ("potrf.cu", "tlr_mm.cu", "trsm.cu", "syrk.cu")
 # The sources whose fma_f32 kernels the device phase reports (registers,
-# spills): the redesigned f32 potrf and syrk.
-FMA_F32_SOURCES = ("potrf.cu", "syrk.cu")
+# spills): the redesigned f32 potrf, trsm and syrk.
+FMA_F32_SOURCES = ("potrf.cu", "trsm.cu", "syrk.cu")
 # The sources of the Matérn kernels (instances halfint and general).
 MATERN_SOURCES = ("matern_tile.cu", "matern_corr.cu")
 # The tolerances of tests/test_kernels.py's flash attention tests: _tol for
@@ -1139,9 +1143,11 @@ def check_potrf_matern(torch, locs, params):
     return rec
 
 
-def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed, lo=None):
+def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed, lo=None, note=None):
     """trsm_cuda against trsm_ref on the factor of a a^T + nb I, or on
-    ``lo`` where given."""
+    ``lo`` where given (``note``: fields added to the record).  An f32
+    record also gives the kernel's and solve_triangular's f32 errors against
+    solve_triangular in f64 on the same f32 inputs."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.chol_tiles import trsm_cuda, trsm_instance, trsm_plan
 
@@ -1165,14 +1171,21 @@ def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed, lo=None):
         "shape": [b, nb, r],
         "lo_batch": lo_b,
         # (strip columns, super-block rows, update tile, row split)
-        "plan": trsm_plan(b, nb, r, sm_count(torch)) if dtype == torch.float64 else None,
+        "plan": trsm_plan(b, nb, r, sm_count(torch), dtype),
         "dtype": dname,
         "max_abs_err": err,
         "ok": ok,
         "tol": tol,
         "bound_ms": b_ms,
         "bound_by": b_by,
+        **(note or {}),
     }
+    if dtype == torch.float32:
+        exact = torch.linalg.solve_triangular(lo.double(), rhs.double(), upper=False)
+        rec["max_abs_err_vs_f64"] = float((got.double() - exact).abs().max())
+        rec["library_max_abs_err_vs_f64"] = float((want.double() - exact).abs().max())
+        rec["max_abs_x"] = float(exact.abs().max())
+        del exact
     if timed:
         rec["ms"] = cuda_ms(torch, lambda: trsm_cuda(lo, rhs))
         rec["plain_ms"] = cuda_ms(torch, lambda: ref.trsm_ref(lo, rhs))
@@ -1186,19 +1199,43 @@ def check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed, lo=None):
     return rec
 
 
-def check_trsm_matern(torch, gen, locs, params):
-    """The panel TRSM's shape on a real L_kk: the factor of the main
+def exact_f32_lkk(torch, locs, params):
+    """The exact_f32 path's first L_kk: the float32 factor (potrf_cuda, as
+    the path takes it) of the bivariate Sigma of the first 256 Morton
+    locations, built from float32 distances and parameters at the first of
+    EXACT_F32_NUGGETS whose factor holds; (factor, nugget)."""
+    from repro_torch.core.covariance import MaternParams, build_sigma, pairwise_distances
+    from repro_torch.kernels.chol_tiles import potrf_cuda
+
+    d32 = pairwise_distances(locs[: TILE // 2]).float()
+    params32 = MaternParams(*(x.float() for x in params))
+    for nugget in EXACT_F32_NUGGETS:
+        a = build_sigma(None, params32, dists=d32, nugget=nugget)
+        lo = potrf_cuda(a[None].contiguous())
+        if bool(torch.isfinite(lo).all()):
+            return lo, nugget
+    raise AssertionError("the float32 factor of the first panel failed")
+
+
+def check_trsm_matern(torch, gen, locs, params, dtype):
+    """The panel TRSM's shape on a real L_kk.  f64: the factor of the main
     configuration's first diagonal tile (the first 256 Morton locations,
-    nugget 1e-8), broadcast over 63 tiles of 128 right-hand sides."""
+    nugget 1e-8), broadcast over 63 tiles of 128 right-hand sides.  f32:
+    the exact_f32 path's own first L_kk (exact_f32_lkk) at the wide shape
+    (1, 512, 8064), with the errors of the kernel and of the f32 library
+    against solve_triangular in f64."""
     from repro_torch.core.covariance import build_sigma_panel
 
-    blk = locs[: TILE // 2]
-    a = build_sigma_panel(blk, blk, params, gen="kernel")
-    a = a + NUGGET * torch.eye(TILE, dtype=a.dtype, device="cuda")
-    lo = torch.linalg.cholesky(a)[None]
-    rec = check_trsm(torch, gen, "matern_lkk", SWEEP_B, TILE, KMAX, 1,
-                     torch.float64, False, lo=lo)
-    return rec
+    if dtype == torch.float64:
+        blk = locs[: TILE // 2]
+        a = build_sigma_panel(blk, blk, params, gen="kernel")
+        a = a + NUGGET * torch.eye(TILE, dtype=a.dtype, device="cuda")
+        lo = torch.linalg.cholesky(a)[None]
+        return check_trsm(torch, gen, "matern_lkk", SWEEP_B, TILE, KMAX, 1,
+                          dtype, False, lo=lo)
+    lo, nugget = exact_f32_lkk(torch, locs, params)
+    return check_trsm(torch, gen, "matern_lkk_exact_f32", 1, TILE, SWEEP_B * KMAX,
+                      1, dtype, False, lo=lo, note={"nugget": nugget})
 
 
 def check_trsm_sweep(torch, gen):
@@ -1250,6 +1287,116 @@ def check_trsm_sweep(torch, gen):
     del lo, rhs
     torch.cuda.empty_cache()
     return rec
+
+
+def check_trsm_exact_sweep(torch, gen, dtype=None):
+    """The panel solves of one exact evaluation at panel 512 (the exact and
+    exact_f32 phases): one L_kk (1, 512, 512) against r = 512 x 63 down to
+    512 right-hand sides, each held against solve_triangular at CHOL_TOL;
+    the kernel's, the library's and the bound's sums."""
+    from repro_torch.kernels.chol_tiles import trsm_cuda, trsm_instance, trsm_plan
+
+    dtype = dtype or torch.float32
+    dname = str(dtype).split(".")[-1]
+    lo = torch.linalg.cholesky(_spd(torch, gen, 1, TILE, torch.float64))
+    lo = lo.to(dtype).contiguous()
+    tol = CHOL_TOL["trsm"][dname]
+    ms = lib = bnd = err = 0.0
+    ok = True
+    plans = set()
+    for k in range(SWEEP_B, 0, -1):
+        r = k * TILE
+        x = torch.randn((1, TILE, r), generator=gen, dtype=torch.float64,
+                        device="cuda").to(dtype)
+        got = trsm_cuda(lo, x)
+        want = torch.linalg.solve_triangular(lo, x, upper=False)
+        e, good = max_err(torch, got, want, **tol)
+        err, ok = max(err, e), ok and good
+        plans.add(tuple(trsm_plan(1, TILE, r, sm_count(torch), dtype)))
+        ms += cuda_ms(torch, lambda: trsm_cuda(lo, x), reps=5)
+        lib += cuda_ms(
+            torch,
+            lambda: torch.linalg.solve_triangular(lo, x, upper=False),
+            reps=5,
+        )
+        bnd += _trsm_bound(1, TILE, r, 1, x.element_size())[0]
+        del x, got, want
+    rec = {
+        "phase": "kernel_check",
+        "kernel": "trsm",
+        "instance": trsm_instance(dtype),
+        "case": "sweep_exact_panel512",
+        "shapes": [[1, TILE, SWEEP_B * TILE], [1, TILE, TILE]],
+        "dtype": dname,
+        "plans": sorted(plans),
+        "max_abs_err": err,
+        "tol": tol,
+        "ms_sum": ms,
+        "library_ms_sum": lib,
+        "bound_ms_sum": bnd,
+        "ok": ok and math.isfinite(ms),
+    }
+    emit(rec)
+    del lo
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_trsms(torch, st, gen, locs, params, dtypes=None):
+    """trsm at the kernels phase's shapes, in ``dtypes`` (both instances by
+    default): the panel TRSM (one L_kk for the 63 live V tiles of step 0:
+    r = 63 x 128 = 8064 columns in all), the same columns as one tile
+    (wide), the sweep for alpha (r = 1), the sweep of a 512-location
+    request (r = 512 x 2), a ragged case with a factor per tile, nb = 1,
+    the README's serving tile, the reference's exact panel 4096 (eight
+    super-blocks and updates: the large-nb schedule) and its alpha, each
+    timed in both instances; the exact path's first and last panel solves
+    at panel 512 (timed in f32, the exact_f32 path's) and at panel 4096
+    (timed in f64; updates of 128 x 128 tiles); the panel shape on a real
+    Matérn L_kk (the f32 one the exact_f32 path's own); the summed sweep
+    of one TLR factorization's panel TRSMs (f64) and of the exact_f32
+    path's 63 panel solves (f32)."""
+    f64, f32 = torch.float64, torch.float32
+    both = (f64, f32)
+    m = (SWEEP_B + 1) * TILE
+    cases = (
+        ("panel", 63, 512, 128, 1, both, both),
+        ("wide", 1, 512, 8064, 1, both, both),
+        ("alpha", 1, 512, 1, 1, both, both),
+        ("predict", 1, 512, 1024, 1, both, both),
+        ("ragged", 3, 200, 37, 3, both, ()),
+        ("nb1", 2, 1, 3, 2, both, ()),
+        ("tile2048", 4, 2048, 128, 1, both, ()),
+        ("panel4096", 1, 4096, 512, 1, both, both),
+        ("alpha4096", 1, 4096, 1, 1, both, both),
+        ("exact_first", 1, TILE, m - TILE, 1, (f32,), (f32,)),
+        ("exact_last", 1, TILE, TILE, 1, (f32,), (f32,)),
+        ("exact4096_first", 1, EXACT_PANEL, m - EXACT_PANEL, 1, (f64,), (f64,)),
+        ("exact4096_last", 1, EXACT_PANEL, EXACT_PANEL, 1, (f64,), (f64,)),
+    )
+    extra = st.setdefault("extra", {}).setdefault("trsm", [])
+    records = []
+    for tag, b, nb, r, lo_b, kinds, timed_kinds in cases:
+        for dtype in kinds:
+            if dtypes is not None and dtype not in dtypes:
+                continue
+            timed = dtype in timed_kinds
+            rec = check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed)
+            records.append(rec)
+            if tag == "panel" and dtype == f64:
+                st.setdefault("summary", {})["trsm"] = rec
+            elif timed:
+                extra.append(rec)
+    for dtype in both:
+        if dtypes is None or dtype in dtypes:
+            records.append(check_trsm_matern(torch, gen, locs, params, dtype))
+    if dtypes is None or f64 in dtypes:
+        records.append(check_trsm_sweep(torch, gen))
+        extra.append(records[-1])
+    if dtypes is None or f32 in dtypes:
+        records.append(check_trsm_exact_sweep(torch, gen, f32))
+        extra.append(records[-1])
+    return records
 
 
 def _syrk_bound(b, nb, k, isz):
@@ -1610,47 +1757,8 @@ def phase_kernels(torch, st, n_side: int):
         records.append(check_potrf_failure(torch, gen, dtype))
         records.append(check_potrf_failure_first_panel(torch, gen, dtype))
     records.append(check_potrf_matern(torch, locs, params))
-    # trsm in both instances: the panel TRSM (one L_kk for the 63 live V
-    # tiles of step 0: r = 63 x 128 = 8064 columns in all; timed in both,
-    # though the f32 one runs on no path), the same columns
-    # as one tile (wide), the sweep for alpha (r = 1), the sweep of a
-    # 512-location request (r = 512 x 2), a ragged case with a factor per
-    # tile, nb = 1, the README's serving tile, the reference's exact panel
-    # 4096 (eight super-blocks and updates: the f64 instance's large-nb
-    # schedule) and its alpha; in f64 only, the exact path's first and last
-    # panel solves at panel 4096 (updates of 128 x 128 tiles); then the
-    # panel shape on a real Matérn L_kk and the summed sweep of one TLR
-    # factorization's panel TRSMs
-    cases = (
-        ("panel", 63, 512, 128, 1),
-        ("wide", 1, 512, 8064, 1),
-        ("alpha", 1, 512, 1, 1),
-        ("predict", 1, 512, 1024, 1),
-        ("ragged", 3, 200, 37, 3),
-        ("nb1", 2, 1, 3, 2),
-        ("tile2048", 4, 2048, 128, 1),
-        ("panel4096", 1, 4096, 512, 1),
-        ("alpha4096", 1, 4096, 1, 1),
-    )
-    timed_trsm = ("panel", "wide", "alpha", "predict", "panel4096", "alpha4096")
-    for tag, b, nb, r, lo_b in cases:
-        for dtype in (f64, f32):
-            timed = tag == "panel" or (tag in timed_trsm and dtype == f64)
-            rec = check_trsm(torch, gen, tag, b, nb, r, lo_b, dtype, timed)
-            records.append(rec)
-            if tag == "panel" and dtype == f64:
-                st.setdefault("summary", {})["trsm"] = rec
-            elif timed:
-                st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
-    m = (SWEEP_B + 1) * TILE
-    for tag, r in (("exact4096_first", m - EXACT_PANEL), ("exact4096_last", EXACT_PANEL)):
-        rec = check_trsm(torch, gen, tag, 1, EXACT_PANEL, r, 1, torch.float64, True)
-        records.append(rec)
-        st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
-    records.append(check_trsm_matern(torch, gen, locs, params))
-    rec = check_trsm_sweep(torch, gen)
-    records.append(rec)
-    st.setdefault("extra", {}).setdefault("trsm", []).append(rec)
+    # trsm in both instances at the shapes of its paths (check_trsms)
+    records.extend(check_trsms(torch, st, gen, locs, params))
     # syrk, both instances: the first trailing update of the exact phase
     # (m_k = 32256, panel 512) in the operands' path layout, the JAX test
     # shapes, ragged nb, the panel-4096 path's first step, offsets past 2^31,
@@ -2588,10 +2696,10 @@ def phase_dist(torch, st, n_side: int):
 
 
 def record_plans(st) -> None:
-    """Keep every plan the f64 trsm and syrk pick (trsm's strip columns,
-    update tile and row split; syrk's tile edge) under the phase that ran
-    it, ``st["phase"]``: the wrappers look the plan functions up in their
-    module at each call, so these stand in for them."""
+    """Keep every plan the trsm and the f64 syrk pick (trsm's dtype, strip
+    columns, update tile and row split; syrk's tile edge) under the phase
+    that ran it, ``st["phase"]``: the wrappers look the plan functions up in
+    their module at each call, so these stand in for them."""
     from repro_torch.kernels import chol_tiles
 
     plans = st.setdefault("plans", {})
@@ -2599,15 +2707,19 @@ def record_plans(st) -> None:
     def recorded(name, fn, key):
         def plan(*args):
             out = fn(*args)
-            plans.setdefault(st["phase"], set()).add((name, *key(out)))
+            plans.setdefault(st["phase"], set()).add((name, *key(args, out)))
             return out
 
         return plan
 
-    chol_tiles.trsm_plan = recorded(
-        "trsm", chol_tiles.trsm_plan, lambda p: (p[0], p[2], p[3])
+    def trsm_key(args, p):
+        dname = str(args[4]).split(".")[-1] if len(args) > 4 else "float64"
+        return (dname, p[0], p[2], p[3])
+
+    chol_tiles.trsm_plan = recorded("trsm", chol_tiles.trsm_plan, trsm_key)
+    chol_tiles.syrk_tile = recorded(
+        "syrk", chol_tiles.syrk_tile, lambda args, t: (t,)
     )
-    chol_tiles.syrk_tile = recorded("syrk", chol_tiles.syrk_tile, lambda t: (t,))
 
 
 def count_plain_kv(st) -> None:
@@ -2639,12 +2751,13 @@ def gen_on_kernels(st, instances: dict, path: str, kernel: str) -> bool:
 
 
 def phase_plans(st):
-    """Every plan of the f64 trsm and syrk that a path ran is one that the
-    kernels phase held against the plain version: each (strip width, update
-    tile, row split) and each tile edge is a kernel of its own."""
+    """Every plan of the trsm (both instances) and of the f64 syrk that a
+    path ran is one that the kernels phase held against the plain version:
+    each (dtype, strip width, update tile, row split) and each tile edge is
+    a kernel of its own."""
     plans = st.get("plans", {})
     checked = plans.get("kernels", set())
-    paths = ("main", "serve", "exact", "mle", "assess", "dist")
+    paths = ("main", "serve", "exact", "exact_f32", "mle", "assess", "dist")
     by_path = {p: plans.get(p, set()) for p in paths}
     missing = sorted(set().union(*by_path.values()) - checked)
     ok = bool(checked) and not missing
@@ -2937,6 +3050,7 @@ def main() -> int:
         extra_keys += ("bound_by", "steps")
         extra_keys += ("bound_ms", "ms_sum", "library_ms_sum", "bound_ms_sum")
         extra_keys += ("max_abs_err", "bound_share", "ms_two_step")
+        extra_keys += ("max_abs_err_vs_f64", "library_max_abs_err_vs_f64")
         if name in st.get("extra", {}):
             kernels[-1]["other_shapes"] = [
                 {key: r[key] for key in extra_keys if key in r}

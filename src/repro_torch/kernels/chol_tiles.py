@@ -8,10 +8,10 @@ Counterparts of the Pallas kernels ``repro.kernels.chol_tiles.potrf``,
 device.  The dtype picks one of each kernel's two instances: float64 runs
 ``dmma_f64`` (every product on the FP64 tensor cores; potrf and, past 512
 rows, trsm blocked over the card), float32 ``fma_f32`` (on the FP32 CUDA
-cores: potrf the f64 instance's blocked schedule, syrk 128 x 128 tiles of
-8 x 8 outputs a thread; trsm the first kernel).  The host-side plans of
-the f64 instances (trsm's strip width, super-block, update tile and row
-split; syrk's tile edge) are the plain functions ``trsm_plan`` and
+cores: potrf and trsm the f64 instances' blocked schedules, syrk 128 x 128
+tiles of 8 x 8 outputs a thread).  The host-side plans (trsm's strip
+width, super-block, update tile and row split, of each dtype; the f64
+syrk's tile edge) are the plain functions ``trsm_plan`` and
 ``syrk_tile``.
 """
 
@@ -41,16 +41,12 @@ _SYRK = {
 SYRK_TILE = 64
 # dmma_f64 syrk: output tile edges
 SYRK_DMMA_TILES = (128, 64)
-# fma_f32 trsm: dynamic shared memory a block may take for its
-# right-hand-side columns (the card allows 227 KB a block; the kernel's
-# static part is 8 KB), and its widest column block.
-TRSM_SMEM_BYTES = 200 * 1024
-TRSM_MAX_COLS = 32
-# dmma_f64 trsm: diagonal block (its inverses' edge), rows of one strip
-# launch, the strip widths, and the update tiles between strip launches.
+# trsm, both instances: diagonal block (its inverses' edge), rows of one
+# strip launch, the strip widths, and the update tiles between strip
+# launches.
 TRSM_BLOCK = 64
 TRSM_SUPER = 512
-TRSM_DMMA_COLS = (64, 32, 16, 8)
+TRSM_COLS = (64, 32, 16, 8)
 TRSM_UPDATE_TILES = (128, 64)
 
 
@@ -87,11 +83,8 @@ def _potrf_fn(dtype: torch.dtype):
 def _trsm_fn(dtype: torch.dtype):
     fn = getattr(_build.library(), _TRSM[dtype][1])
     p, i = ctypes.c_void_p, ctypes.c_int
-    if dtype == torch.float64:
-        # lo, b, out, dinv; batch, nb, r, lo_batch; the plan; stream
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-    else:
-        fn.argtypes = [p, p, p, i, i, i, i, i, p]
+    # lo, b, out, dinv; batch, nb, r, lo_batch; the plan; stream
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,28 +147,11 @@ potrf_cuda.launches = 0
 potrf_cuda.launches_by_instance = {name: 0 for name, _ in _POTRF.values()}
 
 
-def trsm_cols(nb: int, r: int, batch: int, itemsize: int, sms: int) -> int:
-    """Right-hand-side columns one trsm block solves: at most 32, a power of
-    two, no more than ``r`` needs, halved while the nb x rc block does not fit
-    in shared memory or (down to 8) while the grid leaves some of the card's
-    ``sms`` streaming multiprocessors idle."""
-    rc = TRSM_MAX_COLS
-    while rc > 1 and rc // 2 >= r:
-        rc //= 2
-    while rc > 1 and nb * rc * itemsize > TRSM_SMEM_BYTES:
-        rc //= 2
-    while rc > 8 and -(-r // rc) * batch < sms:
-        rc //= 2
-    if nb * rc * itemsize > TRSM_SMEM_BYTES:
-        raise ValueError(
-            f"trsm: a column of {nb} rows does not fit in shared memory"
-        )
-    return rc
-
-
-def trsm_plan(batch: int, nb: int, r: int, sms: int) -> tuple[int, int, int, int]:
+def trsm_plan(
+    batch: int, nb: int, r: int, sms: int, dtype: torch.dtype = torch.float64
+) -> tuple[int, int, int, int]:
     """(strip columns, super-block rows, update tile, row split) of the
-    dmma_f64 trsm.
+    trsm instance that takes ``dtype``.
 
     A strip block solves up to 64 right-hand-side columns, halved (down to
     8) while half of them would be padding for a small ``r`` or while the
@@ -190,16 +166,18 @@ def trsm_plan(batch: int, nb: int, r: int, sms: int) -> tuple[int, int, int, int
     barriers lose to one block a strip).  Past one super-block
     the updates between them take 128 x 128 tiles, or 64 x 64 ones where
     the first update's 128 x 128 grid would fill under two waves of the
-    card (0 when nb <= 512: no update runs).
+    card (0 when nb <= 512: no update runs).  Both instances take the same
+    plan.
     """
-    cols = TRSM_DMMA_COLS[0]
-    while cols > TRSM_DMMA_COLS[-1] and cols // 2 >= r:
+    trsm_instance(dtype)
+    cols = TRSM_COLS[0]
+    while cols > TRSM_COLS[-1] and cols // 2 >= r:
         cols //= 2
-    while cols > TRSM_DMMA_COLS[-1] and -(-r // cols) * batch < sms // 2:
+    while cols > TRSM_COLS[-1] and -(-r // cols) * batch < sms // 2:
         cols //= 2
     super_rows = min(TRSM_SUPER, -(-nb // TRSM_BLOCK) * TRSM_BLOCK)
     strips = -(-r // cols) * batch
-    narrow = cols == TRSM_DMMA_COLS[-1]
+    narrow = cols == TRSM_COLS[-1]
     split = int(narrow and strips * (super_rows // TRSM_BLOCK) <= sms // 2)
     tile = 0
     if nb > super_rows:
@@ -215,9 +193,9 @@ def trsm_cuda(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``lo`` is (B, nb, nb), or (1, nb, nb) to use one factor for the whole
     batch; ``b`` is (B, nb, r).  Both are contiguous CUDA tensors of one
     dtype (float32 or float64) on one device; only the lower triangle of
-    ``lo`` is read.  Returns a new (B, nb, r) tensor.  The f64 instance
-    issues its launches (as ``trsm_plan`` lays them out) on the current
-    stream without a host sync.  Raises on anything the kernel does not take and if a launch
+    ``lo`` is read.  Returns a new (B, nb, r) tensor.  Both instances issue
+    their launches (as ``trsm_plan`` lays them out) on the current stream
+    without a host sync.  Raises on anything the kernel does not take and if a launch
     fails.
     """
     _check_cuda("b", b, None, None, _TRSM)
@@ -236,22 +214,15 @@ def trsm_cuda(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     name = trsm_instance(b.dtype)
     sms = torch.cuda.get_device_properties(b.device).multi_processor_count
+    plan = trsm_plan(batch, nb, r, sms, b.dtype)
+    nblk = -(-nb // TRSM_BLOCK)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (lo.data_ptr(), b.data_ptr(), out.data_ptr())
-        if b.dtype == torch.float64:
-            nblk = -(-nb // TRSM_BLOCK)
-            dinv = torch.empty(
-                (lo.shape[0], nblk, TRSM_BLOCK, TRSM_BLOCK),
-                dtype=b.dtype,
-                device=b.device,
-            )
-            plan = trsm_plan(batch, nb, r, sms)
-            args = (*ptrs, dinv.data_ptr(), batch, nb, r, lo.shape[0], *plan)
-        else:
-            rc = trsm_cols(nb, r, batch, b.element_size(), sms)
-            args = (*ptrs, batch, nb, r, rc, lo.shape[0])
-        code = _trsm_fn(b.dtype)(*args, stream)
+        dinv = torch.empty(
+            (lo.shape[0], nblk, TRSM_BLOCK, TRSM_BLOCK), dtype=b.dtype, device=b.device
+        )
+        ptrs = (lo.data_ptr(), b.data_ptr(), out.data_ptr(), dinv.data_ptr())
+        code = _trsm_fn(b.dtype)(*ptrs, batch, nb, r, lo.shape[0], *plan, stream)
     _build.check(code, f"trsm ({name})")
     trsm_cuda.launches += 1
     trsm_cuda.launches_by_instance[name] += 1

@@ -16,7 +16,10 @@
 // itemsize bytes per tile; at the panel TRSM (nb = 512, r = 63 x 128, f64) the operations
 // bound it (2.1 GFLOP, 32 us at 67 TFLOP/s), at r = 1 the bytes.
 //
-// Two instances, picked by the dtype:
+// Two instances, picked by the dtype, with one schedule of launches (the
+// launchers below are templated on the element type; the wrapper's
+// trsm_plan picks the strip width, super-block, update tile and row split
+// of each):
 //
 // dmma_f64 (f64): blocked forward substitution whose products all run on
 // the FP64 tensor cores (mma.sync m16n8k8, dmma.cuh).  The C entry point
@@ -62,18 +65,28 @@
 // not by the tensor cores.  The product inside each kernel is its own DMMA
 // code, not a library call.
 //
-// fma_f32 (f32): the first kernel of this file, on the FP32 CUDA cores.  A
-// block owns `rc` (<= 32) columns of one tile's right-hand side; those
-// columns, nb x rc, live in dynamic shared memory for the whole solve (the
-// wrapper's trsm_cols halves rc until nb x rc fits).  L streams from global
-// memory (L2) in 32 x 32 blocks.  For each block row i0 of 32 rows:
-//   1. X[i0:i0+32] -= L[i0:i0+32, 0:i0] X[0:i0], a small GEMM whose L blocks
-//      are staged in shared memory; each thread owns up to 4 outputs;
-//   2. the 32 x 32 diagonal block of L goes to shared memory (a ragged last
-//      block is padded with the identity) and each of the first rc threads
-//      forward-substitutes its own column with the 32 values in registers.
-// Sums run in the input type (the Pallas kernel's promote_types(dtype,
-// f32)).
+// fma_f32 (f32): the same four launches in full f32 on the FP32 CUDA cores
+// (no TF32; every sum in f32, as the Pallas kernel's promote_types(f32,
+// f32)): inv in f32, then the strip, row-split and update kernels with the
+// DMMA fragments replaced by FMA register tiles (fma_slab below).  A
+// thread owns RM rows (ty + TY i) and 4 NJ columns of the block's output;
+// per 4 k it reads RM float4 of the L (or D) slab along k and 4 NJ float4
+// of the X (or R) slab along the columns, 16 RM NJ FMAs, and each output
+// sums over k in order.  A strip block is 128 threads for 64 x SC outputs
+// (SC = 64: 8 x 4 a thread; 32: 4 x 4; 16: 2 x 4; 8: 1 x 4); an f32 slab is
+// half an f64 one's bytes, so three 64-wide strip blocks share an SM (two
+// stages of 32-wide slabs), four 32-wide ones, two of the narrower ones
+// (three stages of 64-wide slabs).  The strip launch that follows inv is
+// not programmatic (see launch_strip).  The row split is a cluster of
+// 128-thread blocks, 1 x 4 outputs a thread, X_s pushed as float4 through
+// distributed shared memory; the update takes 128 x 128 tiles (8 x 8
+// outputs a thread) or 64 x 64 ones (4 x 4).  At the exact_f32 path's
+// panel solves the launches take 28-38% of their bound; what holds them
+// there is not measured (no profiler of stalls on the card's machine): a
+// strip alone on an SM takes about 0.1 ms whatever its width, and 8 x 4
+// outputs a thread (against 4 x 4 on 256 threads) or operands double
+// buffered in registers moved the sweep by -11% and +4%
+// (scripts/trsm_variants.py).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -93,48 +106,64 @@ constexpr int kDThreads = 256;  // 8 warps
 constexpr int kLdD = kB + 4;    // staged D_j [kB][kB]
 
 // D_j = L_jj^{-1} for the diagonal block j = blockIdx.x of tile blockIdx.y,
-// row-major into dinv[(tile * nblk + j) * kBB].  All 256 threads stage the
-// block (16 loads each in flight); then thread c < 64 solves column c in
-// registers: x <- e_c; for each column jj: x[jj] *= 1 / L[jj][jj], then
-// x[i] -= L[i][jj] x[jj] below it.  (Four lanes a column with shuffles, or
-// the jj loop left rolled, were not faster on the card.)
-__global__ void __launch_bounds__(kDThreads)
-    trsm_inv_f64(const double* __restrict__ lo, double* __restrict__ dinv,
-                 int nb, int nblk) {
-  __shared__ double sl[kB][kB + 1];
-  __shared__ double sinv[kB];
+// row-major into dinv[(tile * nblk + j) * kBB], in T (both instances).  All
+// 256 threads stage the block (16 loads each in flight); then thread c < 64
+// solves column c in registers: x <- e_c; for each column jj: x[jj] *= 1 /
+// L[jj][jj], then x[i] -= L[i][jj] x[jj] below it.  (Four lanes a column
+// with shuffles, or the jj loop left rolled, were not faster on the card.)
+template <typename T>
+__device__ __forceinline__ void invert_block(const T* __restrict__ lo,
+                                             T* __restrict__ dinv, int nb,
+                                             int nblk, T (&sl)[kB][kB + 1],
+                                             T (&sinv)[kB]) {
   dmma::grid_wait();
   dmma::grid_launch_dependents();
   const int j0 = blockIdx.x * kB, w = min(kB, nb - j0);
-  const double* L = lo + (size_t)blockIdx.y * nb * nb;
+  const T* L = lo + (size_t)blockIdx.y * nb * nb;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int q = 0; q < kBB / kDThreads; ++q) {
     const int e = tid + q * kDThreads, i = e / kB, jj = e % kB;
-    double x;
+    T x;
     if (i < w && jj < w)
-      x = jj <= i ? L[(size_t)(j0 + i) * nb + j0 + jj] : 0.0;
+      x = jj <= i ? L[(size_t)(j0 + i) * nb + j0 + jj] : T(0);
     else
-      x = i == jj ? 1.0 : 0.0;
+      x = i == jj ? T(1) : T(0);
     sl[i][jj] = x;
   }
   __syncthreads();
-  if (tid < kB) sinv[tid] = 1.0 / sl[tid][tid];
+  if (tid < kB) sinv[tid] = T(1) / sl[tid][tid];
   __syncthreads();
   if (tid >= kB) return;
   const int c = tid;
-  double x[kB];
+  T x[kB];
 #pragma unroll
-  for (int i = 0; i < kB; ++i) x[i] = i == c ? 1.0 : 0.0;
+  for (int i = 0; i < kB; ++i) x[i] = i == c ? T(1) : T(0);
 #pragma unroll
   for (int jj = 0; jj < kB; ++jj) {
     x[jj] *= sinv[jj];
 #pragma unroll
     for (int i = jj + 1; i < kB; ++i) x[i] -= sl[i][jj] * x[jj];
   }
-  double* D = dinv + ((size_t)blockIdx.y * nblk + blockIdx.x) * kBB;
+  T* D = dinv + ((size_t)blockIdx.y * nblk + blockIdx.x) * kBB;
 #pragma unroll
   for (int i = 0; i < kB; ++i) D[i * kB + c] = x[i];
+}
+
+__global__ void __launch_bounds__(kDThreads)
+    trsm_inv_f64(const double* __restrict__ lo, double* __restrict__ dinv,
+                 int nb, int nblk) {
+  __shared__ double sl[kB][kB + 1];
+  __shared__ double sinv[kB];
+  invert_block(lo, dinv, nb, nblk, sl, sinv);
+}
+
+__global__ void __launch_bounds__(kDThreads)
+    trsm_inv_f32(const float* __restrict__ lo, float* __restrict__ dinv,
+                 int nb, int nblk) {
+  __shared__ float sl[kB][kB + 1];
+  __shared__ float sinv[kB];
+  invert_block(lo, dinv, nb, nblk, sl, sinv);
 }
 
 // The strip kernel's layout for SC columns: WN x WM warps of (kB / WM) x
@@ -267,8 +296,9 @@ constexpr int kRThreads = 128;  // 4 warps of 16 rows x 8 columns
 constexpr int kRStages = 3;
 constexpr int kRLdL = kB + 4;      // staged L_q,s [kB][kB]
 constexpr int kRLdX = kRCols + 4;  // B_q, then R [kB][8]; X_s [2][kB][8]
+template <typename T>
 constexpr int kRSmem =
-    (kRStages * kB * kRLdL + kB * kLdD + 3 * kB * kRLdX) * (int)sizeof(double);
+    (kRStages * kB * kRLdL + kB * kLdD + 3 * kB * kRLdX) * (int)sizeof(T);
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -283,7 +313,8 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // The same address in the shared memory of block `rank` of the cluster.
-__device__ __forceinline__ unsigned cluster_map(const double* p, int rank) {
+template <typename T>
+__device__ __forceinline__ unsigned cluster_map(const T* p, int rank) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   unsigned d;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
@@ -294,6 +325,12 @@ __device__ __forceinline__ unsigned cluster_map(const double* p, int rank) {
 
 __device__ __forceinline__ void cluster_store(unsigned addr, double x) {
   asm volatile("st.shared::cluster.f64 [%0], %1;\n" ::"r"(addr), "d"(x)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_store(unsigned addr, float4 x) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(x.x), "f"(x.y), "f"(x.z), "f"(x.w)
                : "memory");
 }
 
@@ -465,32 +502,392 @@ __global__ void __launch_bounds__(kDThreads, 1)
   }
 }
 
-template <int SC>
-cudaError_t launch_strip(const double* lo, const double* dinv, const double* src,
-                         double* out, int batch, int nb, int r, int R0, int R1,
-                         long long lo_stride, long long dinv_stride, int vec_l,
-                         int vec_x, cudaStream_t stream) {
-  constexpr int smem = Strip<SC>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      trsm_strip_f64<SC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  return dmma::launch_pdl(trsm_strip_f64<SC>, dim3((r + SC - 1) / SC, batch),
-                          kDThreads, smem, stream, lo, dinv, src, out, nb, r,
-                          R0, R1, lo_stride, dinv_stride, vec_l, vec_x);
+// ---------------------------------------------------------------------------
+// fma_f32
+// ---------------------------------------------------------------------------
+
+// (ty, tx) of thread tid in a grid of TX four-column groups: a warp spans
+// WX = min(8, TX) consecutive tx and 32 / WX consecutive ty, so that its
+// float4 loads of B fall on at most 8 consecutive 16-byte words of one row
+// and those of A on consecutive rows, whose strides of 4 mod 32 floats put
+// 8 of them on distinct banks: no bank conflicts.
+template <int TX>
+__device__ __forceinline__ void fma_thread(int tid, int& ty, int& tx) {
+  constexpr int WX = TX < 8 ? TX : 8, WY = 32 / WX, XW = TX / WX;
+  const int warp = tid / 32, lane = tid % 32;
+  ty = (warp / XW) * WY + lane / WX;
+  tx = (warp % XW) * WX + lane % WX;
 }
 
-cudaError_t launch_rows(const double* lo, const double* dinv, const double* src,
-                        double* out, int batch, int nb, int r, int R0, int R1,
+// acc += A B over the first ks (a multiple of 4) columns of a k-slab in
+// shared memory, A stored by rows (A[i][k] = sa[i * lda + k]) and B by rows
+// of k (B[k][c] = sb[k * ldb + c]), for thread (ty, tx): rows ty + TY i
+// (i < RM), columns 4 (tx + TX j) + {0..3} (j < NJ).  Per 4 k it reads RM
+// float4 of A along k and 4 NJ float4 of B along c for 16 RM NJ FMAs; each
+// output sums over k in order.  A caller that wants C -= A B subtracts acc
+// in its epilogue.
+template <int RM, int NJ, int TY, int TX>
+__device__ __forceinline__ void fma_slab(float (&acc)[RM][NJ][4],
+                                         const float* sa, int lda,
+                                         const float* sb, int ldb, int ks,
+                                         int ty, int tx) {
+#pragma unroll 2
+  for (int k = 0; k < ks; k += 4) {
+    float4 a[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(sa + (ty + TY * i) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 b[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        b[j] = *reinterpret_cast<const float4*>(sb + (k + kk) * ldb +
+                                                4 * (tx + TX * j));
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float x = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[i][j][0] = fmaf(x, b[j].x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(x, b[j].y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(x, b[j].z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(x, b[j].w, acc[i][j][3]);
+        }
+      }
+    }
+  }
+}
+
+// The quad row[col..col + 3] of a row of n floats (zeros past n), and its
+// store: one 16-byte access where vec (the row 16-byte aligned, col a
+// multiple of 4) and all four lie inside, else one access a value.
+__device__ __forceinline__ float4 load_quad(const float* row, int col, int n,
+                                            int vec) {
+  if (vec && col + 3 < n) return *reinterpret_cast<const float4*>(row + col);
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) v[q] = col + q < n ? row[col + q] : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store_quad(float* row, int col, int n, int vec,
+                                           float4 x) {
+  if (vec && col + 3 < n) {
+    *reinterpret_cast<float4*>(row + col) = x;
+    return;
+  }
+  const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (col + q < n) row[col + q] = v[q];
+}
+
+__device__ __forceinline__ float4 quad(const float (&x)[4]) {
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// The f32 strip kernel's layout for SC columns: 128 threads, TX = SC / 4
+// column groups by TY row groups of RM rows (8 x 4 outputs a thread at
+// SC = 64, 4 x 4 at 32, 2 x 4 at 16, 1 x 4 at 8), k-slabs of KS in a ring
+// of STAGES, BLOCKS blocks an SM (the most the shared memory holds).
+template <int SC>
+struct StripF {
+  static constexpr int THREADS = 128;
+  static constexpr int TX = SC / 4, TY = THREADS / TX, RM = kB / TY;
+  static constexpr int KS = SC <= 16 ? 64 : 32;
+  static constexpr int STAGES = SC <= 16 ? 3 : 2;
+  static constexpr int BLOCKS = SC == 64 ? 3 : (SC == 32 ? 4 : 2);
+  static constexpr int LDL = KS + 4;  // staged L slab [kB][KS]
+  static constexpr int LDX = SC + 4;  // staged X slab [KS][SC], R [kB][SC]
+  static constexpr int STAGE = kB * LDL + KS * LDX;
+  static constexpr int SMEM =
+      (STAGES * STAGE + kB * LDX + kB * kLdD) * (int)sizeof(float);
+};
+
+// trsm_strip_f64's walk in f32: rows [R0, R1) of X = L^{-1} src for the SC
+// columns of block x of tile blockIdx.y, the two products on FMA register
+// tiles.
+template <int SC>
+__global__ void __launch_bounds__(StripF<SC>::THREADS, StripF<SC>::BLOCKS)
+    trsm_strip_f32(const float* __restrict__ lo,
+                   const float* __restrict__ dinv, const float* src,
+                   float* out, int nb, int r, int R0, int R1,
+                   long long lo_stride, long long dinv_stride, int vec_l,
+                   int vec_x) {
+  using P = StripF<SC>;
+  constexpr int RM = P::RM, TY = P::TY, TX = P::TX, KS = P::KS;
+  constexpr int LDL = P::LDL, LDX = P::LDX;
+  extern __shared__ __align__(16) float fsmem[];
+  float* ring = fsmem;
+  float* sr = ring + P::STAGES * P::STAGE;  // [kB][LDX]: B_i, then R
+  float* sd = sr + kB * LDX;                // [kB][kLdD]: D_i
+  const int c0 = blockIdx.x * SC;
+  const float* L = lo + blockIdx.y * lo_stride;
+  const float* Bs = src + (size_t)blockIdx.y * nb * r;
+  float* X = out + (size_t)blockIdx.y * nb * r;
+  const float* Dt = dinv + blockIdx.y * dinv_stride;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  fma_thread<TX>(tid, ty, tx);
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+
+#pragma unroll 1
+  for (int i0 = R0; i0 < R1; i0 += kB) {
+    const int h = min(kB, nb - i0);
+    // D_i and B_i, one commit group ahead of the ring's slabs.
+    dmma::cp_tile<kB, kB, P::THREADS>(sd, kLdD, Dt + (size_t)(i0 / kB) * kBB,
+                                      kB, kB, kB, true, tid);
+    dmma::cp_tile<kB, SC, P::THREADS>(sr, LDX, Bs + (size_t)i0 * r + c0, r, h,
+                                      r - c0, vec_x, tid);
+    dmma::cp_async_commit();
+    float acc[RM][1][4] = {};
+    auto load = [&](int st, int q) {
+      float* sl = ring + st * P::STAGE;
+      const int k0 = R0 + q * KS;
+      dmma::cp_tile<kB, KS, P::THREADS>(sl, LDL, L + (size_t)i0 * nb + k0, nb,
+                                        h, KS, vec_l, tid);
+      dmma::cp_tile<KS, SC, P::THREADS>(sl + kB * LDL, LDX,
+                                        X + (size_t)k0 * r + c0, r, KS, r - c0,
+                                        vec_x, tid);
+    };
+    auto compute = [&](int st, int) {
+      const float* sl = ring + st * P::STAGE;
+      fma_slab<RM, 1, TY, TX>(acc, sl, LDL, sl + kB * LDL, LDX, KS, ty, tx);
+    };
+    dmma::cp_async_ring<P::STAGES>((i0 - R0) / KS, load, compute);
+    // R = B_i - L_i,R0:i X_R0:i, in place in sr.
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float* p = sr + (ty + TY * i) * LDX + 4 * tx;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) p[v] -= acc[i][0][v];
+    }
+    __syncthreads();
+    // X_i = D_i R, written out (rows < h, columns < r).
+    float x[RM][1][4] = {};
+    fma_slab<RM, 1, TY, TX>(x, sd, kLdD, sr, LDX, kB, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int rl = ty + TY * i;
+      if (rl < h)
+        store_quad(X + (size_t)(i0 + rl) * r, c0 + 4 * tx, r, vec_x,
+                   quad(x[i][0]));
+    }
+    // X_i is visible to the block's next slab copies, and sd, sr are free.
+    __syncthreads();
+  }
+}
+
+// trsm_rows_f64's cluster in f32: 128 threads a block row, thread (ty, tx)
+// owning row ty and columns 4 tx..4 tx + 3 of the strip's 8; X_s goes to
+// the later blocks as one float4 a thread.
+__global__ void __launch_bounds__(kRThreads, 1)
+    trsm_rows_f32(const float* __restrict__ lo,
+                  const float* __restrict__ dinv, const float* src,
+                  float* out, int nb, int r, int R0, int R1,
+                  long long lo_stride, long long dinv_stride, int vec_l,
+                  int vec_x) {
+  constexpr int TX = kRCols / 4, TY = kB;
+  static_assert(TX * TY == kRThreads, "one output row a thread");
+  extern __shared__ __align__(16) float rsmem[];
+  float* ring = rsmem;
+  float* sd = ring + kRStages * kB * kRLdL;  // [kB][kLdD]: D_q
+  float* sr = sd + kB * kLdD;                // [kB][kRLdX]: B_q, then R
+  float* sx = sr + kB * kRLdX;               // [2][kB][kRLdX]: X_s
+  const int nbr = (R1 - R0 + kB - 1) / kB;
+  const int q = blockIdx.x % nbr, c0 = (blockIdx.x / nbr) * kRCols;
+  const int i0 = R0 + q * kB, h = min(kB, nb - i0);
+  const float* L = lo + blockIdx.y * lo_stride;
+  const float* Bs = src + (size_t)blockIdx.y * nb * r;
+  float* X = out + (size_t)blockIdx.y * nb * r;
+  const float* Dt = dinv + blockIdx.y * dinv_stride;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  fma_thread<TX>(tid, ty, tx);
+  // No block writes into another's shared memory before all have started.
+  cluster_arrive_relaxed();
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+  dmma::cp_tile<kB, kB, kRThreads>(sd, kLdD, Dt + (size_t)(i0 / kB) * kBB, kB,
+                                   kB, kB, true, tid);
+  dmma::cp_tile<kB, kRCols, kRThreads>(sr, kRLdX, Bs + (size_t)i0 * r + c0, r,
+                                       h, r - c0, vec_x, tid);
+  dmma::cp_async_commit();
+  // One commit group a slab (empty past q), as in trsm_rows_f64.
+  auto load = [&](int s) {
+    dmma::cp_tile<kB, kB, kRThreads>(ring + (s % kRStages) * kB * kRLdL, kRLdL,
+                                     L + (size_t)i0 * nb + R0 + s * kB, nb, h,
+                                     kB, vec_l, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < kRStages; ++s) {
+    if (s < q) load(s);
+    dmma::cp_async_commit();
+  }
+  float acc[1][1][4] = {};
+  cluster_wait();
+#pragma unroll 1
+  for (int s = 0; s < nbr; ++s) {
+    dmma::cp_async_wait<kRStages - 1>();
+    __syncthreads();
+    float* xs = sx + (s % 2) * kB * kRLdX;
+    if (s == q) {
+      // R = B_q - sum_{j<q} L_q,j X_j, in place in sr; then X_q = D_q R.
+      float* p = sr + ty * kRLdX + 4 * tx;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) p[v] -= acc[0][0][v];
+      __syncthreads();
+      float x[1][1][4] = {};
+      fma_slab<1, 1, TY, TX>(x, sd, kLdD, sr, kRLdX, kB, ty, tx);
+      const float4 xv = quad(x[0][0]);
+      for (int dst = q + 1; dst < nbr; ++dst)
+        cluster_store(cluster_map(xs + ty * kRLdX + 4 * tx, dst), xv);
+      // X_q is published by the barrier; its global stores wait on nothing.
+      cluster_arrive();
+      if (ty < h) store_quad(X + (size_t)(i0 + ty) * r, c0 + 4 * tx, r, vec_x, xv);
+    } else {
+      cluster_arrive();
+    }
+    cluster_wait();
+    if (q > s) {
+      fma_slab<1, 1, TY, TX>(acc, ring + (s % kRStages) * kB * kRLdL, kRLdL, xs,
+                             kRLdX, kB, ty, tx);
+      __syncthreads();  // every warp is done with the stage before its refill
+      if (s + kRStages < q) load(s + kRStages);
+    }
+    dmma::cp_async_commit();
+  }
+}
+
+// The f32 update's layout: 16 x 16 threads, each RM = TM / 16 rows and NJ =
+// TM / 64 groups of 4 columns (8 x 8 outputs at TM = 128, 4 x 4 at 64).
+template <int TM>
+struct UpdateF {
+  static constexpr int TX = 16, TY = 16, RM = TM / TY, NJ = TM / (4 * TX);
+  static constexpr int KS = 32, STAGES = 3;
+  static constexpr int LDL = KS + 4;  // staged L slab [TM][KS]
+  static constexpr int LDX = TM + 4;  // staged X slab [KS][TM]
+  static constexpr int STAGE = TM * LDL + KS * LDX;
+  static constexpr int SMEM = STAGES * STAGE * (int)sizeof(float);
+};
+
+// trsm_update_f64 in f32: out[R1:, :] = src[R1:, :] - L[R1:, R0:R1]
+// X[R0:R1, :], one TM x TM tile a block, the tiles walked down the rows
+// first.
+template <int TM>
+__global__ void __launch_bounds__(kDThreads, 1)
+    trsm_update_f32(const float* __restrict__ lo, const float* src, float* out,
+                    int nb, int r, int R0, int R1, long long lo_stride,
+                    int vec_l, int vec_x) {
+  using P = UpdateF<TM>;
+  constexpr int RM = P::RM, NJ = P::NJ, TY = P::TY, TX = P::TX, KS = P::KS;
+  constexpr int LDL = P::LDL, LDX = P::LDX;
+  extern __shared__ __align__(16) float usmem[];
+  const int nr = (nb - R1 + TM - 1) / TM;
+  const int r0 = R1 + (blockIdx.x % nr) * TM, c0 = (blockIdx.x / nr) * TM;
+  const float* L = lo + blockIdx.y * lo_stride;
+  const float* S = src + (size_t)blockIdx.y * nb * r;
+  float* X = out + (size_t)blockIdx.y * nb * r;
+  const int tid = threadIdx.x;
+  int ty, tx;
+  fma_thread<TX>(tid, ty, tx);
+  dmma::grid_wait();
+  dmma::grid_launch_dependents();
+  float acc[RM][NJ][4] = {};
+  auto load = [&](int st, int q) {
+    float* sa = usmem + st * P::STAGE;
+    const int k0 = R0 + q * KS;
+    dmma::cp_tile<TM, KS, kDThreads>(sa, LDL, L + (size_t)r0 * nb + k0, nb,
+                                     nb - r0, KS, vec_l, tid);
+    dmma::cp_tile<KS, TM, kDThreads>(sa + TM * LDL, LDX,
+                                     X + (size_t)k0 * r + c0, r, KS, r - c0,
+                                     vec_x, tid);
+  };
+  auto compute = [&](int st, int) {
+    const float* sa = usmem + st * P::STAGE;
+    fma_slab<RM, NJ, TY, TX>(acc, sa, LDL, sa + TM * LDL, LDX, KS, ty, tx);
+  };
+  dmma::cp_async_ring<P::STAGES>((R1 - R0) / KS, load, compute);
+  // out = src - acc; a thread reads only the quads it writes (src may be
+  // out itself).
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = r0 + ty + TY * i;
+    if (row >= nb) continue;
+    float4 sv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      sv[j] = load_quad(S + (size_t)row * r, c0 + 4 * (tx + TX * j), r, vec_x);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 d = make_float4(sv[j].x - acc[i][j][0], sv[j].y - acc[i][j][1],
+                                   sv[j].z - acc[i][j][2], sv[j].w - acc[i][j][3]);
+      store_quad(X + (size_t)row * r, c0 + 4 * (tx + TX * j), r, vec_x, d);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The launches, both instances
+// ---------------------------------------------------------------------------
+
+// The f32 strip launch that follows the inverses is not programmatic: its
+// blocks, scheduled while the inv blocks still ran, were placed two and
+// three to an SM while other SMs stayed idle (a grid of 128 strips took
+// the time of two waves; scripts/trsm_variants.py).
+template <typename T, int SC>
+cudaError_t launch_strip(const T* lo, const T* dinv, const T* src, T* out,
+                         int batch, int nb, int r, int R0, int R1,
+                         long long lo_stride, long long dinv_stride, int vec_l,
+                         int vec_x, cudaStream_t stream) {
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
+                 long long, long long, int, int);
+  int smem, threads = kDThreads;
+  bool pdl = true;
+  if constexpr (sizeof(T) == 8) {
+    kernel = trsm_strip_f64<SC>;
+    smem = Strip<SC>::SMEM;
+  } else {
+    kernel = trsm_strip_f32<SC>;
+    smem = StripF<SC>::SMEM;
+    threads = StripF<SC>::THREADS;
+    pdl = R0 > 0;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((r + SC - 1) / SC, batch);
+  if (pdl)
+    return dmma::launch_pdl(kernel, grid, threads, smem, stream, lo, dinv, src,
+                            out, nb, r, R0, R1, lo_stride, dinv_stride, vec_l,
+                            vec_x);
+  kernel<<<grid, threads, smem, stream>>>(lo, dinv, src, out, nb, r, R0, R1,
+                                          lo_stride, dinv_stride, vec_l, vec_x);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_rows(const T* lo, const T* dinv, const T* src, T* out,
+                        int batch, int nb, int r, int R0, int R1,
                         long long lo_stride, long long dinv_stride, int vec_l,
                         int vec_x, cudaStream_t stream) {
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int,
+                 long long, long long, int, int);
+  if constexpr (sizeof(T) == 8)
+    kernel = trsm_rows_f64;
+  else
+    kernel = trsm_rows_f32;
+  constexpr int smem = kRSmem<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      trsm_rows_f64, cudaFuncAttributeMaxDynamicSharedMemorySize, kRSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const unsigned nbr = (R1 - R0 + kB - 1) / kB;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((r + kRCols - 1) / kRCols) * nbr, batch);
   cfg.blockDim = dim3(kRThreads);
-  cfg.dynamicSmemBytes = kRSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -501,30 +898,39 @@ cudaError_t launch_rows(const double* lo, const double* dinv, const double* src,
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 2;
-  return cudaLaunchKernelEx(&cfg, trsm_rows_f64, lo, dinv, src, out, nb, r, R0,
-                            R1, lo_stride, dinv_stride, vec_l, vec_x);
+  return cudaLaunchKernelEx(&cfg, kernel, lo, dinv, src, out, nb, r, R0, R1,
+                            lo_stride, dinv_stride, vec_l, vec_x);
 }
 
-template <int TM>
-cudaError_t launch_update(const double* lo, const double* src, double* out,
-                          int batch, int nb, int r, int R0, int R1,
-                          long long lo_stride, int vec_l, int vec_x,
-                          cudaStream_t stream) {
-  constexpr int smem = Update<TM>::SMEM;
+template <typename T, int TM>
+cudaError_t launch_update(const T* lo, const T* src, T* out, int batch, int nb,
+                          int r, int R0, int R1, long long lo_stride,
+                          int vec_l, int vec_x, cudaStream_t stream) {
+  void (*kernel)(const T*, const T*, T*, int, int, int, int, long long, int,
+                 int);
+  int smem;
+  if constexpr (sizeof(T) == 8) {
+    kernel = trsm_update_f64<TM>;
+    smem = Update<TM>::SMEM;
+  } else {
+    kernel = trsm_update_f32<TM>;
+    smem = UpdateF<TM>::SMEM;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      trsm_update_f64<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long tiles =
       (long long)((nb - R1 + TM - 1) / TM) * ((r + TM - 1) / TM);
   if (tiles > 2147483647LL) return cudaErrorInvalidConfiguration;
-  return dmma::launch_pdl(trsm_update_f64<TM>, dim3((unsigned)tiles, batch),
-                          kDThreads, smem, stream, lo, src, out, nb, r, R0, R1,
-                          lo_stride, vec_l, vec_x);
+  return dmma::launch_pdl(kernel, dim3((unsigned)tiles, batch), kDThreads,
+                          smem, stream, lo, src, out, nb, r, R0, R1, lo_stride,
+                          vec_l, vec_x);
 }
 
-int launch_f64(const double* lo, const double* b, double* out, double* dinv,
-               int batch, int nb, int r, int lo_batch, int sc, int super_rows,
-               int update_tile, int split, cudaStream_t stream) {
+template <typename T>
+int launch(const T* lo, const T* b, T* out, T* dinv, int batch, int nb, int r,
+           int lo_batch, int sc, int super_rows, int update_tile, int split,
+           cudaStream_t stream) {
   if (batch <= 0 || batch > 65535 || nb <= 0 || r <= 0)
     return (int)cudaErrorInvalidValue;
   if (lo_batch != 1 && lo_batch != batch) return (int)cudaErrorInvalidValue;
@@ -540,146 +946,36 @@ int launch_f64(const double* lo, const double* b, double* out, double* dinv,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
   };
-  const int vec_l = nb % 2 == 0 && aligned(lo);
-  const int vec_x = r % 2 == 0 && aligned(b) && aligned(out);
-  cudaError_t err = dmma::launch_pdl(trsm_inv_f64, dim3(nblk, lo_batch),
-                                     kDThreads, 0, stream, lo, dinv, nb, nblk);
+  // 16-byte copies: rows of whole 16-byte words (2 doubles, 4 floats)
+  constexpr int per16 = 16 / (int)sizeof(T);
+  const int vec_l = nb % per16 == 0 && aligned(lo);
+  const int vec_x = r % per16 == 0 && aligned(b) && aligned(out);
+  void (*inv)(const T*, T*, int, int);
+  if constexpr (sizeof(T) == 8)
+    inv = trsm_inv_f64;
+  else
+    inv = trsm_inv_f32;
+  cudaError_t err = dmma::launch_pdl(inv, dim3(nblk, lo_batch), kDThreads, 0,
+                                     stream, lo, dinv, nb, nblk);
   if (err != cudaSuccess) return (int)err;
   for (int R0 = 0; R0 < nb; R0 += super_rows) {
     const int R1 = std::min(nb, R0 + super_rows);
-    const double* src = R0 == 0 ? b : out;
+    const T* src = R0 == 0 ? b : out;
     switch (split ? 0 : sc) {
       case 0: err = launch_rows(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
-      case 64: err = launch_strip<64>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
-      case 32: err = launch_strip<32>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
-      case 16: err = launch_strip<16>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
-      case 8: err = launch_strip<8>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
+      case 64: err = launch_strip<T, 64>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
+      case 32: err = launch_strip<T, 32>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
+      case 16: err = launch_strip<T, 16>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
+      case 8: err = launch_strip<T, 8>(lo, dinv, src, out, batch, nb, r, R0, R1, lo_stride, dinv_stride, vec_l, vec_x, stream); break;
       default: return (int)cudaErrorInvalidValue;
     }
     if (err != cudaSuccess) return (int)err;
     if (R1 == nb) break;
     err = update_tile == 128
-              ? launch_update<128>(lo, src, out, batch, nb, r, R0, R1, lo_stride, vec_l, vec_x, stream)
-              : launch_update<64>(lo, src, out, batch, nb, r, R0, R1, lo_stride, vec_l, vec_x, stream);
+              ? launch_update<T, 128>(lo, src, out, batch, nb, r, R0, R1, lo_stride, vec_l, vec_x, stream)
+              : launch_update<T, 64>(lo, src, out, batch, nb, r, R0, R1, lo_stride, vec_l, vec_x, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// fma_f32
-// ---------------------------------------------------------------------------
-
-constexpr int kRows = 32;    // block-row height
-constexpr int kMaxCols = 32;  // right-hand-side columns of one block
-constexpr int kThreads = 256;
-constexpr int kPerThread = kRows * kMaxCols / kThreads;  // outputs of step 1
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    trsm_kernel(const T* __restrict__ lo, const T* __restrict__ b,
-                T* __restrict__ out, int nb, int r, int rc,
-                long long lo_stride) {
-  extern __shared__ unsigned char smem_raw[];
-  T* X = reinterpret_cast<T*>(smem_raw);  // [nb][rc]
-  __shared__ T sl[kRows][kRows + 1];
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * rc;
-  const int cols = min(rc, r - c0);
-  const T* L = lo + (size_t)blockIdx.y * lo_stride;
-  const T* Bm = b + (size_t)blockIdx.y * nb * r;
-  T* O = out + (size_t)blockIdx.y * nb * r;
-
-  for (int e = tid; e < nb * rc; e += kThreads) {
-    const int i = e / rc, c = e % rc;
-    X[e] = c < cols ? Bm[(size_t)i * r + c0 + c] : T(0);
-  }
-  __syncthreads();
-
-  const int n_out = kRows * rc;
-  for (int i0 = 0; i0 < nb; i0 += kRows) {
-    const int w = min(kRows, nb - i0);
-    // ---- 1. X[i0:i0+w] -= L[i0:i0+w, 0:i0] X[0:i0].
-    T acc[kPerThread] = {};
-    for (int j0 = 0; j0 < i0; j0 += kRows) {
-      for (int e = tid; e < kRows * kRows; e += kThreads) {
-        const int ii = e / kRows, jj = e % kRows;  // jj runs along a row of L
-        sl[ii][jj] = ii < w ? L[(size_t)(i0 + ii) * nb + j0 + jj] : T(0);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kPerThread; ++q) {
-        const int e = tid + q * kThreads;
-        if (e < n_out) {
-          const int ii = e / rc, c = e % rc;
-          const T* xc = X + (size_t)j0 * rc + c;
-          T s = acc[q];
-#pragma unroll 8
-          for (int jj = 0; jj < kRows; ++jj) s += sl[ii][jj] * xc[jj * rc];
-          acc[q] = s;
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int e = tid + q * kThreads;
-      if (e < n_out) {
-        const int ii = e / rc, c = e % rc;
-        if (ii < w) X[(size_t)(i0 + ii) * rc + c] -= acc[q];
-      }
-    }
-    // ---- 2. solve the diagonal block, one column per thread.
-    for (int e = tid; e < kRows * kRows; e += kThreads) {
-      const int ii = e / kRows, jj = e % kRows;
-      T x;
-      if (ii < w && jj < w)
-        x = jj <= ii ? L[(size_t)(i0 + ii) * nb + i0 + jj] : T(0);
-      else
-        x = ii == jj ? T(1) : T(0);
-      sl[ii][jj] = x;
-    }
-    __syncthreads();
-    if (tid < rc) {
-      T x[kRows];
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii)
-        x[ii] = ii < w ? X[(size_t)(i0 + ii) * rc + tid] : T(0);
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii) {
-        T s = x[ii];
-#pragma unroll
-        for (int jj = 0; jj < ii; ++jj) s -= sl[ii][jj] * x[jj];
-        x[ii] = s / sl[ii][ii];
-      }
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii)
-        if (ii < w) X[(size_t)(i0 + ii) * rc + tid] = x[ii];
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < nb * rc; e += kThreads) {
-    const int i = e / rc, c = e % rc;
-    if (c < cols) O[(size_t)i * r + c0 + c] = X[e];
-  }
-}
-
-template <typename T>
-int launch(const T* lo, const T* b, T* out, int batch, int nb, int r, int rc,
-           int lo_batch, cudaStream_t stream) {
-  if (batch <= 0 || nb <= 0 || r <= 0 || rc <= 0 || rc > kMaxCols)
-    return (int)cudaErrorInvalidValue;
-  if (lo_batch != 1 && lo_batch != batch) return (int)cudaErrorInvalidValue;
-  if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = (size_t)nb * rc * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      trsm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long lo_stride = lo_batch == 1 ? 0LL : (long long)nb * nb;
-  const dim3 grid((r + rc - 1) / rc, batch);
-  trsm_kernel<T><<<grid, kThreads, smem, stream>>>(lo, b, out, nb, r, rc,
-                                                   lo_stride);
   return (int)cudaGetLastError();
 }
 
@@ -687,7 +983,7 @@ int launch(const T* lo, const T* b, T* out, int batch, int nb, int r, int rc,
 
 // lo (lo_batch, nb, nb) with lo_batch 1 (broadcast) or batch; b, out
 // (batch, nb, r); all contiguous, row-major, on the device; out may not
-// alias b.  dinv is scratch of lo_batch * ceil(nb / 64) * 64 * 64 doubles.
+// alias b.  dinv is scratch of lo_batch * ceil(nb / 64) * 64 * 64 elements.
 // sc (64, 32, 16 or 8) is the right-hand-side columns of one strip block,
 // super_rows (a multiple of 64) the rows one strip launch solves,
 // update_tile (128 or 64) the tile edge of the updates between them, and
@@ -699,17 +995,15 @@ extern "C" int trsm_f64(const double* lo, const double* b, double* out,
                         double* dinv, int batch, int nb, int r, int lo_batch,
                         int sc, int super_rows, int update_tile, int split,
                         void* stream) {
-  return launch_f64(lo, b, out, dinv, batch, nb, r, lo_batch, sc, super_rows,
-                    update_tile, split, static_cast<cudaStream_t>(stream));
+  return launch(lo, b, out, dinv, batch, nb, r, lo_batch, sc, super_rows,
+                update_tile, split, static_cast<cudaStream_t>(stream));
 }
 
-// The fma_f32 instance: lo, b, out as above.  rc (1..32) is the number of
-// right-hand-side columns one block solves; nb * rc elements must fit in a
-// block's shared memory.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// The fma_f32 instance: the same operands, plan and launches in float32.
 extern "C" int trsm_f32(const float* lo, const float* b, float* out,
-                        int batch, int nb, int r, int rc, int lo_batch,
+                        float* dinv, int batch, int nb, int r, int lo_batch,
+                        int sc, int super_rows, int update_tile, int split,
                         void* stream) {
-  return launch<float>(lo, b, out, batch, nb, r, rc, lo_batch,
-                       static_cast<cudaStream_t>(stream));
+  return launch(lo, b, out, dinv, batch, nb, r, lo_batch, sc, super_rows,
+                update_tile, split, static_cast<cudaStream_t>(stream));
 }

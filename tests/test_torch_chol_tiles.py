@@ -4,10 +4,11 @@ The plain versions (repro_torch.kernels.ref.potrf_ref / trsm_ref) against
 the Pallas kernels run in interpret mode and against the reference's own
 plain versions, at the shapes and tolerances of tests/test_kernels.py; the
 failure rule (a tile with a bad pivot comes back all NaN and the status is
-not ok); the block-column choice of the CUDA trsm's fma_f32 instance and
-the plan of its dmma_f64 instance; plain emulations of the dmma_f64
-instances' order of work against the Pallas kernels; and that the TLR path
-reaches both tasks through kernels.ops.  The CUDA kernels themselves are
+not ok); the plan of the CUDA trsm in both dtypes (its fma_f32 instance
+runs the dmma_f64 instance's schedule on FMAs); plain emulations of the
+dmma_f64 instances' order of work, which the fma_f32 trsm shares, against
+the Pallas kernels in both dtypes; and that the TLR path reaches both
+tasks through kernels.ops.  The CUDA kernels themselves are
 held against the plain versions on the card by chip_smoke.py.
 """
 
@@ -34,7 +35,6 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.chol_tiles import (  # noqa: E402
     TRSM_BLOCK,
     TRSM_SUPER,
-    trsm_cols,
     trsm_plan,
 )
 
@@ -131,28 +131,6 @@ def test_tile_cholesky_composition():
     lo = torch.zeros((2 * nb, 2 * nb), dtype=torch.float64)
     lo[:nb, :nb], lo[nb:, :nb], lo[nb:, nb:] = l11[0], l21, l22
     np.testing.assert_allclose((lo @ lo.mT).numpy(), a, rtol=1e-9, atol=1e-9)
-
-
-@pytest.mark.parametrize(
-    "nb,r,batch,itemsize,want",
-    [
-        (512, 128, 63, 8, 32),  # panel TRSM of the main path
-        (512, 1, 1, 8, 1),  # forward sweep for alpha
-        (512, 1024, 1, 8, 8),  # a predict batch: more blocks for the SMs
-        (2048, 128, 63, 8, 8),  # the README's serving tile: shared memory
-        (2048, 128, 63, 4, 16),
-        (40, 3, 2, 8, 4),
-    ],
-)
-def test_trsm_block_columns(nb, r, batch, itemsize, want):
-    rc = trsm_cols(nb, r, batch, itemsize, H100_SMS)
-    assert rc == want
-    assert nb * rc * itemsize <= 200 * 1024
-
-
-def test_trsm_block_columns_refuse_a_column_too_tall():
-    with pytest.raises(ValueError, match="shared memory"):
-        trsm_cols(40000, 1, 1, 8, H100_SMS)
 
 
 def test_tlr_path_runs_potrf_and_trsm_through_ops(monkeypatch):
@@ -302,7 +280,7 @@ def test_dmma_potrf_bad_pivot_in_a_later_panel_gives_an_all_nan_tile():
 
 
 def _invert_diag_blocks(lo):
-    """The dmma_f64 trsm's first launch: each 64 x 64 diagonal block of lo
+    """The trsm's first launch (both instances): each 64 x 64 diagonal block of lo
     (lo_batch, nb, nb), a ragged last one padded with the identity,
     inverted column by column as its threads do (x <- e_c; per column jj:
     x[jj] *= 1 / L[jj][jj], then x[i] -= L[i][jj] x[jj] below it)."""
@@ -322,14 +300,15 @@ def _invert_diag_blocks(lo):
     return torch.stack(blocks, dim=1)
 
 
-def _emulate_trsm_dmma_f64(lo, b, super_rows=TRSM_SUPER):
-    """The dmma_f64 trsm instance's order of work in plain torch, in b's
-    dtype: the inverted diagonal blocks D_j; then per super-block of
+def _emulate_trsm_blocked(lo, b, super_rows=TRSM_SUPER):
+    """The trsm's order of work in plain torch, in b's dtype: the dmma_f64
+    instance's and the fma_f32 instance's, which runs the same launches
+    on FMAs: the inverted diagonal blocks D_j; then per super-block of
     ``super_rows`` rows (all of nb <= 512 on the card) the strip launch's
     walk over 64-row block rows, R = B_i - L_i,R0:i X_R0:i and X_i = D_i R
     (the row split's cluster sums the same 64-row products in the same
-    order, one block row a block); and between super-blocks the update B_2 -= L_21 X_1 (the large-nb
-    schedule)."""
+    order, one block row a block); and between super-blocks the update
+    B_2 -= L_21 X_1 (the large-nb schedule)."""
     batch, nb, _ = b.shape
     n = TRSM_BLOCK
     dinv = _invert_diag_blocks(lo)
@@ -373,15 +352,16 @@ def _matern_lkk(n_side, a):
 )
 @pytest.mark.parametrize("dname", ["float32", "float64"])
 def test_dmma_trsm_order_of_work_matches_pallas(b, nb, m, lo_b, super_rows, dname):
-    """The f64 CUDA trsm instance's arithmetic (inverted 64 x 64 diagonal
-    blocks, block-row products, updates between super-blocks) against the
-    Pallas trsm in interpret mode, at the tolerances of
+    """The CUDA trsm's arithmetic (inverted 64 x 64 diagonal blocks,
+    block-row products, updates between super-blocks; the f64 instance's
+    and, in float32, the f32 one's) against the Pallas trsm in interpret
+    mode, at the tolerances of
     test_trsm_ref_matches_pallas: its shapes, a ragged nb in both
     schedules, a broadcast factor and nb = 1."""
     jd, td = DTYPES[dname]
     lo = np.linalg.cholesky(_spd_batch(lo_b, nb))
     bb = np.random.default_rng(3).normal(size=(b, nb, m))
-    got = _emulate_trsm_dmma_f64(
+    got = _emulate_trsm_blocked(
         torch.as_tensor(lo, dtype=td), torch.as_tensor(bb, dtype=td), super_rows
     )
     lo_full = np.broadcast_to(lo, (b, nb, nb))
@@ -390,21 +370,27 @@ def test_dmma_trsm_order_of_work_matches_pallas(b, nb, m, lo_b, super_rows, dnam
 
 
 @pytest.mark.parametrize("super_rows", [TRSM_SUPER, 128])
-def test_dmma_trsm_on_an_ill_conditioned_matern_factor_matches_pallas(super_rows):
-    """The f64 instance's order of work on the factor of a Matérn tile with
-    nugget 1e-8 (m = 200, range 1.0: the factor's condition number is
-    about 2e3, against about 2 for the factor of a a^T + nb I), at the
-    tolerance of test_trsm_ref_matches_pallas: inverting the diagonal
-    blocks keeps the digits that substitution keeps."""
-    lo = _matern_lkk(10, 1.0)[None]
-    assert float(torch.linalg.cond(lo[0])) > 1e3
+@pytest.mark.parametrize("dname", ["float32", "float64"])
+def test_dmma_trsm_on_an_ill_conditioned_matern_factor_matches_pallas(
+    super_rows, dname
+):
+    """The trsm's order of work (both instances) on the factor of a Matérn
+    tile with nugget 1e-8 (m = 200, range 1.0: the factor's condition
+    number is about 2e3, against about 2 for the factor of a a^T + nb I),
+    at the tolerance of test_trsm_ref_matches_pallas: inverting the
+    diagonal blocks, in f32 too, keeps the digits that substitution
+    keeps.  The f32 factor is the f64 one rounded."""
+    jd, td = DTYPES[dname]
+    lo64 = _matern_lkk(10, 1.0)[None]
+    assert float(torch.linalg.cond(lo64[0])) > 1e3
+    lo = lo64.to(td)
     bb = np.random.default_rng(4).normal(size=(2, lo.shape[1], 24))
-    got = _emulate_trsm_dmma_f64(lo, torch.as_tensor(bb), super_rows)
+    got = _emulate_trsm_blocked(lo, torch.as_tensor(bb, dtype=td), super_rows)
     lo_full = np.broadcast_to(lo.numpy(), (2, *lo.shape[1:]))
-    want = j_trsm(jnp.asarray(lo_full), jnp.asarray(bb), interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRSM_TOL["float64"])
-    plain = ref.trsm_ref(lo, torch.as_tensor(bb))
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TRSM_TOL["float64"])
+    want = j_trsm(jnp.asarray(lo_full, jd), jnp.asarray(bb, jd), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRSM_TOL[dname])
+    plain = ref.trsm_ref(lo, torch.as_tensor(bb, dtype=td))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TRSM_TOL[dname])
 
 
 @pytest.mark.parametrize(
@@ -431,3 +417,28 @@ def test_dmma_trsm_on_an_ill_conditioned_matern_factor_matches_pallas(super_rows
 def test_dmma_trsm_plan(batch, nb, r, want):
     """(strip columns, super-block rows, update tile, row split)."""
     assert trsm_plan(batch, nb, r, H100_SMS) == want
+
+
+@pytest.mark.parametrize(
+    "batch,nb,r,want",
+    [
+        (1, 512, 32256, (64, 512, 0, 0)),  # exact_f32, first panel solve
+        (1, 512, 512, (8, 512, 0, 0)),  # and its last
+        (1, 512, 1, (8, 512, 0, 1)),  # alpha: the rows split
+        (1, 512, 8064, (64, 512, 0, 0)),  # wide
+        (63, 512, 128, (64, 512, 0, 0)),  # panel
+        (1, 512, 2048, (16, 512, 0, 0)),  # exact_f32, step 59
+        (4, 2048, 128, (8, 512, 64, 0)),  # the serving tile: updates of 64
+        (1, 4096, 1, (8, 512, 64, 1)),  # alpha4096
+        (1, 4096, 28672, (64, 512, 128, 0)),
+    ],
+)
+def test_fma_f32_trsm_plan(batch, nb, r, want):
+    """(strip columns, super-block rows, update tile, row split) of the
+    fma_f32 instance at the shapes it takes."""
+    assert trsm_plan(batch, nb, r, H100_SMS, torch.float32) == want
+
+
+def test_trsm_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or float64"):
+        trsm_plan(1, 512, 1, H100_SMS, torch.float16)
