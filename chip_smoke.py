@@ -13,10 +13,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             instances (registers, spills) and of the f64 (dmma_f64)
             instances of potrf, tlr_mm, trsm and syrk (registers, spills,
             and the DMMA instructions in each kernel's SASS).  It fails
-            unless the bf16 flash instance was compiled to the 168
-            registers a thread that its setmaxnreg split assumes, unless,
-            where cuobjdump sits beside nvcc, its SASS holds HGMMA (wgmma)
-            and UTMALDG (TMA loads), unless every product kernel of the
+            unless both flash instances (bf16 and tf32x3_f32) were compiled
+            to the 168 registers a thread that their setmaxnreg splits
+            assume, unless, where cuobjdump sits beside nvcc, their SASS
+            holds HGMMA (bf16 and tf32 wgmma) and UTMALDG (TMA loads),
+            unless every product kernel of the
             dmma_f64 instances holds DMMA (the FP64 tensor cores), and unless
             every instance of the two Matérn kernels is built without spills,
             with 128-bit stores where it stores vectors and without local
@@ -36,7 +37,11 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             takes on these inputs (``general_steps``), and its ``steps``
             the mean, the largest and the warps' divergence.
             flash_attention is held at every shape its two
-            instances take (bf16 on wgmma, f32 on FMAs), potrf, tlr_mm,
+            instances take (FLASH_CASES: bf16 on wgmma, f32 on tf32 wgmma
+            with the 3xTF32 split, both at ATTN_TOL; the f32 bound at three
+            tf32 passes at 495 TFLOP/s, with one f32 pass at 67 TFLOP/s on
+            the FP32 cores beside it, and the f32 depth-4, decode and q128
+            shapes timed), potrf, tlr_mm,
             trsm and syrk at the shapes of both of theirs (f64 on DMMA, f32
             on FMAs), each record naming its instance.  potrf is also timed
             at (1, 2048, 2048) and (1, 4096, 4096), and failed on bad tiles
@@ -169,7 +174,8 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             the flash kernel (one warm-up, one run timed by CUDA events),
             finite, within 5e-2 of the naive path and with exactly 36 flash
             launches a forward, all of the bf16 instance (0 on the naive
-            path; the depth-4 f32 forward's are all of the f32 instance);
+            path; the depth-4 f32 forward's are 4, all of the f32
+            instance tf32x3_f32);
             then the engine,
             ``generate`` on (8, 512) prompts for 64 greedy steps (cached
             attention: 0 flash launches), its prefill and each decode step
@@ -214,15 +220,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense):
 # HBM3 3.35 TB/s, FP64 34 TFLOP/s on the CUDA cores and 67 TFLOP/s on the
-# tensor cores, FP32 67 TFLOP/s, BF16 989 TFLOP/s on the tensor cores.
+# tensor cores, FP32 67 TFLOP/s, TF32 495 TFLOP/s and BF16 989 TFLOP/s on the
+# tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {
     ("elementwise", "float64"): 34e12,
     ("elementwise", "float32"): 67e12,
     ("matmul", "float64"): 67e12,
     ("matmul", "float32"): 67e12,
+    ("matmul", "tf32"): 495e12,
     ("matmul", "bfloat16"): 989e12,
 }
+# The tf32 passes of each f32 product in the f32 flash instance (3xTF32).
+TF32_PASSES = 3
 # Arithmetic operations of the Matérn kernels an element (exp, log, sqrt,
 # sinh, cosh and a division counted as one each): a distance from two
 # locations (matern_tile only); the halfint instance's closed form and
@@ -249,9 +259,15 @@ TOL = {
     "float64": dict(rtol=1e-10, atol=1e-12),
     "float32": dict(rtol=2e-3, atol=1e-3),
 }
-# Registers a thread of the bf16 flash instance at launch: its setmaxnreg
-# split gives 2 x 128 consumers 240 and 128 producers 24.
-FLASH_WGMMA_REGS = (2 * 128 * 240 + 128 * 24) // 384
+# Registers a thread of the flash instances at launch: their setmaxnreg
+# splits give 2 x 128 consumers 240 and 128 producers 24 (bf16), 224 and 56
+# (tf32x3_f32).
+FLASH_REGS = {
+    "wgmma_bf16": (2 * 128 * 240 + 128 * 24) // 384,
+    "tf32x3_f32": (2 * 128 * 224 + 128 * 56) // 384,
+}
+# The flash instances' kernels, by their names in the compiler's report.
+FLASH_KERNELS = {"wgmma_bf16": "flash_wgmma_kernel", "tf32x3_f32": "flash_tf32x3_kernel"}
 SOURCES = {
     "matern_tile": (
         "src/repro_torch/kernels/csrc/matern_tile.cu",
@@ -310,6 +326,34 @@ ATTN_TOL = {
     "bfloat16": dict(rtol=2e-2, atol=2e-2),
     "float32": dict(rtol=2e-5, atol=2e-5),
 }
+# The flash_attention checks of the kernels phase, (case, BH, BKV, Sq, Skv,
+# D, dtype, window): qwen3-4b prefill at B = 2, S = 4096 (the path's shape),
+# the f32 shape of the lm phase's depth-4 check, a window, right-aligned
+# decode and a short query block against a long cache, a ragged length at
+# phi3's head dim, the other head-dim instances, and a length that is not a
+# multiple of 128; and the (case, dtype) pairs that are timed.
+FLASH_CASES = (
+    ("path", 64, 16, 4096, 4096, 128, "bfloat16", 0),
+    ("depth4_f32", 32, 8, 4096, 4096, 128, "float32", 0),
+    ("window1024", 64, 16, 4096, 4096, 128, "bfloat16", 1024),
+    ("decode", 64, 16, 1, 4096, 128, "float32", 0),
+    ("decode", 64, 16, 1, 4096, 128, "bfloat16", 0),
+    ("q128_kv4096", 64, 16, 128, 4096, 128, "float32", 0),
+    ("q128_kv4096", 64, 16, 128, 4096, 128, "bfloat16", 0),
+    ("ragged_d96_mha", 32, 32, 1000, 1000, 96, "float32", 0),
+    ("ragged_d96_mha", 32, 32, 1000, 1000, 96, "bfloat16", 0),
+    ("d64_gqa", 8, 2, 300, 300, 64, "float32", 0),
+    ("d64_gqa", 8, 2, 300, 300, 64, "bfloat16", 0),
+    ("d32_window", 8, 8, 200, 333, 32, "float32", 50),
+    ("d32_window", 8, 8, 200, 333, 32, "bfloat16", 50),
+    ("s4000", 64, 16, 4000, 4000, 128, "bfloat16", 0),
+)
+FLASH_TIMED = (
+    ("path", "bfloat16"),
+    ("depth4_f32", "float32"),
+    ("decode", "float32"),
+    ("q128_kv4096", "float32"),
+)
 # The tolerances of tests/test_kernels.py::test_potrf_kernel and
 # ::test_trsm_kernel.
 CHOL_TOL = {
@@ -440,9 +484,11 @@ def phase_device(torch, st):
     lines = text.splitlines()
     report = [ln.strip() for ln in lines if "registers" in ln or "spill" in ln]
     flash = flash_ptxas(text)
-    regs = [ln for ln in flash["wgmma_bf16"] if "registers" in ln]
-    want = f"Used {FLASH_WGMMA_REGS} registers"
-    regs_ok = len(regs) == 4 and all(want in ln for ln in regs)
+    regs_ok = True
+    for inst, want_regs in FLASH_REGS.items():
+        regs = [ln for ln in flash[inst] if "registers" in ln]
+        want = f"Used {want_regs} registers"
+        regs_ok = regs_ok and len(regs) == 4 and all(want in ln for ln in regs)
     sass = flash_sass(lib)
     dmma = dmma_report(text, lib)
     fma = {}
@@ -470,7 +516,7 @@ def phase_device(torch, st):
         }
     )
     if not st["flash_ok"]:
-        raise AssertionError("the bf16 flash instance is not built as designed")
+        raise AssertionError("a flash instance is not built as designed")
     if not dmma["ok"]:
         raise AssertionError("a dmma_f64 product kernel has no DMMA in its SASS")
     if not matern["ok"]:
@@ -479,14 +525,16 @@ def phase_device(torch, st):
 
 def flash_ptxas(log_text: str) -> dict:
     """The compiler's report lines of flash_attention.cu's entry functions,
-    by instance: ``flash_wgmma_kernel`` (bf16) and ``flash_kernel`` (f32)."""
+    by instance: ``flash_wgmma_kernel`` (bf16) and ``flash_tf32x3_kernel``
+    (f32)."""
     section = log_text.split("== flash_attention.cu", 1)[-1].split("\n== ", 1)[0]
-    out = {"wgmma_bf16": [], "fma_f32": []}
+    out = {inst: [] for inst in FLASH_KERNELS}
     key = None
     for line in section.splitlines():
         if "Compiling entry function" in line:
-            key = "wgmma_bf16" if "flash_wgmma_kernel" in line else "fma_f32"
-            out[key].append(line.split("'")[1])
+            key = next((i for i, k in FLASH_KERNELS.items() if k in line), None)
+            if key:
+                out[key].append(line.split("'")[1])
         elif key and ("registers" in line or "spill" in line or "wgmma" in line):
             out[key].append(line.strip())
     return out
@@ -525,18 +573,18 @@ def ptxas_entries(log_text: str, src: str, keep=lambda name: True) -> dict:
 
 
 def flash_sass(lib) -> dict:
-    """Counts of HGMMA, UTMALDG and UTMASTG in each bf16 flash kernel's SASS,
-    where cuobjdump sits beside nvcc; ok unless an HGMMA or UTMALDG count is
-    0."""
+    """Counts of HGMMA (bf16 and tf32 wgmma alike), UTMALDG and UTMASTG in
+    each flash kernel's SASS (both instances), where cuobjdump sits beside
+    nvcc; ok unless an HGMMA or UTMALDG count is 0."""
     functions = sass_functions(lib)
     if functions is None:
         return {"cuobjdump": None}
     counts = {}
     for name, part in functions.items():
-        if "flash_wgmma_kernel" in name:
+        if any(k in name for k in FLASH_KERNELS.values()):
             ops = ("HGMMA", "UTMALDG", "UTMASTG")
             counts[name] = {op: part.count(op) for op in ops}
-    ok = len(counts) == 4 and all(
+    ok = len(counts) == 4 * len(FLASH_KERNELS) and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()
     )
     return {"cuobjdump": True, "kernels": counts, "ok": ok}
@@ -1564,7 +1612,13 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
     isz = q.element_size()
     nbytes = (2 * bh * sq * d + 2 * bkv * skv * d) * isz
     flops = 4 * d * attention_pairs(sq, skv, window) * bh
-    b_ms, b_by = bound(nbytes, flops, "matmul", dname)
+    if dname == "float32":
+        # the 3xTF32 split: three tf32 passes a product on the tensor cores;
+        # beside it, one f32 pass on the FP32 cores
+        b_ms, b_by = bound(nbytes, TF32_PASSES * flops, "matmul", "tf32")
+        fp32 = bound(nbytes, flops, "matmul", "float32")
+    else:
+        b_ms, b_by = bound(nbytes, flops, "matmul", dname)
     rec = {
         "phase": "kernel_check",
         "kernel": "flash_attention",
@@ -1580,6 +1634,8 @@ def check_flash_attention(torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, t
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+    if dname == "float32":
+        rec["bound_fp32_cores_ms"], rec["bound_fp32_cores_by"] = fp32
     if dname == "bfloat16":
         # against the f32 result before its rounding to bf16: the kernel's
         # error beside the error of that rounding alone
@@ -1764,40 +1820,23 @@ def phase_kernels(torch, st, n_side: int):
     # shapes, ragged nb, the panel-4096 path's first step, offsets past 2^31,
     # and the summed sweeps of the panel-512 paths' 63 updates (check_syrks)
     records.extend(check_syrks(torch, st, gen))
-    # flash_attention, both instances: qwen3-4b prefill at B = 2, S = 4096
-    # (the path's shape, timed), the f32 shape of the lm phase's depth-4
-    # check (timed), a window, right-aligned decode and a short query block
-    # against a long cache, a ragged length at phi3's head dim, the other
-    # head-dim instances, and a length that is not a multiple of 128
+    # flash_attention, both instances, at FLASH_CASES (those of FLASH_TIMED
+    # timed: the bf16 path, and the f32 depth-4, decode and q128 shapes)
     if not st.get("flash_ok"):
-        raise AssertionError("the bf16 flash instance failed the device phase")
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = (
-        ("path", 64, 16, 4096, 4096, 128, bf16, 0),
-        ("depth4_f32", 32, 8, 4096, 4096, 128, f32, 0),
-        ("window1024", 64, 16, 4096, 4096, 128, bf16, 1024),
-        ("decode", 64, 16, 1, 4096, 128, f32, 0),
-        ("decode", 64, 16, 1, 4096, 128, bf16, 0),
-        ("q128_kv4096", 64, 16, 128, 4096, 128, f32, 0),
-        ("q128_kv4096", 64, 16, 128, 4096, 128, bf16, 0),
-        ("ragged_d96_mha", 32, 32, 1000, 1000, 96, f32, 0),
-        ("ragged_d96_mha", 32, 32, 1000, 1000, 96, bf16, 0),
-        ("d64_gqa", 8, 2, 300, 300, 64, f32, 0),
-        ("d64_gqa", 8, 2, 300, 300, 64, bf16, 0),
-        ("d32_window", 8, 8, 200, 333, 32, f32, 50),
-        ("d32_window", 8, 8, 200, 333, 32, bf16, 50),
-        ("s4000", 64, 16, 4000, 4000, 128, bf16, 0),
-    )
-    for tag, bh, bkv, sq, skv, d, dtype, window in cases:
-        timed = tag in ("path", "depth4_f32")
+        raise AssertionError("a flash instance failed the device phase")
+    for tag, bh, bkv, sq, skv, d, dname, window in FLASH_CASES:
+        timed = (tag, dname) in FLASH_TIMED
+        dtype = getattr(torch, dname)
         rec = check_flash_attention(
             torch, gen, tag, bh, bkv, sq, skv, d, dtype, window, timed
         )
         records.append(rec)
         if tag == "path":
             st.setdefault("summary", {})["flash_attention"] = rec
-        elif timed:
+        elif tag == "depth4_f32":
             st["flash_f32"] = rec
+        elif timed:
+            st.setdefault("extra", {}).setdefault("flash_attention", []).append(rec)
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
 
@@ -2807,7 +2846,7 @@ def phase_lm(torch, st):
     from repro_torch.serving.engine import generate, make_serve_fns
 
     if not st.get("flash_ok"):
-        raise AssertionError("the bf16 flash instance failed the device phase")
+        raise AssertionError("a flash instance failed the device phase")
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2937,11 +2976,11 @@ def phase_lm(torch, st):
     ok = ok and rec["depth4_f32_launches"] == cfg4.num_layers
     ok = ok and rec["depth4_f32_launches_by_instance"] == {
         "wgmma_bf16": 0,
-        "fma_f32": cfg4.num_layers,
+        "tf32x3_f32": cfg4.num_layers,
     }
     ok = ok and rec["prefill_timed_launches_by_instance"] == {
         "wgmma_bf16": cfg.num_layers,
-        "fma_f32": 0,
+        "tf32x3_f32": 0,
     }
     ok = ok and rec["prefill_finite"] and rec["prefill_rel_gap"] <= LM_BF16_GAP
     ok = ok and rec["prefill_launches"] == {
@@ -3040,7 +3079,8 @@ def main() -> int:
         if name == "flash_attention":
             f32 = st["flash_f32"]
             kernels[-1]["f32_instance"] = {
-                key: f32[key] for key in ("instance", "shape", *keys, "library_ms")
+                key: f32[key]
+                for key in ("instance", "shape", *keys, "library_ms", "bound_fp32_cores_ms")
             }
         for key in ("nu", "steps", "k1_only_ms", "bound_share"):
             if key in rec:
@@ -3051,6 +3091,7 @@ def main() -> int:
         extra_keys += ("bound_ms", "ms_sum", "library_ms_sum", "bound_ms_sum")
         extra_keys += ("max_abs_err", "bound_share", "ms_two_step")
         extra_keys += ("max_abs_err_vs_f64", "library_max_abs_err_vs_f64")
+        extra_keys += ("bound_fp32_cores_ms",)
         if name in st.get("extra", {}):
             kernels[-1]["other_shapes"] = [
                 {key: r[key] for key in extra_keys if key in r}

@@ -9,8 +9,8 @@
 // _flash_kernel).  On the LM path (models/attention.py, impl="kernel") it is
 // the attention of every layer of a forward without caches: the prefill and
 // scoring forward.  Two instances: bf16 on Hopper's tensor cores (wgmma, TMA,
-// warp specialisation; namespace `hopper` below) and f32 on the FP32 CUDA
-// cores (the FMA kernel, `flash_kernel`).
+// warp specialisation; namespace `hopper` below) and f32 on the TF32 tensor
+// cores with the 3xTF32 split (the same machinery; namespace `tf32x3`).
 //
 // Semantics, as _flash_kernel: queries are right-aligned to the keys, so
 // query i sits at qpos = i + (Skv - Sq) and key j at kpos = j; a key is
@@ -41,8 +41,8 @@
 // 168 MB of q, k, v and out, 0.050 ms at 3.35 TB/s: operations bound it.
 //
 // The bf16 instance (namespace hopper).  The first kernel ran bf16 through
-// the f32 FMA design below and reached 24 TFLOP/s; what held it back, and
-// what replaces each part:
+// an f32 FMA design (the f32 instance's first design, since replaced) and
+// reached 24 TFLOP/s; what held it back, and what replaces each part:
 //  - FP32 FMAs on the CUDA cores (67 TFLOP/s peak) -> both products on the
 //    bf16 tensor cores with wgmma (989 TFLOP/s): S = Q K^T as m64n128k16
 //    with Q and K in shared memory, O += P V as m64nDk16 with P in
@@ -98,243 +98,66 @@
 // bf16 hi and lo parts would cut the added error at 1.5x the flops; it is
 // not needed, and this kernel uses the single bf16 P.
 //
-// The f32 instance (flash_kernel) stays on the FP32 CUDA cores: TF32 wgmma
-// keeps about three decimal digits and would fail the f32 tolerance of 2e-5
-// that the depth-4 f32 check and the f32 tests hold it to.  Its design: the
-// TPU grid (BH, Sq / bq, Skv / bk) runs its kv axis in order and carries
-// the online-softmax state in VMEM scratch from one step to the next.  Here
-// one block of 256 threads owns 64 queries of one head (grid.x over query
-// tiles, the longest rows first; grid.y over BH) and a loop inside the
-// block takes the place of the kv axis.  The Q tile and the current K and V
-// tiles (64 x D each) sit in dynamic shared memory as f32, rows padded to
-// D + 1 words so the column reads are free of bank conflicts; at D = 128
-// they take 99 KB and the 64 x 64 P tile 16.6 KB, so two blocks share an
-// SM.  A thread owns rows ty + 16 i (i < 4) and, of the score tile, columns
-// tx + 16 j (j < 4), of the accumulator columns tx + 16 j (j < D / 16): the
-// 16 threads of a row are one half-warp, so the row max and row sum are
-// shuffles, the running max and sum live in registers, and P goes through
-// shared memory read back by the same warp.  What bounds it is the FP32 FMA
-// rate and the shared-memory reads that feed it (8 per 16 FMAs of the score
-// tile, 12 per 32 of P V).
+// The f32 instance (namespace tf32x3) runs both products on the TF32 tensor
+// cores with the error-compensated split that CUTLASS calls 3xTF32: an f32
+// operand x is hi + lo, hi its tf32 part and lo = x - hi (exact in f32), and
+// a b is formed as hi hi + hi lo + lo hi in f32, lo lo dropped.  One TF32
+// pass keeps about three decimal digits and would fail the f32 tolerance of
+// 2e-5 that the depth-4 f32 check and the f32 tests hold the kernel to; the
+// split loses about 2^-20 of each product.
+//  - The tensor cores read only the sign, exponent and top 10 mantissa bits
+//    of an f32 operand: the low 13 are ignored, not rounded.  The probe of
+//    scripts/flash_f32_variants.py (a 64 x 128 by 128 x 64 product, three
+//    seeds, NVIDIA H100 80GB HBM3 at 700 W) found a raw tf32 pass equal bit
+//    for bit to one on operands with those bits cleared, and unequal to one
+//    on operands rounded by cvt.rna.tf32.f32.  So a raw f32 tile is its own
+//    hi part, lo = x - (x with its low 13 bits cleared) is the only tile the
+//    split has to write, and lo's own low bits are dropped the same way.  On
+//    the probe's product this split is at most 5.18e-7 of sum |a_k b_k| from
+//    the f64 product, 2.8x the FP32 FMA loop's 1.86e-7 (hi by cvt.rna: 1.7x;
+//    one raw pass: 2783x), and its RS form (A's lo from registers) equals
+//    its SS form bit for bit.
+//  - tf32 wgmma has no transpose bit: A and B must be K-major.  S = Q K^T
+//    takes Q and K as they lie (TMA with f32 tensor maps, 32-column chunks
+//    of 128 bytes in the 128-byte swizzle; a k8 step is 32 bytes of a row);
+//    O += P V needs V K-major in keys, so V is written transposed into
+//    shared memory.  A's lo parts are formed in registers (Q lo once, P lo
+//    each tile); B's lo parts (K lo, V^T lo) are written into shared memory.
+//  - The producer warpgroup: one thread issues the TMA loads of Q and of raw
+//    K and V into a ring; its three other warps run the split pass, K lo in
+//    raw K's layout and V^T hi and lo, into a ring of split sets with full
+//    and empty mbarriers of their own.  Each consumer warpgroup (64 queries)
+//    runs S as Q K_lo^T + Q_lo K^T + Q K^T (SS, RS, SS wgmmas, the small
+//    terms first), the softmax as the bf16 instance's, and O += P_lo V +
+//    P V_lo + P V (three RS wgmmas).  P's A fragment of a k8 step holds
+//    columns t and t + 4 (t = lane % 4) where the accumulator gives the
+//    thread keys 2 t and 2 t + 1: a sum over keys may take them in any
+//    order, so V^T's rows store each 8-key group as its even keys, then its
+//    odd ones, and P's fragments are the accumulator's registers as they lie.
+//  - The budget (227 KB a block), at D = 128 in f32: a 128-query Q tile is
+//    64 KB, a 32-key tile 16 KB for each of raw K, raw V, K lo, V^T hi and
+//    V^T lo.  128 queries, 32-key tiles, 2 raw stages (64 KB) and 2 split
+//    sets (96 KB) take 224 KB.  Of the launch's 168 registers a thread, the
+//    producer drops to 56 and the consumers rise to 224; at D = 128 ptxas
+//    reports 128 bytes of spill stores (the same at 40 and 232).
+// Bound: 3 x 4 D flops for each unmasked pair at the TF32 peak of
+// 495 TFLOP/s; at the depth-4 check's shape (32/8 heads, 4096 x 4096, D =
+// 128, causal) 3 x 1.3747e11 flops, 0.833 ms (2.052 ms for one f32 pass on
+// the FP32 cores at 67 TFLOP/s).  The variants script timed it there at
+// 2.14-2.19 ms over three calls (39%; the FMA kernel it replaces 5.90-5.94),
+// and the other layouts that fit slower: one split set 2.77-2.81 ms, 64-key
+// tiles with one raw stage and one split set 2.34-2.36, 64 queries a block
+// 2.35.  Its ablations: without the split pass 1.98-2.02 ms; with one tf32
+// pass a product 1.24-1.26, so the two lo passes cost about 0.9 ms and the
+// rest (the softmax, the barriers, the wait on each 32-key tile's wgmmas)
+// holds even one pass at 22% of its own bound.  At the decode and q128
+// shapes 64 queries a block are faster (0.28 against 0.40-0.48 ms: twice
+// the blocks on the card); those shapes are on no path.
 #include <cuda.h>  // CUtensorMap and its enums; the library calls no libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-namespace {
-
-constexpr int kBq = 64;  // queries a block
-constexpr int kBk = 64;  // keys a tile
-constexpr int kThreads = 256;
-constexpr int kLdp = kBk + 1;  // padded row of the P tile
-constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(3) * kBq * (D + 1) + size_t(kBq) * kLdp);
-}
-
-// dst[r][c] = src[r, c] as f32 for the first `rows` rows of a 64 x D tile,
-// zero below them.  Consecutive threads read consecutive elements.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
-                                          int rows) {
-  for (int e = threadIdx.x; e < kBq * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * (D + 1) + c] = r < rows ? to_f32(src[(long long)r * D + c]) : 0.f;
-  }
-}
-
-// The max (or sum) over the 16 lanes of a half-warp.
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq,
-                 int skv, int group, float scale, int causal, int window) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int kLd = D + 1;
-  constexpr int kCols = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + kBq * kLd;
-  float* vs = ks + kBk * kLd;
-  float* ps = vs + kBk * kLd;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = qt * kBq;
-  const int rows = min(kBq, sq - q0);
-  const int off = skv - sq;
-  const T* qb = q + ((long long)bh * sq + q0) * D;
-  const T* kb = k + (long long)(bh / group) * skv * D;
-  const T* vb = v + (long long)(bh / group) * skv * D;
-
-  int k_lo = 0, k_hi = skv - 1;
-  if (window > 0) k_lo = max(0, q0 + off - window + 1);
-  if (causal) k_hi = min(k_hi, q0 + rows - 1 + off);
-  const int t_lo = k_lo / kBk, t_hi = k_hi / kBk;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<T, D>(qs, qb, rows);
-
-  float acc[4][kCols], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int kbase = t * kBk;
-    const int keys = min(kBk, skv - kbase);
-    __syncthreads();  // the last tile's K, V and P reads are done
-    load_tile<T, D>(ks, kb + (long long)kbase * D, keys);
-    load_tile<T, D>(vs, vb + (long long)kbase * D, keys);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      const int qpos = q0 + row + off;
-      float mx = kMasked;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = kbase + tx + 16 * j;
-        bool keep = kpos < skv;
-        if (causal) keep = keep && kpos <= qpos;
-        if (window > 0) keep = keep && kpos > qpos - window;
-        s[i][j] = keep ? s[i][j] * scale : kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[row * kLdp + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = corr * l[i] + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
-    }
-    __syncwarp();  // a warp reads back only the P rows it wrote
-
-#pragma unroll 4
-    for (int c = 0; c < kBk; ++c) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * kLdp + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float w = vs[c * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], w, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    if (row < rows) {
-      const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      T* o = out + ((long long)bh * sq + q0 + row) * D;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) store(o + tx + 16 * j, acc[i][j] * inv);
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, int bh, int sq,
-                   int skv, int group, float scale, int causal, int window,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBq - 1) / kBq, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, sq, skv, group, scale,
-                                           causal, window);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
-             int sq, int skv, int d, int group, float scale, int causal,
-             int window, void* stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return launch<T, 32>(qt, kt, vt, ot, bh, sq, skv, group, scale, causal,
-                           window, st);
-    case 64:
-      return launch<T, 64>(qt, kt, vt, ot, bh, sq, skv, group, scale, causal,
-                           window, st);
-    case 96:
-      return launch<T, 96>(qt, kt, vt, ot, bh, sq, skv, group, scale, causal,
-                           window, st);
-    case 128:
-      return launch<T, 128>(qt, kt, vt, ot, bh, sq, skv, group, scale, causal,
-                            window, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-
-}  // namespace
 
 namespace hopper {
 
@@ -927,12 +750,648 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
 
 }  // namespace hopper
 
+// ---------------------------------------------------------------------------
+// The f32 instance: 3xTF32 on the tensor cores (see the note at the top).
+namespace tf32x3 {
+
+using hopper::encode_tiled;
+using hopper::ex2;
+using hopper::kLog2e;
+using hopper::kMasked;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::named_sync;
+using hopper::pin;
+using hopper::smem_desc;
+using hopper::smem_u32;
+using hopper::tma_load;
+using hopper::tma_store;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait_all;
+
+// The tiling (scripts/flash_f32_variants.py times others, in copies with
+// these lines replaced).
+constexpr int kWg = 2;           // consumer warpgroups, 64 queries each
+constexpr int kBn = 32;          // keys a tile
+constexpr int kRawStages = 2;    // raw K and V tiles in the TMA ring
+constexpr int kSplitStages = 2;  // K lo, V^T hi and V^T lo sets
+constexpr int kProducerRegs = 56;  // setmaxnreg of the producer warpgroup
+constexpr int kBm = 64 * kWg;      // queries a block
+constexpr int kThreads = 128 * (1 + kWg);  // producer warpgroup + consumers
+constexpr int kSplitThreads = 96;          // warps 1-3 of the producer
+// the rest of the launch's 168 registers a thread goes to the consumers
+constexpr int kConsumerRegs = (168 * 384 - 128 * kProducerRegs) / 256 / 8 * 8;
+// A float's sign, exponent and the 10 mantissa bits that tf32 keeps: the
+// tensor cores read only these of an f32 operand (the probe of
+// scripts/flash_f32_variants.py), so a raw f32 tile is its own hi part.
+constexpr uint32_t kTf32Bits = 0xFFFFE000u;
+static_assert(kWg == 1 || kWg == 2, "one or two consumer warpgroups");
+static_assert(kBn == 32 || kBn == 64, "key tiles of 32 or 64");
+static_assert(kWg == 1 || 128 * kProducerRegs + 256 * kConsumerRegs == 168 * 384,
+              "the setmaxnreg split hands on exactly the registers of the launch");
+
+// Shared-memory geometry at head dim D.  Every tile is stored in 32-float
+// (128-byte) column chunks, one chunk region after the other, rows of 128
+// bytes in the 128-byte swizzle: Q (kBm x D), raw K and V (kBn x D, as TMA
+// lands them), K lo (the layout of raw K) and V^T hi and lo (D x kBn, keys
+// along the row).
+template <int D>
+struct Geo {
+  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32, 64, 96 or 128");
+  static constexpr int kChunks = D / 32;
+  static constexpr int kQRegion = kBm * 128;
+  static constexpr int kKRegion = kBn * 128;
+  static constexpr int kVtRegion = D * 128;  // 32 keys of V^T
+  static constexpr int kQBytes = kBm * D * 4;
+  static constexpr int kTileBytes = kBn * D * 4;
+  static constexpr int kRawBytes = 2 * kTileBytes;    // K, then V
+  static constexpr int kSplitBytes = 3 * kTileBytes;  // K lo, V^T hi, V^T lo
+  static constexpr int kBarOffset =
+      kQBytes + kRawStages * kRawBytes + kSplitStages * kSplitBytes;
+  // + 1024 to align the base to the 128-byte swizzle's 1024-byte atom
+  static constexpr int kSmem =
+      1024 + kBarOffset + 8 * (1 + 2 * kRawStages + 2 * kSplitStages);
+  static_assert(kSmem <= 232448, "the tiling needs more shared memory than a block has");
+};
+
+// Byte offset of element (r, c) in a tile of 32-column chunk regions of
+// `region` bytes.
+__device__ __forceinline__ uint32_t swz(int r, int c, int region) {
+  return (c >> 5) * region + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
+         4 * (c & 3);
+}
+
+// x minus its tf32 part: exact in f32, and the tensor cores read its own
+// tf32 part in turn.
+__device__ __forceinline__ float lo_part(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & kTf32Bits);
+}
+__device__ __forceinline__ float4 lo_part(float4 x) {
+  return make_float4(lo_part(x.x), lo_part(x.y), lo_part(x.z), lo_part(x.w));
+}
+
+// The A fragment of wgmma's k8 tf32 step kk, columns 8 kk .. 8 kk + 7, for
+// the thread whose rows are r and r + 8 and whose lane is t4 within its quad:
+// a0 (r, 8 kk + t4), a1 (r + 8, 8 kk + t4), a2 (r, 8 kk + t4 + 4),
+// a3 (r + 8, 8 kk + t4 + 4).
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint8_t* tile,
+                                       int region, int r, int kk, int t4) {
+  const int c = 8 * kk + t4;
+  a[0] = *reinterpret_cast<const uint32_t*>(tile + swz(r, c, region));
+  a[1] = *reinterpret_cast<const uint32_t*>(tile + swz(r + 8, c, region));
+  a[2] = *reinterpret_cast<const uint32_t*>(tile + swz(r, c + 4, region));
+  a[3] = *reinterpret_cast<const uint32_t*>(tile + swz(r + 8, c + 4, region));
+}
+
+// The descriptor of a K-major operand in the 128-byte swizzle: 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024, 1);
+}
+
+// D(64 x 32) += A(64 x 8) B(32 x 8)^T in tf32, A and B K-major in shared
+// memory.
+__device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D(64 x 64) += A(64 x 8) B(64 x 8)^T in tf32, A and B K-major in shared
+// memory.
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D(64 x 32) += A(64 x 8) B(32 x 8)^T in tf32, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 64) += A(64 x 8) B(64 x 8)^T in tf32, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 96) += A(64 x 8) B(96 x 8)^T in tf32, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void mma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D(64 x 128) += A(64 x 8) B(128 x 8)^T in tf32, A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 32) {
+    mma_ss_n32(d, da, db);
+  } else {
+    mma_ss_n64(d, da, db);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  if constexpr (N == 32) {
+    mma_rs_n32(d, a, db);
+  } else if constexpr (N == 64) {
+    mma_rs_n64(d, a, db);
+  } else if constexpr (N == 96) {
+    mma_rs_n96(d, a, db);
+  } else {
+    mma_rs_n128(d, a, db);
+  }
+}
+
+__device__ __forceinline__ float elem(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// The split pass of one key tile, by the 96 threads st = 0..95: K lo in raw
+// K's layout, element by element; V^T hi (the raw values) and V^T lo.  A
+// step takes the 4 keys 8 kk + par + {0, 2, 4, 6} at columns 4 dq .. 4 dq + 3
+// and writes them as one 16-byte unit of each of 4 V^T rows: unit par of the
+// 8-key group kk.  So a V^T row holds, within each group of 8 keys, the even
+// keys and then the odd ones, the order in which P's A fragments hold them
+// (the source note says why).  Consecutive threads take consecutive dq; they
+// write their 4 rows in a rotated order, so the 8 threads of a 128-bit
+// store's phase write 8 distinct units: no bank conflicts.
+template <int D>
+__device__ __forceinline__ void split_tile(const uint8_t* kr, const uint8_t* vr,
+                                           uint8_t* kl, uint8_t* vth, uint8_t* vtl,
+                                           int st) {
+  using G = Geo<D>;
+  const float4* k4 = reinterpret_cast<const float4*>(kr);
+  float4* kl4 = reinterpret_cast<float4*>(kl);
+  for (int e = st; e < G::kTileBytes / 16; e += kSplitThreads) {
+    kl4[e] = lo_part(k4[e]);
+  }
+  for (int t = st; t < (kBn / 4) * (D / 4); t += kSplitThreads) {
+    const int dq = t % (D / 4), kp = t / (D / 4);
+    const int kk = kp >> 1, par = kp & 1;
+    float4 x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = 8 * kk + par + 2 * j;
+      x[j] = *reinterpret_cast<const float4*>(
+          vr + (dq >> 3) * G::kKRegion + key * 128 + (((dq & 7) ^ (key & 7)) << 4));
+    }
+    const int unit = 2 * (kk & 3) + par;
+#pragma unroll
+    for (int u0 = 0; u0 < 4; ++u0) {
+      const int u = (u0 + (dq >> 1)) & 3;
+      const float4 y = make_float4(elem(x[0], u), elem(x[1], u), elem(x[2], u),
+                                   elem(x[3], u));
+      const int d = 4 * dq + u;
+      const int off = (kk >> 2) * G::kVtRegion + d * 128 + ((unit ^ (d & 7)) << 4);
+      *reinterpret_cast<float4*>(vth + off) = y;
+      *reinterpret_cast<float4*>(vtl + off) = lo_part(y);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap, int sq,
+                        int skv, int group, float scale_log2, int causal,
+                        int window) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw_base);  // generic view of base
+  const uint32_t q_s = base;
+  const uint32_t raw_s = q_s + G::kQBytes;  // stage s at + s * kRawBytes
+  const uint32_t split_s = raw_s + kRawStages * G::kRawBytes;  // + s * kSplitBytes
+  const uint32_t q_full = base + G::kBarOffset;
+  const uint32_t raw_full = q_full + 8;                       // + 8 s
+  const uint32_t raw_empty = raw_full + 8 * kRawStages;       // + 8 s
+  const uint32_t split_full = raw_empty + 8 * kRawStages;     // + 8 s
+  const uint32_t split_empty = split_full + 8 * kSplitStages;  // + 8 s
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows first
+  const int bh = blockIdx.y;
+  const int q0 = qt * kBm;
+  const int rows = min(kBm, sq - q0);
+  const int off = skv - sq;
+  int k_lo = 0, k_hi = skv - 1;
+  if (window > 0) k_lo = max(0, q0 + off - window + 1);
+  if (causal) k_hi = min(k_hi, q0 + rows - 1 + off);
+  const int t_lo = k_lo / kBn;
+  const int n_tiles = k_hi / kBn - t_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kRawStages; ++s) {
+      mbar_init(raw_full + 8 * s, 1);
+      mbar_init(raw_empty + 8 * s, 128 * kWg + kSplitThreads);
+    }
+    for (int s = 0; s < kSplitStages; ++s) {
+      mbar_init(split_full + 8 * s, kSplitThreads);
+      mbar_init(split_empty + 8 * s, 128 * kWg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if constexpr (kWg == 2) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    }
+    if (threadIdx.x == 0) {
+      // TMA: Q once, then raw K and V into the ring
+      const int kv = bh / group;
+      mbar_expect_tx(q_full, G::kQBytes);
+#pragma unroll
+      for (int c = 0; c < G::kChunks; ++c) {
+        tma_load(q_s + c * G::kQRegion, &qmap, q_full, 32 * c, q0, bh);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kRawStages;
+        const int kbase = (t_lo + i) * kBn;
+        mbar_wait(raw_empty + 8 * s, ((i / kRawStages) & 1) ^ 1);
+        const uint32_t ks = raw_s + s * G::kRawBytes, vs = ks + G::kTileBytes;
+        mbar_expect_tx(raw_full + 8 * s, G::kRawBytes);
+#pragma unroll
+        for (int c = 0; c < G::kChunks; ++c) {
+          tma_load(ks + c * G::kKRegion, &kmap, raw_full + 8 * s, 32 * c, kbase, kv);
+        }
+#pragma unroll
+        for (int c = 0; c < G::kChunks; ++c) {
+          tma_load(vs + c * G::kKRegion, &vmap, raw_full + 8 * s, 32 * c, kbase, kv);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      // the split pass: a raw stage into a split stage
+      const int st = threadIdx.x - 32;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kRawStages, s2 = i % kSplitStages;
+        mbar_wait(raw_full + 8 * s, (i / kRawStages) & 1);
+        mbar_wait(split_empty + 8 * s2, ((i / kSplitStages) & 1) ^ 1);
+        const uint8_t* kr = gbase + (raw_s - base) + s * G::kRawBytes;
+        uint8_t* kl = gbase + (split_s - base) + s2 * G::kSplitBytes;
+        split_tile<D>(kr, kr + G::kTileBytes, kl, kl + G::kTileBytes,
+                      kl + 2 * G::kTileBytes, st);
+        // generic writes that wgmma (the async proxy) reads next
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(split_full + 8 * s2);
+        mbar_arrive(raw_empty + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, r_a and r_a + 8 of them this
+  // thread's, in the accumulator layout of wgmma (warp w holds rows
+  // 16 w .. 16 w + 15; lane l rows l / 4 and l / 4 + 8, columns
+  // 8 j + 2 (l % 4) + {0, 1} of each 8-column group j).
+  if constexpr (kWg == 2) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  }
+  const int g = wg - 1;
+  const int tid = threadIdx.x - 128 * wg;
+  const int lane = tid & 31, t4 = lane & 3;
+  const int r_a = 64 * g + 16 * (tid >> 5) + (lane >> 2);  // row in the tile
+  const int qpos_a = q0 + r_a + off, qpos_b = qpos_a + 8;
+  const int g_rows = min(64, sq - q0 - 64 * g);  // <= 0: no row to write
+  const int q_first = q0 + 64 * g + off, q_last = q_first + g_rows - 1;
+  const uint32_t qa = q_s + 64 * g * 128;  // this warpgroup's rows of Q
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;
+  mbar_wait(q_full, 0);
+  // Q lo as the A fragments of the Q lo K^T pass, in registers
+  uint32_t qlo[D / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    load_a(qlo[kk], gbase, G::kQRegion, r_a, kk, t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      qlo[kk][e] = __float_as_uint(lo_part(__uint_as_float(qlo[kk][e])));
+    }
+  }
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kRawStages, s2 = i % kSplitStages;
+    const int kbase = (t_lo + i) * kBn;
+    const uint32_t ks = raw_s + s * G::kRawBytes;
+    const uint32_t kl = split_s + s2 * G::kSplitBytes;
+    const uint32_t vth = kl + G::kTileBytes, vtl = vth + G::kTileBytes;
+    mbar_wait(raw_full + 8 * s, (i / kRawStages) & 1);
+    mbar_wait(split_full + 8 * s2, (i / kSplitStages) & 1);
+    const bool visible = g_rows > 0 && !(causal && kbase > q_last) &&
+                         !(window > 0 && kbase + kBn - 1 <= q_first - window);
+    float sc[kBn / 2];
+    if (visible) {
+      // S = Q K^T as Q K_lo^T + Q_lo K^T + Q K^T, the small terms first; raw
+      // Q and K are their own hi parts
+#pragma unroll
+      for (int e = 0; e < kBn / 2; ++e) sc[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = kk >> 2, w = kk & 3;
+        mma_ss<kBn>(sc, desc(qa + c * G::kQRegion + 32 * w),
+                    desc(kl + c * G::kKRegion + 32 * w));
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = kk >> 2, w = kk & 3;
+        mma_rs<kBn>(sc, qlo[kk], desc(ks + c * G::kKRegion + 32 * w));
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = kk >> 2, w = kk & 3;
+        mma_ss<kBn>(sc, desc(qa + c * G::kQRegion + 32 * w),
+                    desc(ks + c * G::kKRegion + 32 * w));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+    }
+    mbar_arrive(raw_empty + 8 * s);  // raw K is read; V^T is in the split set
+    if (visible) {
+      // scores in log2 units; the mask only where a key may be masked
+#pragma unroll
+      for (int e = 0; e < kBn / 2; ++e) sc[e] *= scale_log2;
+      const bool masked = kbase + kBn > skv ||
+                          (causal && kbase + kBn - 1 > q_first) ||
+                          (window > 0 && kbase <= q_last - window);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < kBn / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kpos = kbase + 8 * j + 2 * t4 + c;
+            bool keep_a = kpos < skv, keep_b = kpos < skv;
+            if (causal) {
+              keep_a = keep_a && kpos <= qpos_a;
+              keep_b = keep_b && kpos <= qpos_b;
+            }
+            if (window > 0) {
+              keep_a = keep_a && kpos > qpos_a - window;
+              keep_b = keep_b && kpos > qpos_b - window;
+            }
+            if (!keep_a) sc[4 * j + c] = kMasked;
+            if (!keep_b) sc[4 * j + 2 + c] = kMasked;
+          }
+        }
+      }
+
+      // online softmax: the row max over the quad, the correction, p
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int j = 0; j < kBn / 8; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+      }
+      const float corr_a = ex2(m_a - mx_a), corr_b = ex2(m_b - mx_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBn / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          sc[4 * j + c] = ex2(sc[4 * j + c] - m_a);
+          sc[4 * j + 2 + c] = ex2(sc[4 * j + 2 + c] - m_b);
+          sum_a += sc[4 * j + c];
+          sum_b += sc[4 * j + 2 + c];
+        }
+      }
+      l_a = l_a * corr_a + sum_a;  // this thread's part of the row sum
+      l_b = l_b * corr_b + sum_b;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= corr_a;
+        o[4 * j + 1] *= corr_a;
+        o[4 * j + 2] *= corr_b;
+        o[4 * j + 3] *= corr_b;
+      }
+      // P as the A fragments of the k8 steps of P V: the thread holds keys
+      // 8 kk + 2 t4 + {0, 1}, which the fragment's columns t4 and t4 + 4
+      // stand for (V^T's rows hold the keys in that order); P's hi part is
+      // p itself, its lo part p minus that
+      uint32_t phi[kBn / 8][4], plo[kBn / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kBn / 8; ++kk) {
+        phi[kk][0] = __float_as_uint(sc[4 * kk]);
+        phi[kk][1] = __float_as_uint(sc[4 * kk + 2]);
+        phi[kk][2] = __float_as_uint(sc[4 * kk + 1]);
+        phi[kk][3] = __float_as_uint(sc[4 * kk + 3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          plo[kk][e] = __float_as_uint(lo_part(__uint_as_float(phi[kk][e])));
+        }
+      }
+
+      // O += P V as P_lo V + P V_lo + P V, V^T hi and lo K-major in keys
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBn / 8; ++kk) {
+        mma_rs<D>(o, plo[kk], desc(vth + (kk >> 2) * G::kVtRegion + 32 * (kk & 3)));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBn / 8; ++kk) {
+        mma_rs<D>(o, phi[kk], desc(vtl + (kk >> 2) * G::kVtRegion + 32 * (kk & 3)));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBn / 8; ++kk) {
+        mma_rs<D>(o, phi[kk], desc(vth + (kk >> 2) * G::kVtRegion + 32 * (kk & 3)));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(o);
+      pin(phi);
+      pin(plo);
+    }
+    mbar_arrive(split_empty + 8 * s2);
+  }
+
+  if (g_rows <= 0) return;
+  // epilogue: O / max(l, 1e-30) into this warpgroup's rows of the Q tile, in
+  // its swizzle, then one TMA store a chunk (rows past Sq dropped)
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  named_sync(1 + g, 128);  // every warp's last read of its Q rows is done
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = h ? inv_b : inv_a;
+      *reinterpret_cast<float2*>(gbase + swz(r_a + 8 * h, col, G::kQRegion)) =
+          make_float2(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(1 + g, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < G::kChunks; ++c) {
+      tma_store(&omap, qa + c * G::kQRegion, 32 * c, q0 + 64 * g, bh);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// A map over a (heads, rows, D) f32 tensor with boxes of 32 columns by
+// box_rows rows of one head, in the 128-byte swizzle; elements outside the
+// tensor read as zero and are not written.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int heads,
+              int box_rows) {
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(4 * D),
+                                 cuuint64_t(4) * D * cuuint64_t(rows)};
+  const cuuint32_t box[3] = {32, cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode_tiled()(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int bh, int sq, int skv, int group, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  using G = Geo<D>;
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm, om;
+  const int bkv = bh / group;
+  if (!make_map<D>(&qm, q, sq, bh, kBm) || !make_map<D>(&km, k, skv, bkv, kBn) ||
+      !make_map<D>(&vm, v, skv, bkv, kBn) || !make_map<D>(&om, out, sq, bh, 64)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_tf32x3_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kBm - 1) / kBm, bh);
+  kernel<<<grid, kThreads, G::kSmem, stream>>>(
+      qm, km, vm, om, sq, skv, group, scale * kLog2e, causal, window);
+  return cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
+             int sq, int skv, int d, int group, float scale, int causal,
+             int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32:
+      return launch<32>(q, k, v, out, bh, sq, skv, group, scale, causal,
+                        window, st);
+    case 64:
+      return launch<64>(q, k, v, out, bh, sq, skv, group, scale, causal,
+                        window, st);
+    case 96:
+      return launch<96>(q, k, v, out, bh, sq, skv, group, scale, causal,
+                        window, st);
+    case 128:
+      return launch<128>(q, k, v, out, bh, sq, skv, group, scale, causal,
+                         window, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tf32x3
+
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, int bh, int sq, int skv, int d,
                                    int group, float scale, int causal,
                                    int window, void* stream) {
-  return dispatch<float>(q, k, v, out, bh, sq, skv, d, group, scale, causal,
-                         window, stream);
+  return tf32x3::dispatch(q, k, v, out, bh, sq, skv, d, group, scale, causal,
+                          window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,

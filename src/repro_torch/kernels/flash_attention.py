@@ -6,7 +6,9 @@ queries right-aligned to the keys.  The plain version is
 ``kernels.ref.attention_ref``; ``kernels.ops`` chooses between the two by
 the tensors' device.  The dtype picks one of the kernel's two instances:
 bfloat16 runs ``wgmma_bf16`` (Hopper's tensor cores, TMA, warp
-specialisation), float32 ``fma_f32`` (the FP32 CUDA cores).
+specialisation), float32 ``tf32x3_f32`` (the same machinery on the TF32
+tensor cores, each f32 product formed from three tf32 passes: the 3xTF32
+split, accurate to about 2^-20 of each product).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from . import _build
 # dtype -> (instance, its C symbol)
 _INSTANCES = {
     torch.bfloat16: ("wgmma_bf16", "flash_attention_bf16"),
-    torch.float32: ("fma_f32", "flash_attention_f32"),
+    torch.float32: ("tf32x3_f32", "flash_attention_f32"),
 }
 HEAD_DIMS = (32, 64, 96, 128)  # the kernel's template instances
 
@@ -47,8 +49,8 @@ def flash_attention_cuda(
 
     q: (BH, Sq, D); k, v: (BKV, Skv, D) with BH = BKV * group and Sq <= Skv;
     all contiguous CUDA tensors of one dtype (bfloat16 or float32) on one
-    device, D in ``HEAD_DIMS``; bfloat16 ones 16-byte aligned (TMA reads
-    them).  ``scale`` defaults to 1 / sqrt(D); a
+    device, D in ``HEAD_DIMS``, 16-byte aligned (TMA reads them).
+    ``scale`` defaults to 1 / sqrt(D); a
     ``window`` > 0 keeps only the last ``window`` keys of each query.
     Returns a new (BH, Sq, D) tensor in q's dtype.  Raises on anything the
     kernel does not take and if the launch fails.
@@ -66,7 +68,7 @@ def flash_attention_cuda(
             raise ValueError(f"{name} must have 3 dimensions, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     bh, sq, d = q.shape
     bkv, skv, _ = k.shape

@@ -4,13 +4,15 @@ The plain version of the flash kernel (``repro_torch.kernels.ref.attention_ref``
 against the Pallas kernel in interpret mode and the reference's
 ``attention_ref``, at the shapes of tests/test_kernels.py; the attention
 layer (``multihead_attention``, qk-norm and RoPE) for each inner
-implementation; the ring-buffer cache through prefill and decode; a plain
-emulation of the bf16 kernel instance's arithmetic (P rounded to bf16) against
-the Pallas kernel.  The CUDA kernel itself is held against ``attention_ref``
-on the card by chip_smoke.py.
+implementation; the ring-buffer cache through prefill and decode; plain emulations of the
+two kernel instances' arithmetic (bf16: P rounded to bf16; f32: the 3xTF32
+split on tf32 parts) against the Pallas kernel.  The CUDA kernel itself is
+held against ``attention_ref`` on the card by chip_smoke.py.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -111,7 +113,7 @@ def test_flash_wrapper_refuses_cpu_tensors_before_building():
 
 def test_flash_wrapper_picks_its_instance_by_dtype_and_refuses_others(monkeypatch):
     assert instance(torch.bfloat16) == "wgmma_bf16"
-    assert instance(torch.float32) == "fma_f32"
+    assert instance(torch.float32) == "tf32x3_f32"
     monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="bfloat16 or float32"):
@@ -122,7 +124,7 @@ def test_flash_wrapper_picks_its_instance_by_dtype_and_refuses_others(monkeypatc
     assert flash_attention_cuda.launches == 0
     flash_attention_cuda.launches_by_instance["wgmma_bf16"] = 3
     ops.reset_launch_counts()
-    assert flash_attention_cuda.launches_by_instance == {"wgmma_bf16": 0, "fma_f32": 0}
+    assert flash_attention_cuda.launches_by_instance == {"wgmma_bf16": 0, "tf32x3_f32": 0}
 
 
 def _emulate_wgmma_bf16(q, k, v, *, causal=True, window=0):
@@ -178,6 +180,127 @@ def test_wgmma_bf16_arithmetic_matches_flash_kernel(bh, bkv, sq, skv, d, window)
     assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
     kw = dict(window=window) if window else {}
     _check(got, js, "bfloat16", causal=True, **kw)
+
+
+CSRC = Path(_build.__file__).with_name("csrc") / "flash_attention.cu"
+
+
+def _f32_tile_keys():
+    """Keys a tile of the f32 instance: its kBn in the .cu."""
+    text = CSRC.read_text().split("namespace tf32x3 {", 1)[1]
+    return int(re.search(r"constexpr int kBn = (\d+);", text).group(1))
+
+
+def _tf32(x, mode="trunc"):
+    """float32 ``x`` reduced to tf32 on its integer view, the low 13 mantissa
+    bits cleared: "trunc" drops them (what the tensor cores do with an f32
+    operand: scripts/flash_f32_variants.py --probe), "rna" first rounds to
+    nearest with ties away from zero, as ``cvt.rna.tf32.f32`` does (a carry
+    may reach the exponent).  inf and NaN pass through."""
+    bits = x.view(torch.int32)
+    if mode == "rna":
+        bits = bits + 0x1000  # half of the dropped bits' weight, on the magnitude
+    out = (bits & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), out, x)
+
+
+def _emulate_tf32x3(q, k, v, *, causal=True, window=0):
+    """The f32 kernel instance's arithmetic in plain torch: tiles of
+    ``_f32_tile_keys()`` keys; each f32 operand x split as hi = tf32(x) and
+    lo = tf32(x - hi) (the tensor cores read an operand's tf32 part, so the
+    raw tile is hi and lo's own low bits drop), a b formed as
+    hi lo + lo hi + hi hi (products of tf32 parts are exact in f32; summed in
+    f32, the small terms first); S = Q K^T that way, in log2 units
+    (scale * log2 e); -1e30 for masked keys and as the running max's start;
+    p = exp2(s - m); l summed from the f32 p; P V formed from P and V split
+    the same way; the output acc / max(l, 1e-30)."""
+    bh, sq, d = q.shape
+    bkv, skv, _ = k.shape
+    group = bh // bkv
+    bk = _f32_tile_keys()
+    scale_log2 = d**-0.5 * 1.4426950408889634
+
+    def split(x):
+        hi = _tf32(x)
+        return hi, _tf32(x - hi)
+
+    def mm3(a, b):
+        (ah, al), (bh_, bl) = split(a), split(b)
+        return (ah @ bl + al @ bh_) + ah @ bh_
+
+    kf, vf = (t.repeat_interleave(group, dim=0) for t in (k, v))
+    qpos = torch.arange(sq)[:, None] + (skv - sq)
+    m = torch.full((bh, sq, 1), -1e30)
+    lsum = torch.zeros((bh, sq, 1))
+    acc = torch.zeros((bh, sq, d))
+    for k0 in range(0, skv, bk):
+        kt, vt = kf[:, k0 : k0 + bk], vf[:, k0 : k0 + bk]
+        s = mm3(q, kt.mT) * scale_log2
+        kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        keep = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            keep &= kpos <= qpos
+        if window > 0:
+            keep &= kpos > qpos - window
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        lsum = lsum * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + mm3(p, vt)
+        m = m_new
+    return acc / lsum.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize(
+    "bh,bkv,sq,skv,d,window",
+    [
+        (2, 2, 64, 64, 32, 0),  # D 32, square
+        (4, 2, 64, 128, 64, 0),  # D 64, GQA group 2, Sq < Skv
+        (2, 1, 64, 64, 96, 0),  # D 96 (phi3), GQA group 2
+        (4, 1, 64, 128, 128, 0),  # D 128 (qwen3), GQA group 4
+        (2, 2, 128, 128, 32, 32),  # window 32
+        (4, 2, 1, 256, 64, 0),  # a single decode query
+        (2, 2, 48, 320, 64, 0),  # ragged: Sq < Skv, neither a block multiple
+    ],
+)
+def test_tf32x3_f32_arithmetic_matches_flash_kernel(bh, bkv, sq, skv, d, window):
+    """The 3xTF32 split on tf32 parts, the f32 instance's arithmetic, stays
+    within the f32 tolerance of the Pallas kernel and the reference."""
+    js, ts = _qkv(11, bh, bkv, sq, skv, d, "float32")
+    got = _emulate_tf32x3(*ts, window=window)
+    assert got.dtype == torch.float32 and got.shape == (bh, sq, d)
+    kw = dict(window=window) if window else {}
+    _check(got, js, "float32", causal=True, **kw)
+
+
+@pytest.mark.parametrize("mode", ["trunc", "rna"])
+def test_tf32_rounding_helper_on_edge_values(mode):
+    """Signed zeros, ties (half a tf32 ulp: away from zero under rna), a
+    carry into the exponent, infinities and NaN; hi + lo == x exactly and
+    |lo| within a tf32 ulp (trunc) or half of one (rna)."""
+    ulp = 2.0**-10  # tf32's ulp at 1
+    x = torch.tensor(
+        [0.0, -0.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23,
+         1 + 1.5 * ulp, 2 - 2**-23, float("inf"), float("-inf"), float("nan")],
+        dtype=torch.float32,
+    )
+    got = _tf32(x, mode)
+    if mode == "rna":
+        want = [0.0, -0.0, 1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 2.0]
+    else:
+        want = [0.0, -0.0, 1.0, -1.0, 1.0, 1 + ulp, 2 - ulp]
+    want = torch.tensor(want + [float("inf"), float("-inf")], dtype=torch.float32)
+    torch.testing.assert_close(got[:9], want, rtol=0, atol=0)
+    assert torch.signbit(got[1]) and not torch.signbit(got[0])
+    assert torch.isnan(got[9])
+    assert (got[:7].view(torch.int32) & 0x1FFF == 0).all()
+    r = torch.as_tensor(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi = _tf32(r, mode)
+    lo = r - hi
+    assert torch.equal(hi + lo, r)
+    bound = (ulp if mode == "trunc" else ulp / 2) * r.abs()
+    assert (lo.abs() <= bound).all()
 
 
 # ---------------------------------------------------------------------------

@@ -516,4 +516,4 @@ def test_potrf_and_tlr_mm_wrappers_refuse_without_building(monkeypatch):
     counts = ops.instance_counts()
     for name in ("potrf", "tlr_mm", "trsm", "syrk"):
         assert counts[name] == {"dmma_f64": 0, "fma_f32": 0}
-    assert counts["flash_attention"] == {"wgmma_bf16": 0, "fma_f32": 0}
+    assert counts["flash_attention"] == {"wgmma_bf16": 0, "tf32x3_f32": 0}
