@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py [--n-side 128]
 
+(``--recover-child DIR``, not listed in ``--help``, is the recover phase's
+child process: the mle phase's fit with a checkpoint after every
+iteration, on the data the parent wrote to DIR.)
+
 Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 ``nvidia-smi``.  Phases, each printing one JSON line per result:
 
@@ -66,9 +70,14 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             exact phase's first update at panel 512 (both instances) and at
             panel 4096, and held and summed over the panel-512 paths' 63
             updates in both instances (the exact and exact_f32 phases'),
-            each beside its library call.  Times are the card's: cuda_ms queues the runs
-            behind a sleep on the card, so the host's launch overhead
-            between short calls does not enter.
+            each beside its library call.  potrf, trsm and tlr_mm are also
+            held in their f64 instance (the examples' only one) at the
+            examples' TLR panel steps (EXAMPLE_STEPS: tile edges 100 and
+            108, ranks 64 and 32, which no other path takes; the first
+            step's live rows and one row, the alpha sweep, the diagonal
+            tile), the first step timed.  Times are the card's: cuda_ms
+            queues the runs behind a sleep on the card, so the host's
+            launch overhead between short calls does not enter.
 3. main     the generator-direct TLR log-likelihood (GEN -> compress ->
             TLR Cholesky -> solve) through ``tlr_loglik(from_tiles=True,
             gen="kernel")`` on n = n_side^2 Morton-ordered locations of a
@@ -128,7 +137,43 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             fitted loglik to 1e-10 (relative), and matern_tile (its general
             instance: nu is free), tlr_mm, potrf and trsm were launched
             during the fit.
-9. assess   the paper's Algorithm 1 (MLOE/MMOM) at the main cell's full
+9. recover crash-tolerant estimation and the recovery machinery, at the
+            mle phase's widths, locations and z (n = 48^2, tile 512, max
+            rank 128, TLR7, f64, nugget 1e-8).  (1) Crash and resume: the
+            parent writes the locations and z to an npz in a temporary
+            directory and starts ``chip_smoke.py --recover-child DIR``,
+            which runs ``fit(..., checkpoint_dir=DIR/ck,
+            checkpoint_every=1)`` with the mle phase's MLEConfig; once
+            LATEST names step 1 the parent kills it with SIGKILL.  It fails
+            unless the child died of that signal with at least one step
+            saved and fewer than all, LATEST names a complete step whose
+            manifest and npz load, and no step_* directory is partial;
+            then the same call here resumes the checkpoint, and must give
+            the mle phase's uninterrupted fit (loglik and parameters within
+            1e-10 relative, the same n_iters and n_evals) with fewer
+            objective evaluations than that fit ran (counted, as
+            ``resumed_evals``).  (2) Injected faults (``repro_torch.testing``)
+            on the same locations and z: ``tlr_loglik(from_tiles=True)``
+            clean, under ``corrupt_diag_tile(0, 10)`` (ok false,
+            breakdown_count >= 1, the loglik equal to ``sentinel_loglik``),
+            clean again (equal to the first bit for bit), under
+            ``nan_compress_panel(1)`` (ok false, nonfinite_count +
+            breakdown_count >= 1, a finite loglik: the NaNs go through
+            cuSOLVER's QR and SVD); ``dist_tlr_loglik(block_cyclic=True)``
+            under ``zero_shard(0, 4)`` (ok false, min_pivot <= 0, loglik,
+            logdet and quad finite); the jitter ladder
+            (``jitter_escalate(initial=1e-6, factor=10, max_jitter=1e-2,
+            max_attempts=4)``) on four locations copied onto four others at
+            nugget 0, which must end ok within 1e-3 of the dense exact
+            loglik at the jitter it reached; ``fit_factor`` under
+            ``corrupt_diag_tile``, whose ``predict_batch`` of 16 locations
+            must raise ServeError ``broken_factor`` with ``status.ok``
+            false on the wire; and degraded serving on the duplicated
+            locations at nugget 0, whose means (finite) and variances
+            (>= 0) must equal those of ``heal_factor``'s handle at 1e-10.
+            Each evaluation's launches are recorded; matern_tile (general),
+            tlr_mm, potrf and trsm must have launched during the phase.
+10. assess  the paper's Algorithm 1 (MLOE/MMOM) at the main cell's full
             size: n = 16384 observation locations (m = 32768), 1024 uniform
             prediction locations, theta_a the main Matérn with its range
             x 1.2.  ``mloe_mmom`` (GEN: two dense Sigmas through
@@ -143,7 +188,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             the cokriging one by more than 1e-6, and matern_corr ran (its
             general instance for nu12).  It reports the GEN / FACT / COMP
             seconds (the paper's Figs. 10-11 split) and the peak memory.
-10. dist    the single-device forms of the distributed TLR likelihood and
+11. dist    the single-device forms of the distributed TLR likelihood and
             the precision policy at the main cell's widths (tile 512, max
             rank 128, TLR7), n cut to 64^2 = 4096 (m = 8192, 16 tiles) for
             time: (1) ``tlr_loglik(from_tiles=True)``, (2)
@@ -159,12 +204,29 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             once a panel step (its float64-acc form) and its dmma_f64 never,
             and is within 1e-5 of (2).  The gap of (1) to the dense exact
             loglik is reported, not gated.
+12. examples the paper's three geostat examples (examples/torch/) through
+            their ``main`` on the card: quickstart (n = 20^2, tile 100,
+            rank 64; the dense exact loglik and TLR5/7/9) and tlr_vs_exact
+            (n = 18^2, tile 108, rank 64; three dependence strengths, each
+            at TLR5/7/9, generator-direct and dense), each also with
+            ``--device cpu`` in the same phase, every loglik on the card
+            within 1e-9 (relative) of the CPU's; bivariate_fit_predict
+            (n = 300 + 30, tile 100, rank 32, 80 iterations) exact and with
+            ``--tlr``, which must give finite estimates, a fitted loglik no
+            lower than the loglik at the start, a finite MSPE and
+            MLOE >= -1e-9.  A second witness for those two fits: the
+            script's exact and TLR7 objectives at both fits' end points, on
+            the card and on the CPU, card within 1e-9 (relative) of the
+            CPU, and the card's TLR7 value at the TLR fit's end equal to
+            the loglik that fit reported (within 1e-9).  Each example must
+            launch its kernels (EXAMPLE_KERNELS) and reports its seconds.
    plans    every plan the trsm (both instances) and the f64 syrk took on
-            the main, serve, exact, exact_f32, mle, assess and dist paths
+            the main, serve, exact, exact_f32, mle, recover, assess, dist
+            and examples paths
             (trsm: dtype, strip columns, update tile, row split; syrk: tile
             edge; each a kernel of its own) is one that a kernel check of
             phase 2 held against the plain version.
-11. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
+13. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
             against ``attn_impl="naive"`` on (1, 4096) tokens, relative gap
@@ -185,14 +247,17 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
 ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
-serve, exact (panel 512), exact4096, exact_f32, grad, mle, assess, dist
-(its five evaluations) and lm runs, where lm is the timed prefill forward
+serve, exact (panel 512), exact4096, exact_f32, grad, mle, recover (the
+resumed fit and the fault checks; the killed child's launches are another
+process's), assess, dist (its five evaluations), examples (the card's runs)
+and lm runs, where lm is the timed prefill forward
 and the engine's ``generate``; ``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
 nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
 Any failed phase makes the script exit non-zero without that last line; so
 does a missing CUDA device or a missing checkout around the script.  The
-f64 geostat paths (main, serve, exact, exact4096, grad, mle) fail if an
+f64 geostat paths (main, serve, exact, exact4096, grad, mle, recover,
+examples) fail if an
 fma_f32 instance of potrf, tlr_mm, trsm or syrk was launched during them
 (exact_f32 must launch only those of potrf, trsm and syrk; dist: only its
 mixed_f32 evaluation may, and must, launch tlr_mm's), and every geostat
@@ -404,6 +469,37 @@ ASSESS_ZERO, ASSESS_ROUND, ASSESS_ORACLE_TOL, ASSESS_NAIVE_GAP = 1e-8, 1e-9, 1e-
 DIST_N_SIDE, DIST_SUPER, DIST_COL_BLOCK = 64, 4, 2
 DIST_SWEEP_B = 2 * DIST_N_SIDE**2 // TILE - 1
 DIST_F64_GAP, DIST_MIXED_GAP = 1e-8, 1e-5
+# The recover phase: the step whose save makes the parent kill its child
+# (with a save after every iteration, step 1 closes the second of
+# MLE_ITERS), the child's time limit in seconds, the gate of the resumed
+# fit against the mle phase's and of degraded serving against the healed
+# factor; the locations copied onto the last ones for the jitter ladder
+# (the reference's 8-device test), its rungs and its gate against the dense
+# exact loglik; the prediction locations of the serving checks.
+RECOVER_KILL_STEP, RECOVER_CHILD_TIMEOUT, RECOVER_GAP = 1, 300.0, 1e-10
+RECOVER_DUPS = 4
+RECOVER_LADDER = dict(initial=1e-6, factor=10.0, max_jitter=1e-2, max_attempts=4)
+RECOVER_LADDER_GAP = 1e-3
+RECOVER_NPRED, RECOVER_PRED_SEED = 16, 3
+# The examples phase: each example's TLR panel steps, held in the kernels
+# phase at the first step's live rows and at one row, and the forward
+# sweep's alpha (tag, live rows, tile edge, rank): quickstart (m = 800, tile
+# 100, rank 64), tlr_vs_exact (m = 648, tile 108, rank 64) and
+# bivariate_fit_predict --tlr (m = 600, tile 100, rank 32); the kernels each
+# example must launch on the card; the gap of an example's logliks on the
+# card to the same main on the CPU.
+EXAMPLE_STEPS = (
+    ("quickstart", 7, 100, 64),
+    ("tlr_vs_exact", 5, 108, 64),
+    ("bivariate_tlr", 5, 100, 32),
+)
+EXAMPLE_KERNELS = {
+    "quickstart": ("matern_corr", "potrf", "trsm", "tlr_mm"),
+    "tlr_vs_exact": ("matern_corr", "matern_tile", "potrf", "trsm", "tlr_mm"),
+    "bivariate_fit_predict": ("matern_corr",),
+    "bivariate_fit_predict_tlr": ("matern_corr", "potrf", "trsm", "tlr_mm"),
+}
+EXAMPLE_CPU_GAP = 1e-9
 # The lm phase (PERF.md section 4): qwen3-4b at full width and depth, bf16;
 # its parameter count as the reference's init_model makes it; prefill batch
 # and length; the engine's prompts and greedy steps; the gates.
@@ -1815,6 +1911,8 @@ def phase_kernels(torch, st, n_side: int):
     records.append(check_potrf_matern(torch, locs, params))
     # trsm in both instances at the shapes of its paths (check_trsms)
     records.extend(check_trsms(torch, st, gen, locs, params))
+    # potrf, trsm and tlr_mm at the examples' tile edges 100 and 108
+    records.extend(check_example_steps(torch, st, gen))
     # syrk, both instances: the first trailing update of the exact phase
     # (m_k = 32256, panel 512) in the operands' path layout, the JAX test
     # shapes, ragged nb, the panel-4096 path's first step, offsets past 2^31,
@@ -1839,6 +1937,32 @@ def phase_kernels(torch, st, n_side: int):
             st.setdefault("extra", {}).setdefault("flash_attention", []).append(rec)
     if not all(rec["ok"] for rec in records):
         raise AssertionError("a kernel disagrees with its plain version")
+
+
+def check_example_steps(torch, st, gen):
+    """potrf, trsm and tlr_mm in their f64 instance (the only one the
+    examples run) at the TLR panel steps of the examples (EXAMPLE_STEPS):
+    tile edges 100 and 108, ranks 64 and 32, which no other path takes;
+    the first step's live rows timed, one row, the forward sweep's alpha
+    (trsm, r = 1) and the diagonal tile (potrf)."""
+    records, extra = [], st.setdefault("extra", {})
+    f64 = torch.float64
+    for tag, b, nb, k in EXAMPLE_STEPS:
+        for rows in (b, 1):
+            first = rows == b
+            case = f"{tag}_b{rows}"
+            for rec in (
+                check_tlr_mm(torch, gen, case, rows, f64, first, nb, k),
+                check_trsm(torch, gen, case, rows, nb, k, 1, f64, first),
+            ):
+                records.append(rec)
+                if first:
+                    extra.setdefault(rec["kernel"], []).append(rec)
+        records.append(check_trsm(torch, gen, f"{tag}_alpha", 1, nb, 1, 1, f64, False))
+        rec = check_potrf(torch, gen, tag, 1, nb, f64, True)
+        records.append(rec)
+        extra.setdefault("potrf", []).append(rec)
+    return records
 
 
 def serve_requests():
@@ -2349,15 +2473,28 @@ def phase_grad(torch, st):
         raise AssertionError("the gradient through the kernels failed its checks")
 
 
+def mle_config():
+    """The mle phase's ``MLEConfig``, which the recover phase and its child
+    reuse: the generator-direct TLR backend at the main cell's widths, all
+    six parameters free, MLE_ITERS iterations."""
+    from repro_torch.core.mle import MLEConfig
+
+    return MLEConfig(
+        p=2,
+        backend="tlr",
+        tlr_from_tiles=True,
+        profile=False,
+        tile_size=TILE,
+        tlr_max_rank=KMAX,
+        tlr_tol=TOL_TLR,
+        nugget=NUGGET,
+        max_iters=MLE_ITERS,
+    )
+
+
 def phase_mle(torch, st, n_side: int):
     from repro_torch.core.covariance import MaternParams
-    from repro_torch.core.mle import (
-        MLEConfig,
-        apply_morton,
-        fit,
-        initial_guess,
-        make_objective,
-    )
+    from repro_torch.core.mle import apply_morton, fit, initial_guess, make_objective
     from repro_torch.core.simulate import grid_locations, simulate_mgrf
     from repro_torch.core.tlr import tlr_loglik
     from repro_torch.kernels import ops
@@ -2369,17 +2506,7 @@ def phase_mle(torch, st, n_side: int):
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     z = simulate_mgrf(gen, locs, truth, nugget=NUGGET, device=dev)[0]
-    cfg = MLEConfig(
-        p=2,
-        backend="tlr",
-        tlr_from_tiles=True,
-        profile=False,
-        tile_size=TILE,
-        tlr_max_rank=KMAX,
-        tlr_tol=TOL_TLR,
-        nugget=NUGGET,
-        max_iters=MLE_ITERS,
-    )
+    cfg = mle_config()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2418,6 +2545,8 @@ def phase_mle(torch, st, n_side: int):
     ok = ok and f64_only(instances)
     ok = ok and gen_on_kernels(st, instances, "mle", "matern_tile")
     fitted = {key: getattr(res.params, key).tolist() for key in res.params._fields}
+    # the recover phase resumes this fit from a crashed child's checkpoint
+    st["mle"] = dict(locs=locs, z=z, res=res, mle_s=mle_s, launches=launches)
     emit(
         {
             "phase": "mle",
@@ -2449,6 +2578,357 @@ def phase_mle(torch, st, n_side: int):
     )
     if not ok:
         raise AssertionError("mle path failed its checks")
+
+
+def recover_child(directory: str) -> int:
+    """The recover phase's child (``--recover-child DIR``): the mle phase's
+    fit on the locations and z the parent wrote to DIR/data.npz, with a
+    checkpoint after every iteration under DIR/ck, until the parent kills
+    it."""
+    import torch
+
+    from repro_torch.core.mle import fit
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(os.path.join(directory, "data.npz")) as data:
+        locs, z = data["locs"], data["z"]
+    ck = os.path.join(directory, "ck")
+    fit(locs, z, mle_config(), checkpoint_dir=ck, checkpoint_every=1, device="cuda")
+    return 0
+
+
+def _launch_diff(before: dict, after: dict) -> dict:
+    return {name: after[name] - before[name] for name in after}
+
+
+def _status(res) -> dict:
+    """A loglik result's status fields and its loglik, logdet and quad."""
+    return dict(
+        res.status.as_dict(),
+        loglik=float(res.loglik),
+        logdet=float(res.logdet),
+        quad=float(res.quad),
+    )
+
+
+def crash_and_resume(torch, st, tmp: str) -> dict:
+    """The recover phase's first part: a child runs the mle phase's fit
+    with a checkpoint after every iteration and is killed with SIGKILL once
+    LATEST names step 1; the checkpoint is checked on disk, and the same
+    call here resumes it.  Returns the phase record's fields and ``ok``."""
+    import signal
+
+    from repro_torch.checkpointing import CheckpointManager, latest_step
+    from repro_torch.core import mle as mle_module
+    from repro_torch.kernels import ops
+
+    mle = st["mle"]
+    ref = mle["res"]
+    np.savez(
+        os.path.join(tmp, "data.npz"), locs=mle["locs"], z=mle["z"].cpu().numpy()
+    )
+    ck = os.path.join(tmp, "ck")
+    cmd = [sys.executable, os.path.abspath(__file__), "--recover-child", tmp]
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "child.log"), "w") as log:
+        child = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + RECOVER_CHILD_TIMEOUT
+        while child.poll() is None and time.monotonic() < deadline:
+            step = latest_step(ck)
+            if step is not None and step >= RECOVER_KILL_STEP:
+                break
+            time.sleep(0.02)
+        child.send_signal(signal.SIGKILL)
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "child.log")) as log:
+        child_log = log.read()[-2000:]
+
+    # what the kill left on disk: LATEST names a complete step, every
+    # step_* directory holds a manifest and an npz that load
+    latest = latest_step(ck)
+    steps = CheckpointManager(ck).all_steps()
+    complete, manifest = [], None
+    for step in steps:
+        path = os.path.join(ck, f"step_{step:08d}")
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                man = json.load(f)
+            with np.load(os.path.join(path, "arrays.npz")) as data:
+                arrays = [data[f"a{i}"] for i in range(len(man["names"]))]
+            good = [list(a.shape) for a in arrays] == man["shapes"]
+        except (OSError, ValueError, KeyError):
+            man, good = None, False
+        complete.append(step if good else None)
+        if step == latest:
+            manifest = man
+    saved = None if latest is None else latest + 1
+    ok = rc == -signal.SIGKILL and latest is not None
+    ok = ok and 1 <= saved < ref.n_iters and complete == steps
+    ok = ok and manifest is not None and manifest["extra"]["start_index"] == 0
+
+    # the resume: the same call, counting the objective's evaluations
+    real = mle_module.make_objective
+    calls = []
+
+    def counted_objective(*args, **kwargs):
+        fn, dists = real(*args, **kwargs)
+
+        def counted(x):
+            calls.append(1)
+            return fn(x)
+
+        return counted, dists
+
+    before = ops.launch_counts()
+    mle_module.make_objective = counted_objective
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mle_module.fit(
+            mle["locs"],
+            mle["z"],
+            mle_config(),
+            checkpoint_dir=ck,
+            checkpoint_every=1,
+            device=torch.device("cuda"),
+        )
+        ll = float(res.loglik)
+        resume_s = time.perf_counter() - t0
+    finally:
+        mle_module.make_objective = real
+    ll_gap = abs(ll - float(ref.loglik)) / abs(float(ref.loglik))
+    got, want = (
+        torch.cat([getattr(r.params, f).reshape(-1) for f in r.params._fields])
+        for r in (res, ref)
+    )
+    params_gap = float((got - want).abs().max() / want.abs().max())
+    ok = ok and ll_gap <= RECOVER_GAP and params_gap <= RECOVER_GAP
+    ok = ok and (res.n_iters, res.n_evals) == (ref.n_iters, ref.n_evals)
+    ok = ok and len(calls) < ref.n_evals
+    return dict(
+        ok=ok,
+        child_returncode=rc,
+        child_s=child_s,
+        child_steps_saved=saved,
+        steps_on_disk=steps,
+        latest_manifest_names=None if manifest is None else manifest["names"],
+        child_log_tail=child_log if not ok else None,
+        resume_s=resume_s,
+        mle_s=mle["mle_s"],
+        resumed_evals=len(calls),
+        mle_n_evals=ref.n_evals,
+        n_iters=res.n_iters,
+        n_evals=res.n_evals,
+        loglik=ll,
+        mle_loglik=float(ref.loglik),
+        loglik_rel_gap=ll_gap,
+        params_rel_gap=params_gap,
+        resume_launches=_launch_diff(before, ops.launch_counts()),
+    )
+
+
+def injected_faults(torch, st) -> dict:
+    """The recover phase's second part: the fault injectors of
+    ``repro_torch.testing`` on the mle phase's locations and z, the jitter
+    ladder on duplicated locations, and serving's refusal and degraded
+    mode.  Returns the phase record's fields and ``ok``."""
+    from repro_torch.core.covariance import MaternParams
+    from repro_torch.core.dist_tlr import dist_tlr_loglik
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.mle import apply_morton
+    from repro_torch.core.recovery import jitter_escalate, sentinel_loglik
+    from repro_torch.core.tlr import tlr_loglik
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cokrige_service import (
+        CokrigeServeConfig,
+        ServeError,
+        fit_factor,
+        heal_factor,
+        predict_batch,
+    )
+    from repro_torch.testing import corrupt_diag_tile, nan_compress_panel, zero_shard
+
+    dev = torch.device("cuda")
+    mle = st["mle"]
+    truth = MaternParams.bivariate(**MATERN, device=dev)
+    locs, z = apply_morton(mle["locs"], mle["z"], 2)
+    dup = mle["locs"].copy()
+    dup[-RECOVER_DUPS:] = dup[:RECOVER_DUPS]
+    locs_d, z_d = apply_morton(dup, mle["z"], 2)
+    tlr = dict(tol=TOL_TLR, max_rank=KMAX, tile_size=TILE, gen="kernel", device=dev)
+    sentinel = sentinel_loglik(torch.float64)
+    launches = {}
+    out = {}
+
+    def run(name, fn):
+        before = ops.launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[name] = _launch_diff(before, ops.launch_counts())
+        return result
+
+    def single(nugget=NUGGET, at=(locs, z)):
+        at_locs, at_z = at
+        return tlr_loglik(
+            None, at_z, truth, nugget=nugget, locs=at_locs, from_tiles=True, **tlr
+        )
+
+    clean = run("clean", lambda: _status(single()))
+    with corrupt_diag_tile(tile=0, magnitude=10.0):
+        diag = run("corrupt_diag_tile", lambda: _status(single()))
+    after = run("clean_after", lambda: _status(single()))
+    with nan_compress_panel(panel=1):
+        panel = run("nan_compress_panel", lambda: _status(single()))
+    with zero_shard(shard=0, n_shards=4):
+        shard = run(
+            "zero_shard",
+            lambda: _status(
+                dist_tlr_loglik(
+                    None,
+                    z,
+                    locs=locs,
+                    params=truth,
+                    from_tiles=True,
+                    nugget=NUGGET,
+                    block_cyclic=True,
+                    **tlr,
+                )
+            ),
+        )
+    ok = clean["ok"] and after == clean
+    ok = ok and not diag["ok"] and diag["breakdown_count"] >= 1
+    ok = ok and diag["loglik"] == sentinel
+    ok = ok and not panel["ok"] and math.isfinite(panel["loglik"])
+    ok = ok and panel["nonfinite_count"] + panel["breakdown_count"] >= 1
+    ok = ok and not shard["ok"] and shard["min_pivot"] <= 0.0
+    ok = ok and all(math.isfinite(shard[k]) for k in ("loglik", "logdet", "quad"))
+    out.update(
+        clean=clean,
+        corrupt_diag_tile=diag,
+        clean_after_equal=after == clean,
+        nan_compress_panel=panel,
+        zero_shard=shard,
+        sentinel_loglik=sentinel,
+    )
+
+    # the jitter ladder on colliding sensors at nugget 0
+    def eval_at(j):
+        r = single(nugget=j, at=(locs_d, z_d))
+        return r.loglik, r.status.ok & torch.isfinite(r.loglik)
+
+    rec = run("ladder", lambda: jitter_escalate(eval_at, **RECOVER_LADDER))
+    jitter = float(rec.jitter)
+    dense = float(exact_loglik(locs_d, z_d, truth, nugget=jitter, device=dev).loglik)
+    ladder_gap = abs(float(rec.loglik) - dense) / abs(dense)
+    ok = ok and bool(rec.ok) and ladder_gap <= RECOVER_LADDER_GAP
+    out["ladder"] = dict(
+        ok=bool(rec.ok),
+        attempts=int(rec.attempts),
+        jitter=jitter,
+        loglik=float(rec.loglik),
+        dense_exact_loglik=dense,
+        rel_gap=ladder_gap,
+    )
+
+    # serving: a broken factor is refused; degraded mode heals and serves
+    serve = dict(tile_size=TILE, max_rank=KMAX, tol=TOL_TLR, gen="kernel")
+    cfg = CokrigeServeConfig(nugget=NUGGET, **serve)
+    rng = np.random.default_rng(RECOVER_PRED_SEED)
+    pred = rng.uniform(0.05, 0.95, (RECOVER_NPRED, 2))
+    with corrupt_diag_tile(tile=0, magnitude=10.0):
+        factor = run(
+            "fit_factor_broken", lambda: fit_factor(locs, z, truth, cfg, device=dev)
+        )
+    refusal = None
+    try:
+        predict_batch(factor, pred, cfg)
+    except ServeError as err:
+        refusal = err.to_dict()
+    ok = ok and refusal is not None and refusal["code"] == "broken_factor"
+    ok = ok and refusal["status"]["ok"] is False
+    dcfg = CokrigeServeConfig(
+        nugget=0.0, degraded=True, degraded_initial_jitter=1e-6, **serve
+    )
+    broken = run(
+        "fit_factor_dup", lambda: fit_factor(locs_d, z_d, truth, dcfg, device=dev)
+    )
+    served = run("predict_degraded", lambda: predict_batch(broken, pred, dcfg))
+    healed = run("heal_factor", lambda: heal_factor(broken, dcfg))
+    want = run("predict_healed", lambda: predict_batch(healed, pred, dcfg))
+    mean_gap = float((served.mean - want.mean).abs().max() / want.mean.abs().max())
+    var_gap = float(
+        (served.variance - want.variance).abs().max() / want.variance.abs().max()
+    )
+    ok = ok and bool(torch.isfinite(served.mean).all())
+    ok = ok and bool((served.variance >= 0).all())
+    ok = ok and mean_gap <= RECOVER_GAP and var_gap <= RECOVER_GAP
+    out["serve"] = dict(
+        refusal=refusal,
+        dup_factor_status=broken.status.as_dict(),
+        healed_status=healed.status.as_dict(),
+        degraded_mean_rel_gap=mean_gap,
+        degraded_variance_rel_gap=var_gap,
+        n_pred=RECOVER_NPRED,
+    )
+    out["launches_by_step"] = launches
+    out["ok"] = ok
+    return out
+
+
+def phase_recover(torch, st):
+    """Crash-tolerant estimation and the recovery machinery on the card:
+    see the module docstring, phase 9."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recover_")
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        crash = crash_and_resume(torch, st, tmp)
+        faults = injected_faults(torch, st)
+        phase_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["recover"] = launches
+    instances = path_instances(ops, st, "recover")
+    ok = crash.pop("ok") and faults.pop("ok")
+    ok = ok and all(launches[name] > 0 for name in TLR_KERNELS)
+    ok = ok and f64_only(instances)
+    ok = ok and gen_on_kernels(st, instances, "recover", "matern_tile")
+    emit(
+        {
+            "phase": "recover",
+            "ok": ok,
+            "n": len(st["mle"]["locs"]),
+            "m": 2 * len(st["mle"]["locs"]),
+            "tile_size": TILE,
+            "max_rank": KMAX,
+            "tol": TOL_TLR,
+            "nugget": NUGGET,
+            "max_iters": MLE_ITERS,
+            "phase_s": phase_s,
+            "crash_resume": crash,
+            "faults": faults,
+            "launches": launches,
+            "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("recover", 0),
+        }
+    )
+    if not ok:
+        raise AssertionError("recover path failed its checks")
 
 
 def assess_oracle(torch, locs, pred, theta, theta_a, nugget):
@@ -2734,6 +3214,147 @@ def phase_dist(torch, st, n_side: int):
         raise AssertionError(f"dist forms failed their checks: {failed}")
 
 
+def load_example(name: str):
+    """The module of ``examples/torch/<name>.py``."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _example_logliks(name: str, out: dict) -> list:
+    """The log-likelihoods an example's ``main`` returned, in order."""
+    if name == "quickstart":
+        return [out["exact_loglik"]] + [out["tlr"][k]["loglik"] for k in out["tlr"]]
+    keys = ("exact_loglik", "loglik", "loglik_dense")
+    return [row[k] for row in out["rows"] for k in keys]
+
+
+def phase_examples(torch, st):
+    """The paper's three geostat examples through their ``main``: see the
+    module docstring, phase 12."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    records, ok = [], True
+
+    def run(name, argv):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = load_example(name).main(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _launch_diff(before, ops.launch_counts())
+
+    for name in ("quickstart", "tlr_vs_exact"):
+        out, seconds, launches = run(name, ["--device", "cuda"])
+        cpu, cpu_s, _ = run(name, ["--device", "cpu"])
+        got, want = _example_logliks(name, out), _example_logliks(name, cpu)
+        gap = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        good = len(got) == len(want) and all(map(math.isfinite, got))
+        good = good and gap <= EXAMPLE_CPU_GAP
+        good = good and all(launches[k] > 0 for k in EXAMPLE_KERNELS[name])
+        records.append(
+            dict(
+                example=name,
+                ok=good,
+                seconds=seconds,
+                cpu_seconds=cpu_s,
+                logliks=got,
+                cpu_rel_gap=gap,
+                launches=launches,
+            )
+        )
+        ok = ok and good
+    ends = {}
+    for flag in ([], ["--tlr"]):
+        argv = ["--device", "cuda", *flag]
+        out, seconds, launches = run("bivariate_fit_predict", argv)
+        ends[out["backend"]] = out
+        estimates = [*out["sigma2"], out["a"], *out["nu"], out["beta"]]
+        good = all(math.isfinite(float(x)) for x in estimates)
+        good = good and out["loglik"] >= out["loglik_start"]
+        good = good and math.isfinite(out["mspe"]) and out["mloe"] >= -ASSESS_ROUND
+        needs = EXAMPLE_KERNELS["bivariate_fit_predict" + "_tlr" * bool(flag)]
+        good = good and all(launches[k] > 0 for k in needs)
+        records.append(
+            dict(
+                example="bivariate_fit_predict",
+                backend=out["backend"],
+                ok=good,
+                seconds=seconds,
+                fit_s=out["fit_s"],
+                n_evals=out["n_evals"],
+                loglik_start=out["loglik_start"],
+                loglik=out["loglik"],
+                estimates=[float(x) for x in estimates],
+                mspe=out["mspe"],
+                mloe=out["mloe"],
+                mmom=out["mmom"],
+                launches=launches,
+            )
+        )
+        ok = ok and good
+    witness = bivariate_witness(torch, ends)
+    records.append(witness)
+    ok = ok and witness["ok"]
+    launches = ops.launch_counts()
+    st.setdefault("launches", {})["examples"] = launches
+    instances = path_instances(ops, st, "examples")
+    ok = ok and f64_only(instances)
+    ok = ok and gen_on_kernels(st, instances, "examples", "matern_corr")
+    emit(
+        {
+            "phase": "examples",
+            "ok": ok,
+            "examples": records,
+            "launches": launches,
+            "launches_by_instance": instances,
+            "plain_kv_calls_on_cuda": st.get("kv_cuda", {}).get("examples", 0),
+        }
+    )
+    if not ok:
+        raise AssertionError("examples path failed its checks")
+
+
+def bivariate_witness(torch, ends: dict) -> dict:
+    """A second witness for bivariate_fit_predict's fits at the script's
+    size: its exact and TLR7 objectives at both fits' end points, on the
+    card and on the CPU.  The card's values must equal the CPU's within
+    ``EXAMPLE_CPU_GAP``, and the card's TLR7 value at the TLR fit's end must
+    be the loglik that fit reported; the exact loglik beside the TLR7 one
+    at each end shows what the TLR7 surface costs there."""
+    ex = load_example("bivariate_fit_predict")
+    values, gap = {}, 0.0
+    for end, out in ends.items():
+        x = torch.tensor(out["x"], dtype=torch.float64)
+        row = values.setdefault(f"{end}_end", {})
+        for backend in ("exact", "tlr"):
+            cfg = ex.mle_config(backend, 100, 80)
+            for device in ("cuda", "cpu"):
+                _, obs, z_obs, *_ = ex.problem(300, 30, device)
+                row[f"{backend}_{device}"] = -float(
+                    ex.objective(obs, z_obs, cfg, device)(x)
+                )
+            card, cpu = row[f"{backend}_cuda"], row[f"{backend}_cpu"]
+            gap = max(gap, abs(card - cpu) / abs(cpu))
+    reported = ends["tlr"]["loglik"]
+    at_end = values["tlr_end"]["tlr_cuda"]
+    fit_gap = abs(at_end - reported) / abs(reported)
+    return dict(
+        example="bivariate_fit_predict",
+        backend="witness",
+        ok=gap <= EXAMPLE_CPU_GAP and fit_gap <= EXAMPLE_CPU_GAP,
+        logliks=values,
+        cpu_rel_gap=gap,
+        tlr_fit_rel_gap=fit_gap,
+        n_iters={end: out["n_iters"] for end, out in ends.items()},
+    )
+
+
 def record_plans(st) -> None:
     """Keep every plan the trsm and the f64 syrk pick (trsm's dtype, strip
     columns, update tile and row split; syrk's tile edge) under the phase
@@ -2796,7 +3417,8 @@ def phase_plans(st):
     a kernel of its own."""
     plans = st.get("plans", {})
     checked = plans.get("kernels", set())
-    paths = ("main", "serve", "exact", "exact_f32", "mle", "assess", "dist")
+    paths = ("main", "serve", "exact", "exact_f32", "mle", "recover", "assess")
+    paths += ("dist", "examples")
     by_path = {p: plans.get(p, set()) for p in paths}
     missing = sorted(set().union(*by_path.values()) - checked)
     ok = bool(checked) and not missing
@@ -3005,7 +3627,10 @@ def main() -> int:
         default=128,
         help="grid side: n = n_side^2 locations (default 128)",
     )
+    ap.add_argument("--recover-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.recover_child is not None:
+        return recover_child(args.recover_child)
 
     import torch
 
@@ -3027,8 +3652,10 @@ def main() -> int:
         ("exact_f32", lambda: phase_exact_f32(torch, st)),
         ("grad", lambda: phase_grad(torch, st)),
         ("mle", lambda: phase_mle(torch, st, args.n_side)),
+        ("recover", lambda: phase_recover(torch, st)),
         ("assess", lambda: phase_assess(torch, st, args.n_side)),
         ("dist", lambda: phase_dist(torch, st, args.n_side)),
+        ("examples", lambda: phase_examples(torch, st)),
         ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),
     )

@@ -1,9 +1,9 @@
 """PyTorch and CUDA port of the multivariate geostatistics package.
 
 The module tree mirrors ``repro`` (the JAX reference): ``core/``,
-``distribution/``, ``kernels/``, ``serving/`` and, for the LM substrate,
-``configs/`` and ``models/`` hold the counterparts of the functions of the
-same names there.  The port imports ``torch`` and ``numpy`` only.
+``checkpointing/``, ``distribution/``, ``kernels/``, ``serving/``,
+``testing/`` (fault injection) and, for the LM substrate, ``configs/`` and
+``models/`` hold the counterparts of the functions of the same names there.  The port imports ``torch`` and ``numpy`` only.
 
 Entry points that take numpy arrays run on the CUDA device unless the caller
 passes ``device="cpu"``; with no CUDA device and no explicit device they

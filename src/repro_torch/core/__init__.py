@@ -17,6 +17,7 @@ from .covariance import (  # noqa: F401
 from .likelihood import exact_loglik, loglik_from_chol, profile_loglik  # noqa: F401
 from .matern import (  # noqa: F401
     cross_covariance,
+    effective_range,
     kv,
     matern_correlation,
     matern_correlation_halfint,
@@ -34,5 +35,6 @@ from .prediction import (  # noqa: F401
 from .simulate import (  # noqa: F401
     grid_locations,
     simulate_mgrf,
+    split_train_pred,
     uniform_locations,
 )

@@ -7,7 +7,8 @@ Counterpart of ``repro.core.matern``:
   x > 2, upward recurrence in the order).  ``torch.special`` has no
   real-order K_nu, so the reference algorithm is carried over in full.
 * ``matern_correlation`` — M_nu(u) = u^nu K_nu(u) / (2^{nu-1} Gamma(nu)),
-  M_nu(0) = 1, with closed forms for nu in {1/2, 3/2, 5/2}.
+  M_nu(0) = 1, with closed forms for nu in {1/2, 3/2, 5/2};
+  ``matern_covariance`` and ``effective_range`` (the paper's ER) on it.
 * ``parsimonious_rho`` / ``cross_covariance`` — Eq. (2) of the paper.
 
 The order nu is a concrete scalar (a float or a 0-d tensor): the number of
@@ -22,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..device import as_tensor
 
 # Euler–Mascheroni constant (the mu -> 0 limit of the Temme series).
 _EULER_GAMMA = 0.5772156649015328606
@@ -198,6 +201,31 @@ def matern_correlation(u: torch.Tensor, nu) -> torch.Tensor:
     lognorm = (nu_t - 1.0) * math.log(2.0) + torch.lgamma(nu_t)
     val = torch.exp(nu_t * torch.log(us) - lognorm) * kv(nu, us)
     return torch.where(zero, torch.ones_like(val), val)
+
+
+def matern_covariance(h, sigma2, a, nu, *, device=None) -> torch.Tensor:
+    """Marginal Matérn covariance sigma2 * M_nu(h / a); numpy ``h`` goes to
+    ``device``."""
+    return sigma2 * matern_correlation(as_tensor(h, device=device) / a, nu)
+
+
+def effective_range(a, nu, target=0.05, rmax=10.0, iters=60, *, device=None):
+    """Distance at which the correlation drops to ``target`` (paper's ER).
+
+    Bisection on M_nu(r/a) = target, elementwise over ``a``; ER = {0.1, 0.3,
+    0.7} <-> a = {0.03, 0.09, 0.2} at nu = 0.5.  A non-tensor ``a`` goes to
+    ``device``.
+    """
+    a = as_tensor(a, device=device)
+    if not a.is_floating_point():
+        a = a.to(torch.float64)
+    lo, hi = torch.zeros_like(a), torch.full_like(a, rmax)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        above = matern_correlation(mid / a, nu) > target
+        lo = torch.where(above, mid, lo)
+        hi = torch.where(above, hi, mid)
+    return 0.5 * (lo + hi)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,8 @@ likelihood runs, and returns a 0-d tensor there.
 ``dist_tlr_from_tiles`` routes the TLR backend through
 ``core.dist_tlr.dist_tlr_loglik`` (with ``block_cyclic``, ``super_panels``
 and ``shard_svd``), and ``dtype_policy`` reaches both TLR backends, as in
-the reference.  Not ported: ``checkpoint_dir`` in ``fit`` (checkpointed
-multistart, ROADMAP Queue 1 item 4, checkpointing and fault injection).
+the reference.  ``checkpoint_dir`` in ``fit`` makes the search
+crash-tolerant (``optimize.multistart_nelder_mead``).
 """
 
 from __future__ import annotations
@@ -373,14 +373,12 @@ def fit(
     """Run the full estimation (the paper's 'MLE operation').
 
     ``n_starts > 1`` runs a multistart (perturbed initial guesses, keep the
-    best).  ``checkpoint_dir`` is not ported and raises.  Numpy data go to
-    ``device`` (the CUDA device by default).
+    best); ``checkpoint_dir`` makes the multistart crash-tolerant: the
+    per-start simplex state is checkpointed every ``checkpoint_every``
+    iterations (0 = once per completed start) and a re-run resumes instead
+    of restarting.  Numpy data go to ``device`` (the CUDA device by
+    default).
     """
-    if checkpoint_dir is not None:
-        raise ValueError(
-            "checkpoint_dir is not ported: checkpointed multistart needs "
-            "CheckpointManager (ROADMAP Queue 1 item 4, checkpointing)"
-        )
     if cfg.check_duplicates:
         check_locations(locs)
     if cfg.morton and dists is None and locs is not None:
@@ -392,14 +390,20 @@ def fit(
     if x0 is None:
         x0 = initial_guess(cfg.p, cfg.profile, dtype=z.dtype)
     x0 = torch.as_tensor(x0).detach().cpu()
-    if n_starts > 1:
+    if n_starts > 1 or checkpoint_dir is not None:
         rng = np.random.default_rng(seed)
         x0s = [x0] + [
             x0 + torch.as_tensor(rng.normal(scale=0.25, size=x0.shape), dtype=x0.dtype)
             for _ in range(n_starts - 1)
         ]
         res = multistart_nelder_mead(
-            neg_ll, x0s, max_iters=cfg.max_iters, has_aux=True
+            neg_ll,
+            x0s,
+            max_iters=cfg.max_iters,
+            has_aux=True,
+            aux_template=ObjectiveAux(*[torch.zeros((), dtype=torch.int32)] * 3),
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every,
         )
     else:
         res = nelder_mead(neg_ll, x0, max_iters=cfg.max_iters, has_aux=True)

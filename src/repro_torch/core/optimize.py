@@ -18,11 +18,10 @@ on the card and return a 0-d tensor there.
   as ``mle.ObjectiveAux``) out of every evaluation; the running sum is
   returned on ``NMResult.aux``.
 * ``init_state`` / ``NMResult.state`` make the loop resumable; the
-  counters carry on, so ``max_iters`` is a total.
-
-Not ported: checkpointed multistart (``checkpoint_dir``), which needs
-``CheckpointManager`` (ROADMAP Queue 1 item 4, checkpointing and fault
-injection).
+  counters carry on, so ``max_iters`` is a total.  A state restored from a
+  checkpoint carries its counters as 0-d tensors; they are read with
+  ``int()``.  ``multistart_nelder_mead`` uses this for crash-tolerant
+  multistart MLE (``checkpoint_dir``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..checkpointing.checkpoint import CheckpointManager
 
 
 class NMState(NamedTuple):
@@ -218,6 +219,23 @@ def nelder_mead(
     )
 
 
+def _aux_to_json(aux):
+    """A summed aux tree as nested lists of numbers (for a manifest)."""
+    if isinstance(aux, tuple):
+        return [_aux_to_json(leaf) for leaf in aux]
+    return torch.as_tensor(aux).tolist()
+
+
+def _aux_from_json(template, values):
+    """The inverse of ``_aux_to_json``, in ``template``'s structure."""
+    if isinstance(template, tuple):
+        parts = [_aux_from_json(t, v) for t, v in zip(template, values)]
+        if hasattr(template, "_fields"):
+            return type(template)(*parts)
+        return type(template)(parts)
+    return torch.tensor(values, dtype=template.dtype)
+
+
 def multistart_nelder_mead(
     fn: Callable,
     x0s,
@@ -225,19 +243,100 @@ def multistart_nelder_mead(
     checkpoint_dir=None,
     checkpoint_every: int = 0,
     has_aux: bool = False,
+    aux_template=None,
     max_iters: int = 200,
     **kwargs,
 ) -> NMResult:
     """Run Nelder–Mead from several starts and keep the best (the first of
-    equal values).  ``checkpoint_dir`` is not ported and raises."""
-    if checkpoint_dir is not None:
-        raise ValueError(
-            "checkpoint_dir is not ported: checkpointed multistart needs "
-            "CheckpointManager (ROADMAP Queue 1 item 4, checkpointing)"
-        )
+    equal values).
+
+    With ``checkpoint_dir`` set, progress is checkpointed so a crashed
+    multistart resumes where it left off: completed starts are replayed
+    from the manifest, and the in-progress start's simplex state is
+    restored and continued.  ``checkpoint_every`` bounds how many
+    iterations run between saves (0 = one save per completed start).  The
+    layout and leaf names are the reference's, so either package resumes
+    the other's checkpoint.
+
+    ``aux_template`` (port only) is a zero tree of the aux that ``fn``
+    returns with ``has_aux``: a resume restores the checkpoint's aux into
+    its structure.  Without it a resume evaluates ``fn`` once at the first
+    start to learn the structure.  Each finished start's summed aux is
+    kept under the manifest's ``done_aux`` key (which the reference does
+    not read), so a replayed start keeps its counters.
+    """
+    x0s = [_start(x0) for x0 in x0s]
+    mgr = CheckpointManager(checkpoint_dir) if checkpoint_dir is not None else None
+    segment = max_iters
+    if mgr is not None and checkpoint_every > 0:
+        segment = checkpoint_every
+    start_idx, iters_done, done_results, done_aux = 0, 0, [], []
+    state = None
+    latest = mgr.latest_step() if mgr is not None else None
+    if has_aux and aux_template is None and latest is not None:
+        aux_template = _wrap_eval(fn, True, x0s[0].dtype)(x0s[0])[1]
+    if not has_aux:
+        aux_template = torch.zeros((), dtype=torch.int32)
+    if latest is not None:
+        m = x0s[0].shape[0]
+        simplex = torch.zeros((m + 1, m), dtype=x0s[0].dtype)
+        template = NMState(simplex, simplex[:, 0].clone(), 0, 0, aux_template)
+        tree, manifest = mgr.restore({"state": template}, step=latest)
+        extra = manifest["extra"]
+        start_idx = int(extra["start_index"])
+        iters_done = int(extra["iters_done"])
+        done_results = [tuple(r) for r in extra["done_values"]]
+        done_aux = extra.get("done_aux", [None] * len(done_results))
+        state = tree["state"] if iters_done > 0 else None
+
     results = [
-        nelder_mead(fn, x0, max_iters=max_iters, has_aux=has_aux, **kwargs)
-        for x0 in x0s
+        NMResult(
+            torch.tensor(x, dtype=x0s[0].dtype),
+            torch.tensor(v, dtype=x0s[0].dtype),
+            int(ne),
+            int(ni),
+            bool(c),
+            None if not has_aux or a is None else _aux_from_json(aux_template, a),
+        )
+        for (x, v, ne, ni, c), a in zip(done_results, done_aux)
     ]
+    step = latest if latest is not None else -1
+    for i in range(start_idx, len(x0s)):
+        while True:
+            cap = min(max_iters, iters_done + segment)
+            res = nelder_mead(
+                fn, x0s[i], max_iters=cap, has_aux=has_aux, init_state=state, **kwargs
+            )
+            state = res.state
+            iters_done = int(state.n_iters)
+            finished = bool(res.converged) or iters_done >= max_iters
+            if finished:
+                results.append(res)
+                done_results.append(
+                    (
+                        res.x.tolist(),
+                        float(res.value),
+                        int(res.n_evals),
+                        int(res.n_iters),
+                        bool(res.converged),
+                    )
+                )
+                done_aux.append(_aux_to_json(res.aux) if has_aux else None)
+            if mgr is not None:
+                step += 1
+                mgr.save(
+                    step,
+                    {"state": state},
+                    extra={
+                        "start_index": i + 1 if finished else i,
+                        "iters_done": 0 if finished else iters_done,
+                        "done_values": done_results,
+                        "done_aux": done_aux,
+                    },
+                )
+            if finished:
+                state, iters_done = None, 0
+                break
+
     best = int(torch.argmin(torch.stack([r.value for r in results])))
     return results[best]

@@ -1,12 +1,14 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
-An AST walk of src/repro_torch/ and chip_smoke.py finds no import of jax or
-of the JAX package; entry points called without a device raise where there
-is no CUDA device instead of running on the CPU; chip_smoke.py exits
-non-zero without printing a result.
+An AST walk of src/repro_torch/, examples/torch/ and chip_smoke.py finds no
+import of jax or of the JAX package; entry points (the examples' ``main``
+among them) called without a device raise where there is no CUDA device
+instead of running on the CPU; chip_smoke.py exits non-zero without
+printing a result.
 """
 
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -21,9 +23,12 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
-]
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
+PORT_FILES = (
+    sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    + EXAMPLES
+    + [ROOT / "chip_smoke.py"]
+)
 
 
 def _imported_roots(path: Path):
@@ -92,6 +97,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: init_caches(cfg, 1, 8),
         lambda: generate(model, cfg, np.zeros((1, 4), np.int64), 2),
     ]
+    for path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"_example_{path.stem}", path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        calls.append(lambda main=example.main: main([]))
+    assert len(calls) == 18
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

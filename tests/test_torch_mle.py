@@ -351,11 +351,3 @@ def test_distributed_and_policy_knobs_match_the_reference(request, knob):
         assert got != plain
     else:
         assert got == pytest.approx(plain, rel=1e-12)
-
-
-def test_unported_checkpointing_raises(data):
-    locs, z = data
-    with pytest.raises(ValueError, match="checkpoint_dir is not ported"):
-        tm.fit(locs, z, tm.MLEConfig(), checkpoint_dir="ckpt", device="cpu")
-    with pytest.raises(ValueError, match="checkpoint_dir is not ported"):
-        to.multistart_nelder_mead(_rosen(torch), [_vec([0.0, 0.0])], checkpoint_dir="c")

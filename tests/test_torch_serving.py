@@ -29,6 +29,7 @@ from repro_torch.core import prediction as tpred  # noqa: E402
 from repro_torch.core.simulate import grid_locations  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.serving import cokrige_service as svc  # noqa: E402
+from repro_torch.testing import corrupt_diag_tile  # noqa: E402
 
 PARAMS = dict(a=0.09, nu11=0.5, nu22=1.0, beta=0.5)
 NUGGET = 1e-8
@@ -192,26 +193,18 @@ def test_conditional_draws_follow_the_conditional_law(m512):
     np.testing.assert_array_equal(plain.mean.numpy(), out.mean.numpy())
 
 
-def _broken_fit(monkeypatch, locs, z, tp, cfg):
-    """fit_factor with diagonal tile 0 made indefinite (test_faultinject's
-    corrupt_diag_tile, magnitude 10)."""
-    real = svc.dist_compress_tiles
-
-    def corrupt(*a, **k):
-        t = real(*a, **k)
-        diag = t.diag.clone()
-        diag[0] -= 10.0 * torch.eye(diag.shape[-1], dtype=diag.dtype)
-        return dataclasses.replace(t, diag=diag)
-
-    with monkeypatch.context() as mp:
-        mp.setattr(svc, "dist_compress_tiles", corrupt)
+def _broken_fit(locs, z, tp, cfg):
+    """fit_factor with diagonal tile 0 made indefinite (the fault injector
+    ``repro_torch.testing.corrupt_diag_tile``, magnitude 10, as
+    test_faultinject.py breaks the reference's)."""
+    with corrupt_diag_tile(tile=0, magnitude=10.0):
         return svc.fit_factor(locs, z, tp, cfg, device="cpu")
 
 
-def test_serve_errors_refuse_bad_requests_and_broken_factors(monkeypatch):
+def test_serve_errors_refuse_bad_requests_and_broken_factors():
     locs, z, _, tp = _setup(8)
     cfg = svc.CokrigeServeConfig(tile_size=32, max_rank=16, tol=1e-7, nugget=NUGGET)
-    factor = _broken_fit(monkeypatch, locs, z, tp, cfg)
+    factor = _broken_fit(locs, z, tp, cfg)
     st = factor.status.as_dict()
     assert not st["ok"] and st["breakdown_count"] >= 1
     pred = _pred_points(8)
