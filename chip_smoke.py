@@ -41,7 +41,9 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             takes on these inputs (``general_steps``), and its ``steps``
             the mean, the largest and the warps' divergence.
             flash_attention is held at every shape its two
-            instances take (FLASH_CASES: bf16 on wgmma, f32 on tf32 wgmma
+            instances take (FLASH_CASES, recurrentgemma-9b's local
+            attention at head dim 256 among them, bf16 only and timed:
+            bf16 on wgmma, f32 on tf32 wgmma
             with the 3xTF32 split, both at ATTN_TOL; the f32 bound at three
             tf32 passes at 495 TFLOP/s, with one f32 pass at 67 TFLOP/s on
             the FP32 cores beside it, and the f32 depth-4, decode and q128
@@ -89,10 +91,14 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             the exact value is <= 1e-5, every kernel was launched during the
             evaluation and the general instance of matern_tile ran (the
             cross pair, nu12 = 1.0).
-4. serve    cokriging serving at the same configuration, locations and z:
-            ``fit_factor`` once (pair-major GEN + compress, TLR Cholesky,
-            both sweeps; the general instance of matern_tile for the cross
-            pair), then 8 ``predict_batch`` requests of 512 uniform
+4. serve    cokriging serving at the main configuration's widths (tile
+            512, max rank 128, TLR7) on n = 64^2 locations of the same
+            jittered grid, z simulated there (seed 0), its dense cokriging
+            oracle from the dense Cholesky factor of Sigma (depth cut from
+            the main cell's 128^2, whose fit repeated the main phase's
+            factorization): ``fit_factor`` once (pair-major GEN + compress,
+            TLR Cholesky, both sweeps; the general instance of matern_tile
+            for the cross pair), then 8 ``predict_batch`` requests of 512 uniform
             locations and one with 16 conditional draws.  It fails unless
             the factor's status is ok, every served mean is within 1e-3
             (max abs gap over max abs) of dense cokriging, variances are
@@ -243,14 +249,38 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             attention: 0 flash launches), its prefill and each decode step
             timed, and the last step's logits within 5e-2 of a cacheless
             naive forward over prompt plus generated tokens.
+14. lm_families the other six LM architectures in turn (LM_FAMILIES), each
+            at full width in its config's bf16 with random weights from a
+            seeded generator, at full depth where it fits (mamba2 48,
+            recurrentgemma 38, pixtral 40, musicgen 48 layers) and cut where
+            it does not (mixtral 8 of 32, llama4 one period, 2 of 48; the
+            cut is printed), freed before the next loads: the parameter
+            count must be ``param_count`` of the config at that depth; the
+            cacheless prefill forward on (2, 4096) (tokens, or the frontend
+            stub's embeddings for pixtral and musicgen) through
+            ``attn_impl="kernel"``, dropless as the serving paths route,
+            warm-up then timed, finite and within 5e-2 of the naive path
+            with exactly one flash launch an attention layer, all of the
+            bf16 instance (recurrentgemma's at head dim 256; mamba2 runs the
+            SSD path and launches none).  For the MoE models the gap is held
+            on the tokens whose experts agree in both runs in every MoE
+            layer, and at most 2% of the tokens for each MoE layer may
+            differ there (a router's near tie, flipped by bf16 rounding;
+            both gaps, and each layer's share, are reported); the
+            aux loss must be finite, positive and within 1e-2 of the naive
+            run's.  Then ``generate`` on (8, 512) prompts for 32 greedy steps
+            (0 flash launches), the same prefill and steps timed, and the
+            last step's logits within 5e-2 of a cacheless naive forward over
+            prompt plus generated tokens (on the rows whose last token's
+            experts agree).
 
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
 ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
 serve, exact (panel 512), exact4096, exact_f32, grad, mle, recover (the
 resumed fit and the fault checks; the killed child's launches are another
-process's), assess, dist (its five evaluations), examples (the card's runs)
-and lm runs, where lm is the timed prefill forward
+process's), assess, dist (its five evaluations), examples (the card's runs),
+lm and lm_<arch> runs, where each lm run is the timed prefill forward
 and the engine's ``generate``; ``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
 nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -395,8 +425,11 @@ ATTN_TOL = {
 # D, dtype, window): qwen3-4b prefill at B = 2, S = 4096 (the path's shape),
 # the f32 shape of the lm phase's depth-4 check, a window, right-aligned
 # decode and a short query block against a long cache, a ragged length at
-# phi3's head dim, the other head-dim instances, and a length that is not a
-# multiple of 128; and the (case, dtype) pairs that are timed.
+# phi3's head dim, the other head-dim instances, a length that is not a
+# multiple of 128, recurrentgemma-9b's local attention at head dim 256
+# (prefill at B = 2, S = 4096: 2 x 16 query heads, 2 x 1 KV heads, window
+# 2048; bf16 only: the f32 instance has no D = 256) and a ragged D = 256
+# shape; and the (case, dtype) pairs that are timed.
 FLASH_CASES = (
     ("path", 64, 16, 4096, 4096, 128, "bfloat16", 0),
     ("depth4_f32", 32, 8, 4096, 4096, 128, "float32", 0),
@@ -412,12 +445,15 @@ FLASH_CASES = (
     ("d32_window", 8, 8, 200, 333, 32, "float32", 50),
     ("d32_window", 8, 8, 200, 333, 32, "bfloat16", 50),
     ("s4000", 64, 16, 4000, 4000, 128, "bfloat16", 0),
+    ("recurrentgemma_d256", 32, 2, 4096, 4096, 256, "bfloat16", 2048),
+    ("d256_ragged", 6, 2, 300, 333, 256, "bfloat16", 100),
 )
 FLASH_TIMED = (
     ("path", "bfloat16"),
     ("depth4_f32", "float32"),
     ("decode", "float32"),
     ("q128_kv4096", "float32"),
+    ("recurrentgemma_d256", "bfloat16"),
 )
 # The tolerances of tests/test_kernels.py::test_potrf_kernel and
 # ::test_trsm_kernel.
@@ -433,6 +469,10 @@ CHOL_TOL = {
 }
 # The main configuration (PERF.md section 4).
 NUGGET, TOL_TLR, TILE, KMAX = 1e-8, 1e-7, 512, 128
+# The serve phase's grid side (n = 64^2, m = 8192, 16 tiles of 512): depth
+# cut from the main cell's 128^2, whose fit_factor repeated the main phase's
+# factorization (PERF.md section 4).
+SERVE_N_SIDE = 64
 # Live rows of the first TLR panel step there: T - 1 = 32768 / 512 - 1.
 SWEEP_B = 63
 # The reference's default panel of dist_exact_loglik, the exact phase's
@@ -507,6 +547,28 @@ LM_ARCH, LM_PARAMS = "qwen3-4b", 4_022_468_096
 LM_PREFILL = (2, 4096)
 LM_PROMPTS, LM_STEPS = (8, 512), 64
 LM_F32_GAP, LM_BF16_GAP, LM_DECODE_GAP = 1e-4, 5e-2, 5e-2
+# The lm_families phase (PERF.md section 4): the other six LM architectures
+# at full width in their configs' bfloat16, each at the depth it runs: full
+# depth where the model fits, mixtral cut to 8 of its 32 layers (23.7 GB;
+# 32 would be 93 GB) and llama4 to one period, 2 of 48 layers (37 GB: its
+# MoE layer alone holds 16.1e9 parameters); a seed for each model's
+# weights.  The engine's prompts and greedy steps; the largest share of
+# tokens, for each MoE layer of the model, whose expert choice may differ
+# between the kernel and the naive prefill (a near tie of the router,
+# flipped by bf16 rounding; a token that flips in one layer moves on
+# another way, so the shares add up over the layers: mixtral's 8 gave 10%,
+# llama4's one 0.9%; the gap is held on the other tokens); the MoE aux
+# loss's gap.
+LM_FAMILIES = (
+    ("mixtral-8x7b", 8, 11),
+    ("llama4-maverick-400b-a17b", 2, 12),
+    ("mamba2-780m", 48, 13),
+    ("recurrentgemma-9b", 38, 14),
+    ("pixtral-12b", 40, 15),
+    ("musicgen-medium", 48, 16),
+)
+LM_FAMILY_PROMPTS, LM_FAMILY_STEPS = (8, 512), 32
+LM_ROUTING_FLIP_SHARE, LM_AUX_GAP = 2e-2, 1e-2
 
 
 # Clock cycles of the sleep that cuda_ms queues its runs behind.
@@ -569,6 +631,7 @@ def max_err(torch, got, want, rtol: float, atol: float):
 
 def phase_device(torch, st):
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
 
     st["smi"] = nvidia_smi()
     t0 = time.perf_counter()
@@ -582,9 +645,12 @@ def phase_device(torch, st):
     flash = flash_ptxas(text)
     regs_ok = True
     for inst, want_regs in FLASH_REGS.items():
+        # one report a head-dim instance (wgmma_bf16: D 32-256, tf32x3_f32:
+        # D 32-128)
         regs = [ln for ln in flash[inst] if "registers" in ln]
         want = f"Used {want_regs} registers"
-        regs_ok = regs_ok and len(regs) == 4 and all(want in ln for ln in regs)
+        n_dims = len(HEAD_DIMS[inst])
+        regs_ok = regs_ok and len(regs) == n_dims and all(want in ln for ln in regs)
     sass = flash_sass(lib)
     dmma = dmma_report(text, lib)
     fma = {}
@@ -672,6 +738,8 @@ def flash_sass(lib) -> dict:
     """Counts of HGMMA (bf16 and tf32 wgmma alike), UTMALDG and UTMASTG in
     each flash kernel's SASS (both instances), where cuobjdump sits beside
     nvcc; ok unless an HGMMA or UTMALDG count is 0."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
     functions = sass_functions(lib)
     if functions is None:
         return {"cuobjdump": None}
@@ -680,7 +748,7 @@ def flash_sass(lib) -> dict:
         if any(k in name for k in FLASH_KERNELS.values()):
             ops = ("HGMMA", "UTMALDG", "UTMASTG")
             counts[name] = {op: part.count(op) for op in ops}
-    ok = len(counts) == 4 * len(FLASH_KERNELS) and all(
+    ok = len(counts) == sum(map(len, HEAD_DIMS.values())) and all(
         c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in counts.values()
     )
     return {"cuobjdump": True, "kernels": counts, "ok": ok}
@@ -1990,7 +2058,6 @@ def main_config(torch, n_side: int, dev):
 def phase_main(torch, st, n_side: int):
     from repro_torch.core import tlr as tlr_module
     from repro_torch.core.likelihood import exact_loglik
-    from repro_torch.core.prediction import cokrige, dense_factor
     from repro_torch.core.simulate import simulate_mgrf
     from repro_torch.kernels import ops
 
@@ -2000,7 +2067,7 @@ def phase_main(torch, st, n_side: int):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     z = simulate_mgrf(gen, locs, params, nugget=nugget, device=dev)[0]
-    exact = exact_loglik(locs, z, params, nugget=nugget, keep_chol=True, device=dev)
+    exact = exact_loglik(locs, z, params, nugget=nugget, device=dev)
     ll_exact = float(exact.loglik)
     exact_s = time.perf_counter() - t0
     peak_exact = torch.cuda.max_memory_allocated()
@@ -2013,15 +2080,7 @@ def phase_main(torch, st, n_side: int):
         logdet=float(exact.logdet),
         quad=float(exact.quad),
     )
-    # the serve phase's inputs, and its dense cokriging oracle from Sigma's
-    # factor, made before the factor is freed
-    dense = dense_factor(locs, z, params, chol=exact.chol)
-    requests = serve_requests()
-    oracle = [cokrige(None, None, pred, factor=dense) for pred in requests]
-    st["serve_inputs"] = dict(
-        locs=locs, z=z, params=params, requests=requests, oracle=oracle
-    )
-    del exact, dense
+    del exact
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -2105,7 +2164,26 @@ def phase_main(torch, st, n_side: int):
         raise AssertionError("main path failed its checks")
 
 
-def phase_serve(torch, st):
+def serve_inputs(torch, n_side: int, dev):
+    """The serve phase's own inputs: the main configuration at n_side^2
+    locations, z simulated there (seed 0), the requests, and their dense
+    cokriging oracle from the dense Cholesky factor of Sigma."""
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.prediction import cokrige, dense_factor
+    from repro_torch.core.simulate import simulate_mgrf
+
+    locs, params, gen = main_config(torch, n_side, dev)
+    z = simulate_mgrf(gen, locs, params, nugget=NUGGET, device=dev)[0]
+    exact = exact_loglik(locs, z, params, nugget=NUGGET, keep_chol=True, device=dev)
+    dense = dense_factor(locs, z, params, chol=exact.chol)
+    requests = serve_requests()
+    oracle = [cokrige(None, None, pred, factor=dense) for pred in requests]
+    del exact, dense
+    torch.cuda.empty_cache()
+    return locs, z, params, requests, oracle
+
+
+def phase_serve(torch, st, n_side: int):
     from repro_torch.core.covariance import build_c0_panels
     from repro_torch.core.dist_tlr import dist_tlr_solve_lower_pairs
     from repro_torch.distribution.block_cyclic import pair_layout
@@ -2117,13 +2195,14 @@ def phase_serve(torch, st):
         predict_batch,
     )
 
-    inputs = st.pop("serve_inputs")
-    locs, z, params = inputs["locs"], inputs["z"], inputs["params"]
     dev = torch.device("cuda")
+    side = min(SERVE_N_SIDE, n_side)
+    t0 = time.perf_counter()
+    locs, z, params, requests, oracle = serve_inputs(torch, side, dev)
+    inputs_s = time.perf_counter() - t0
     cfg = CokrigeServeConfig(
         tile_size=TILE, max_rank=KMAX, tol=TOL_TLR, nugget=NUGGET, gen="kernel"
     )
-    requests, oracle = inputs["requests"], inputs["oracle"]
     batch, n_req, n_draws = 512, 8, 16
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -2201,6 +2280,8 @@ def phase_serve(torch, st):
             "phase": "serve",
             "ok": ok,
             "n": len(locs),
+            "n_main_cell": n_side * n_side,
+            "inputs_and_oracle_s": inputs_s,
             "m": int(factor.m),
             "tile_size": TILE,
             "max_rank": KMAX,
@@ -3619,6 +3700,282 @@ def phase_lm(torch, st):
         raise AssertionError("lm path failed its checks")
 
 
+def record_routing(torch, records: list):
+    """Wrap the MoE block that the decoder stack calls so that each call
+    appends its tokens' chosen experts, (B, S, k) sorted, to ``records``
+    (the router's f32 softmax and top-k recomputed on the same input, as
+    ``moe_block`` computes them).  Returns a function that unwraps it."""
+    from repro_torch.models import transformer
+
+    inner = transformer.moe_block
+
+    def wrapped(params, x, cfg, dropless=False):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ params.router, -1)
+        idx = torch.topk(probs, cfg.experts_per_token, dim=-1).indices
+        records.append(idx.sort(dim=-1).values.reshape(*x.shape[:2], -1))
+        return inner(params, x, cfg, dropless=dropless)
+
+    transformer.moe_block = wrapped
+
+    def restore():
+        transformer.moe_block = inner
+
+    return restore
+
+
+def same_routing(torch, got: list, want: list, shape):
+    """((B, S) bool: tokens whose experts agree in every MoE layer of two
+    runs, all True without MoE layers; each layer's share of tokens whose
+    experts differ there)."""
+    agree = torch.ones(shape, dtype=torch.bool, device="cuda")
+    shares = []
+    for g, w in zip(got, want, strict=True):
+        same = (g == w).all(dim=-1)
+        shares.append(1.0 - float(same.float().mean()))
+        agree &= same
+    return agree, shares
+
+
+def masked_gap(torch, got, want, keep) -> float:
+    """rel_gap over the tokens ``keep`` marks: max |got - want| there over
+    max |want|, a batch row at a time."""
+    diff = 0.0
+    for g, w, k in zip(got, want, keep):
+        if bool(k.any()):
+            diff = max(diff, float((g[k].float() - w[k].float()).abs().max()))
+    return diff / max(float(w.float().abs().max()) for w in want)
+
+
+def phase_lm_family(torch, st, name: str, depth: int, seed: int) -> dict:
+    """One architecture of the lm_families phase (see the module note)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import forward, init_model, param_count
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.frontends import frontend_embeddings
+    from repro_torch.serving.engine import generate, make_serve_fns
+
+    dev = torch.device("cuda")
+    full_cfg = get_arch(name)
+    cfg = dataclasses.replace(full_cfg, num_layers=depth)
+    n_attn = sum(cfg.layer_kind(i) in ("attn", "swa", "local") for i in range(depth))
+    moe = cfg.moe
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def tokens(shape):
+        return torch.as_tensor(rng.integers(0, cfg.vocab_size, size=shape), device=dev)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        stop.synchronize()
+        return out, start.elapsed_time(stop)
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        counts["flash_by_instance"] = dict(flash_attention_cuda.launches_by_instance)
+        return out, counts
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {
+        "phase": "lm_family",
+        "arch": name,
+        "family": cfg.family,
+        "dtype": cfg.dtype,
+        "num_layers_run": depth,
+        "num_layers_config": full_cfg.num_layers,
+        "depth_cut": depth < full_cfg.num_layers,
+        "d_model": cfg.d_model,
+        "head_dim": cfg.resolved_head_dim,
+        "attention_layers": n_attn,
+    }
+    if rec["depth_cut"]:
+        print(f"chip_smoke: {name} runs {depth} of its {full_cfg.num_layers} layers")
+    routing_k, routing_n = [], []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        model = init_model(cfg, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        rec["init_model_s"] = time.perf_counter() - t0
+        rec["n_params"] = sum(p.numel() for p in model.parameters())
+        rec["n_params_from_config"] = param_count(cfg)
+        rec["param_bytes"] = sum(
+            p.numel() * p.element_size() for p in model.parameters()
+        )
+
+        # the cacheless prefill forward through the kernel, then the naive
+        # path, both dropless (the serving paths' routing)
+        if cfg.frontend == "none":
+            inputs = dict(tokens=tokens(LM_PREFILL))
+        else:
+            inputs = dict(
+                embeds=frontend_embeddings(
+                    cfg.frontend, gen, *LM_PREFILL, cfg.d_model, dtype_of(cfg.dtype)
+                )
+            )
+
+        def prefill_fwd(impl):
+            return lambda: forward(model, cfg, attn_impl=impl, dropless=True, **inputs)
+
+        _, c_warm = counted(prefill_fwd("kernel"))
+        restore = record_routing(torch, routing_k)
+        try:
+            (out_k, ms), c_timed = counted(lambda: timed(prefill_fwd("kernel")))
+            restore()
+            restore = record_routing(torch, routing_n)
+            (out_n, naive_ms), c_naive = counted(lambda: timed(prefill_fwd("naive")))
+        finally:
+            restore()
+        lk, ln = out_k.logits, out_n.logits
+        agree, flips_by_layer = same_routing(torch, routing_k, routing_n, LM_PREFILL)
+        rec["prefill_timed_launches_by_instance"] = c_timed.pop("flash_by_instance")
+        path = f"lm_{name}"
+        st.setdefault("launches", {})[path] = c_timed
+        st.setdefault("instances", {})[path] = {
+            "flash_attention": dict(rec["prefill_timed_launches_by_instance"])
+        }
+        n_tok = LM_PREFILL[0] * LM_PREFILL[1]
+        rec.update(
+            prefill_shape=list(LM_PREFILL),
+            prefill_inputs="embeds" if cfg.frontend != "none" else "tokens",
+            prefill_forward_ms=ms,
+            prefill_tokens_per_sec=n_tok / (ms / 1e3),
+            prefill_naive_ms=naive_ms,
+            prefill_rel_gap=masked_gap(torch, lk, ln, agree),
+            prefill_rel_gap_all_tokens=rel_gap(torch, lk, ln),
+            moe_layers=len(routing_k),
+            routing_flip_share=1.0 - float(agree.float().mean()),
+            routing_flip_share_by_layer=flips_by_layer,
+            prefill_finite=bool(torch.isfinite(lk).all()),
+            prefill_argmax_agreement=float(
+                (lk.argmax(-1) == ln.argmax(-1)).float().mean()
+            ),
+            prefill_launches={
+                "warmup": c_warm["flash_attention"],
+                "timed": c_timed["flash_attention"],
+                "naive": c_naive["flash_attention"],
+            },
+        )
+        if moe:
+            rec["aux_loss"] = float(out_k.aux_loss)
+            rec["aux_loss_naive"] = float(out_n.aux_loss)
+        del out_k, out_n, lk, ln
+        torch.cuda.empty_cache()
+
+        # the engine: generate, then the same prefill and greedy steps timed
+        prompts = tokens(LM_FAMILY_PROMPTS)
+        steps = LM_FAMILY_STEPS
+        gen_toks, c_gen = counted(lambda: generate(model, cfg, prompts, steps))
+        prefill, serve_step = make_serve_fns(cfg, LM_FAMILY_PROMPTS[1] + steps)
+        (state, _), prefill_ms = timed(lambda: prefill(model, prompts))
+        step_ms, outs, routing_d = [], [], []
+        restore = record_routing(torch, routing_d)
+        try:
+            for _ in range(steps):
+                outs.append(state.last_tokens)
+                routing_d.clear()
+                (state, logits), ms_i = timed(lambda: serve_step(model, state))
+                step_ms.append(ms_i)
+            outs = torch.stack(outs, dim=1)
+            seq = torch.cat([prompts, outs], dim=1)
+            routing_f = []
+            restore()
+            restore = record_routing(torch, routing_f)
+            full = forward(model, cfg, seq, attn_impl="naive", dropless=True)
+        finally:
+            restore()
+        full = full.logits[:, -1]
+        last = [r[:, -1:] for r in routing_f]
+        agree_d, _ = same_routing(torch, routing_d, last, (LM_FAMILY_PROMPTS[0], 1))
+        launches = st["launches"][path]
+        for kname, count in c_gen.items():
+            if kname in launches:
+                launches[kname] += count
+        by_inst = st["instances"][path]["flash_attention"]
+        for inst, count in c_gen["flash_by_instance"].items():
+            by_inst[inst] += count
+        ms_sorted = sorted(step_ms)
+        rec.update(
+            engine_prompts=list(LM_FAMILY_PROMPTS),
+            engine_steps=steps,
+            engine_prefill_ms=prefill_ms,
+            decode_ms_per_token_p50=float(np.median(ms_sorted)),
+            decode_ms_per_token_max=ms_sorted[-1],
+            decode_tokens_per_sec=LM_FAMILY_PROMPTS[0] * steps / (sum(step_ms) / 1e3),
+            decode_rel_gap=masked_gap(
+                torch, logits[:, None], full[:, None], agree_d
+            ),
+            decode_rel_gap_all_rows=rel_gap(torch, logits, full),
+            decode_routing_flipped_rows=int((~agree_d).sum()),
+            decode_finite=bool(torch.isfinite(logits).all()),
+            engine_tokens_match_generate=bool(torch.equal(outs, gen_toks)),
+            engine_launches=c_gen["flash_attention"],
+            peak_bytes=torch.cuda.max_memory_allocated(),
+        )
+    del model, state, full, logits
+    torch.cuda.empty_cache()
+
+    want_inst = {"wgmma_bf16": n_attn, "tf32x3_f32": 0}
+    checks = {
+        "n_params": rec["n_params"] == rec["n_params_from_config"],
+        "prefill_finite": rec["prefill_finite"],
+        "prefill_gap": rec["prefill_rel_gap"] <= LM_BF16_GAP,
+        "routing_flips": rec["routing_flip_share"]
+        <= LM_ROUTING_FLIP_SHARE * rec["moe_layers"],
+        "prefill_launches": rec["prefill_launches"]
+        == {"warmup": n_attn, "timed": n_attn, "naive": 0},
+        "prefill_instances": rec["prefill_timed_launches_by_instance"] == want_inst,
+        "decode_gap": rec["decode_finite"] and rec["decode_rel_gap"] <= LM_DECODE_GAP,
+        "decode_rows": rec["decode_routing_flipped_rows"] < LM_FAMILY_PROMPTS[0],
+        "engine_launches": rec["engine_launches"] == 0,
+        "engine_tokens": rec["engine_tokens_match_generate"],
+    }
+    if moe:
+        aux, aux_n = rec["aux_loss"], rec["aux_loss_naive"]
+        checks["aux_loss"] = (
+            math.isfinite(aux) and aux > 0 and abs(aux - aux_n) <= LM_AUX_GAP * aux_n
+        )
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    return rec
+
+
+def phase_lm_families(torch, st):
+    """The six other LM architectures in turn (LM_FAMILIES), each freed
+    before the next loads; fails if one fails."""
+    if not st.get("flash_ok"):
+        raise AssertionError("a flash instance failed the device phase")
+    failed = []
+    for name, depth, seed in LM_FAMILIES:
+        t0 = time.perf_counter()
+        try:
+            rec = phase_lm_family(torch, st, name, depth, seed)
+            ok = rec["ok"]
+        except Exception as exc:  # report the family, go on to the next
+            traceback.print_exc()
+            emit({"phase": "lm_family", "arch": name, "ok": False, "error": repr(exc)})
+            ok = False
+        print(f"chip_smoke: {name} {time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok:
+            failed.append(name)
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"lm families failed their checks: {failed}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -3647,7 +4004,7 @@ def main() -> int:
         ("device", lambda: phase_device(torch, st)),
         ("kernels", lambda: phase_kernels(torch, st, args.n_side)),
         ("main", lambda: phase_main(torch, st, args.n_side)),
-        ("serve", lambda: phase_serve(torch, st)),
+        ("serve", lambda: phase_serve(torch, st, args.n_side)),
         ("exact", lambda: phase_exact(torch, st)),
         ("exact_f32", lambda: phase_exact_f32(torch, st)),
         ("grad", lambda: phase_grad(torch, st)),
@@ -3658,6 +4015,7 @@ def main() -> int:
         ("examples", lambda: phase_examples(torch, st)),
         ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),
+        ("lm_families", lambda: phase_lm_families(torch, st)),
     )
     for name, fn in phases:
         st["phase"] = name

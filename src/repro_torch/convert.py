@@ -116,9 +116,6 @@ def _field(node, name: str):
     return getattr(node, name, None)
 
 
-_LINEARS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")}
-
-
 def _copy(param, arr, index=None, transpose=False) -> None:
     a = np.array(arr, dtype=np.float32)  # a copy; bf16 arrays widen exactly
     if index is not None:
@@ -130,14 +127,34 @@ def _copy(param, arr, index=None, transpose=False) -> None:
         param.copy_(t)
 
 
+def copy_weights(module: nn.Module, src, index=None) -> None:
+    """Each weight of ``module`` (a port layer or block: ``Attention``,
+    ``MLP``, ``MoE``, ``SSM``, ``RGLRU``, ``Layer``) from the field of
+    ``src`` (the reference's params, as numpy arrays) of its name, taking
+    entry ``index`` of stacked leaves: a parameter as it lies, an
+    ``nn.Linear``'s (out, in) weight from the reference's (in, out) matrix,
+    a submodule (the MoE's shared expert) from the field's own fields."""
+    for name, param in module.named_parameters(recurse=False):
+        _copy(param, _field(src, name), index)
+    for name, child in module.named_children():
+        if isinstance(child, nn.Linear):
+            _copy(child.weight, _field(src, name), index, transpose=True)
+        else:
+            copy_weights(child, _field(src, name), index)
+
+
 def lm_params_from_numpy(tree, cfg, *, device=None, dtype=None) -> Model:
     """The port's model holding the weights of the reference's
     ``init_model`` pytree, every leaf passed through ``np.asarray``.
 
     ``params["blocks"]`` (one entry a pattern position, leaves stacked on a
     leading block axis) and ``params["tail"]`` are unstacked into the
-    model's layers; the reference's (in, out) matrices become
-    ``nn.Linear``'s (out, in) weights.  ``dtype`` defaults to ``cfg.dtype``.
+    model's layers, every layer kind's (``AttentionParams``, ``MLPParams``,
+    ``MoEParams`` with its shared expert, ``SSMParams``, ``RGLRUParams``);
+    the reference's (in, out) matrices that are ``nn.Linear``s here become
+    their (out, in) weights, and every other array (the experts' and SSM
+    tensors, the RG-LRU gate projections) keeps its layout.  ``dtype``
+    defaults to ``cfg.dtype``.
     """
     model = init_model(cfg, device=resolve_device(device))
     if dtype is not None:
@@ -149,18 +166,7 @@ def lm_params_from_numpy(tree, cfg, *, device=None, dtype=None) -> Model:
     if len(sources) != len(model.layers):
         raise ValueError(f"{len(sources)} layers in the tree, {cfg.num_layers} in cfg")
     for layer, (src, index) in zip(model.layers, sources):
-        for name in ("norm1", "norm2"):
-            _copy(getattr(layer, name), _field(src, name), index)
-        for part, names in _LINEARS.items():
-            src_part = _field(src, part)
-            for name in names:
-                lin = getattr(getattr(layer, part), name)
-                if isinstance(lin, nn.Linear):
-                    _copy(lin.weight, _field(src_part, name), index, transpose=True)
-        for name in ("q_norm", "k_norm"):
-            param = getattr(layer.attn, name)
-            if param is not None:
-                _copy(param, _field(_field(src, "attn"), name), index)
+        copy_weights(layer, src, index)
     _copy(model.embed, tree["embed"])
     _copy(model.final_norm, tree["final_norm"])
     if model.lm_head is not None:

@@ -67,7 +67,7 @@
 // Sq or Skv with zeros within a head and never reads the next head's; they
 // are encoded on the host through cudaGetDriverEntryPoint, so the library
 // does not link libcuda.  Tiles are stored in D-chunks of 64 columns with
-// the 128-byte swizzle (D = 64, 128) or of 32 columns with the 64-byte
+// the 128-byte swizzle (D = 64, 128, 256) or of 32 columns with the 64-byte
 // swizzle (D = 32, 96), one chunk region after the other; K is the K-major B
 // operand of Q K^T as it lies, V the MN-major B operand of P V through
 // wgmma's transpose bit, so nothing is transposed.  The softmax runs in the
@@ -86,6 +86,18 @@
 // The two consumers run S, softmax and P V in turn and interleave on the
 // tensor cores by themselves; an explicit ping-pong between them, and
 // issuing tile i - 1's P V with tile i's S, measured slower on the H100.
+//
+// Head dim 256 (RecurrentGemma's local attention) is the same kernel on
+// 64-key tiles (Tile<256>): a 128-query Q tile is 64 KB there, and two
+// stages of 128-key K and V tiles would bring the block to 320 KB of the
+// 227 KB it may use; with 64 keys it takes 192 KB.  S is D / 16 = 16 steps
+// of m64n64k16, P V four of m64n256k16 (V's four chunk regions, LBO
+// apart); a consumer thread holds 128 floats of O, 32 of S and 16 registers
+// of P.  Up to D = 128 the tiles and the code are those of the note above.
+// Bound at its path's shape (recurrentgemma-9b prefill: B = 2, S = 4096, 16
+// query heads and one KV head, window 2048): 4 D flops for each of the
+// 6.29e6 unmasked pairs of each of 32 heads, 2.06e11 flops, 0.208 ms at
+// 989 TFLOP/s, against 143 MB of q, k, v and out, 0.043 ms: operations.
 //
 // P in bf16 is the one rounding this design adds: S is exact products of
 // bf16 values summed in f32, as the reference, but P V multiplies P rounded
@@ -162,7 +174,6 @@
 namespace hopper {
 
 constexpr int kBm = 128;  // queries a block: two consumer warpgroups of 64
-constexpr int kBn = 128;  // keys a tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
@@ -171,24 +182,32 @@ constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr long long kHangCycles = 1ll << 34;  // about 10 s at 1.7 GHz
 
-// Shared-memory geometry of a 128-row tile of Q, K or V at head dim D:
-// D / kChunk chunk regions of 128 rows x kChunkBytes, each in the swizzle
-// TMA writes.
+// Shared-memory geometry at head dim D: a Q tile of kBm rows and K and V
+// tiles of kBn rows, each stored as D / kChunk chunk regions of its rows x
+// kChunkBytes, in the swizzle TMA writes.  Up to D = 128 a key tile has 128
+// rows, the rows of a Q tile.  At D = 256 it has 64: Q (64 KB) and two
+// stages of K and V (4 x 32 KB) take 192 KB of the block's 227 KB, where
+// 128-key tiles would need 320 KB, and the S fragment (kBn / 2 floats a
+// thread) stays small beside the 128 floats of O.
 template <int D>
 struct Tile {
-  static_assert(D % 32 == 0 && D <= 128, "head dim must be 32, 64, 96 or 128");
+  static_assert(D % 32 == 0 && (D <= 128 || D == 256),
+                "head dim must be 32, 64, 96, 128 or 256");
+  static constexpr int kBn = D <= 128 ? 128 : 64;       // keys a tile
   static constexpr int kChunk = D % 64 == 0 ? 64 : 32;  // bf16 columns a row
   static constexpr int kChunkBytes = 2 * kChunk;         // 128 or 64
   static constexpr int kChunks = D / kChunk;
   static constexpr int kKPerChunk = kChunk / 16;  // k16 steps in a chunk
   static constexpr uint32_t kLayout = kChunkBytes == 128 ? 1 : 2;  // B128/B64
-  static constexpr int kRegion = kBn * kChunkBytes;
-  static constexpr int kBytes = kBn * D * 2;
-  static constexpr int kBarOffset = kBytes * (1 + 2 * kStages);
+  static constexpr int kQRegion = kBm * kChunkBytes;
+  static constexpr int kKRegion = kBn * kChunkBytes;
+  static constexpr int kQBytes = kBm * D * 2;
+  static constexpr int kKBytes = kBn * D * 2;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKBytes;
   // + 1024 to align the base to the 128-byte swizzle's 1024-byte atom
   static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 3 * kStages);
+  static_assert(kSmem <= 232448, "the tiles need more shared memory than a block has");
 };
-static_assert(kBm == kBn, "a Q tile has the geometry of a K tile");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -322,6 +341,33 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D(64 x 64) (+)= A(64 x 16) B(64 x 16)^T, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// S (+)= Q K^T for a tile of N keys: one of the two above.
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else {
+    static_assert(N == 64, "key tiles of 64 or 128");
+    wgmma_ss_n64(d, da, db, accumulate);
+  }
+}
+
 // D(64 x 32) += A(64 x 16) B(16 x 32), A in registers, B MN-major in shared
 // memory (the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
@@ -390,6 +436,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64 x 256) += A(64 x 16) B(16 x 256), A in registers, B MN-major in shared
+// memory (the transpose bit).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
@@ -399,8 +473,11 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     wgmma_rs_n64(o, a, db);
   } else if constexpr (D == 96) {
     wgmma_rs_n96(o, a, db);
-  } else {
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(o, a, db);
+  } else {
+    static_assert(D == 256, "head dim must be 32, 64, 96, 128 or 256");
+    wgmma_rs_n256(o, a, db);
   }
 }
 
@@ -413,11 +490,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                        int skv, int group, float scale_log2, int causal,
                        int window) {
   using T = Tile<D>;
+  constexpr int kBn = T::kBn;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
-  const uint32_t k_s = q_s + T::kBytes;            // stage s at + s * kBytes
-  const uint32_t v_s = k_s + kStages * T::kBytes;  // likewise
+  const uint32_t k_s = q_s + T::kQBytes;            // stage s at + s * kKBytes
+  const uint32_t v_s = k_s + kStages * T::kKBytes;  // likewise
   const uint32_t q_full = base + T::kBarOffset;
   const uint32_t full_k = q_full + 8;               // + 8 s
   const uint32_t full_v = full_k + 8 * kStages;     // + 8 s
@@ -451,27 +529,27 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == 0) {
       const int kv = bh / group;
-      mbar_expect_tx(q_full, T::kBytes);
+      mbar_expect_tx(q_full, T::kQBytes);
 #pragma unroll
       for (int c = 0; c < T::kChunks; ++c) {
-        tma_load(q_s + c * T::kRegion, &qmap, q_full, c * T::kChunk, q0, bh);
+        tma_load(q_s + c * T::kQRegion, &qmap, q_full, c * T::kChunk, q0, bh);
       }
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const uint32_t phase = (i / kStages) & 1;
         const int kbase = (t_lo + i) * kBn;
         mbar_wait(empty + 8 * s, phase ^ 1);
-        const uint32_t ks = k_s + s * T::kBytes, vs = v_s + s * T::kBytes;
-        mbar_expect_tx(full_k + 8 * s, T::kBytes);
+        const uint32_t ks = k_s + s * T::kKBytes, vs = v_s + s * T::kKBytes;
+        mbar_expect_tx(full_k + 8 * s, T::kKBytes);
 #pragma unroll
         for (int c = 0; c < T::kChunks; ++c) {
-          tma_load(ks + c * T::kRegion, &kmap, full_k + 8 * s, c * T::kChunk,
+          tma_load(ks + c * T::kKRegion, &kmap, full_k + 8 * s, c * T::kChunk,
                    kbase, kv);
         }
-        mbar_expect_tx(full_v + 8 * s, T::kBytes);
+        mbar_expect_tx(full_v + 8 * s, T::kKBytes);
 #pragma unroll
         for (int c = 0; c < T::kChunks; ++c) {
-          tma_load(vs + c * T::kRegion, &vmap, full_v + 8 * s, c * T::kChunk,
+          tma_load(vs + c * T::kKRegion, &vmap, full_v + 8 * s, c * T::kChunk,
                    kbase, kv);
         }
       }
@@ -507,20 +585,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool visible = g_rows > 0 && !(causal && kbase > q_last) &&
                          !(window > 0 && kbase + kBn - 1 <= q_first - window);
     if (visible) {
-      // S = Q K^T: D / 16 steps of m64n128k16, both operands K-major
-      float sc[64];
+      // S = Q K^T: D / 16 steps of m64n{kBn}k16, both operands K-major
+      float sc[kBn / 2];
 #pragma unroll
-      for (int e = 0; e < 64; ++e) sc[e] = 0.f;
-      const uint32_t ks = k_s + s * T::kBytes;
+      for (int e = 0; e < kBn / 2; ++e) sc[e] = 0.f;
+      const uint32_t ks = k_s + s * T::kKBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int c = kk / T::kKPerChunk, w = kk % T::kKPerChunk;
-        const uint32_t qa = q_s + c * T::kRegion + 64 * g * T::kChunkBytes;
+        const uint32_t qa = q_s + c * T::kQRegion + 64 * g * T::kChunkBytes;
         const uint64_t da = smem_desc(qa + 32 * w, 16, k_sbo, T::kLayout);
         const uint64_t db =
-            smem_desc(ks + c * T::kRegion + 32 * w, 16, k_sbo, T::kLayout);
-        wgmma_ss_n128(sc, da, db, 1);
+            smem_desc(ks + c * T::kKRegion + 32 * w, 16, k_sbo, T::kLayout);
+        wgmma_qk<kBn>(sc, da, db, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -528,13 +606,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // scores in log2 units; the mask only where a key may be masked
 #pragma unroll
-      for (int e = 0; e < 64; ++e) sc[e] *= scale_log2;
+      for (int e = 0; e < kBn / 2; ++e) sc[e] *= scale_log2;
       const bool masked = kbase + kBn > skv ||
                           (causal && kbase + kBn - 1 > q_first) ||
                           (window > 0 && kbase <= q_last - window);
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kBn / 8; ++j) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int kpos = kbase + 8 * j + 2 * (lane & 3) + c;
@@ -556,7 +634,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // online softmax: the row max over the quad, the correction, p
       float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBn / 8; ++j) {
         mx_a = fmaxf(mx_a, fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx_b = fmaxf(mx_b, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
@@ -570,7 +648,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m_b = mx_b;
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBn / 8; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           sc[4 * j + c] = ex2(sc[4 * j + c] - m_a);
@@ -588,24 +666,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         o[4 * j + 2] *= corr_b;
         o[4 * j + 3] *= corr_b;
       }
-      // P in bf16 as the A fragments of the 8 k16 steps of P V
-      uint32_t p[8][4];
+      // P in bf16 as the A fragments of the kBn / 16 k16 steps of P V
+      uint32_t p[kBn / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kBn / 16; ++kk) {
         p[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
         p[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
         p[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
         p[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 
-      // O += P V: 8 steps of m64nDk16, V MN-major (transposed B)
+      // O += P V: kBn / 16 steps of m64nDk16, V MN-major (transposed B)
       mbar_wait(full_v + 8 * s, phase);
-      const uint32_t vs = v_s + s * T::kBytes;
+      const uint32_t vs = v_s + s * T::kKBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < kBn / 16; ++kk) {
         const uint64_t db =
-            smem_desc(vs + 16 * kk * T::kChunkBytes, T::kRegion, k_sbo,
+            smem_desc(vs + 16 * kk * T::kChunkBytes, T::kKRegion, k_sbo,
                       T::kLayout);
         wgmma_pv<D>(o, p[kk], db);
       }
@@ -638,7 +716,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int h = 0; h < 2; ++h) {
       const int r = r_a + 8 * h;
       const int swz = T::kLayout == 1 ? (r & 7) : ((r >> 1) & 3);
-      const uint32_t addr = q_s + c * T::kRegion + r * T::kChunkBytes +
+      const uint32_t addr = q_s + c * T::kQRegion + r * T::kChunkBytes +
                             (((cc >> 3) ^ swz) << 4) + 2 * (cc & 7);
       const float inv = h ? inv_b : inv_a;
       const uint32_t val = pack_bf16(o[4 * j + 2 * h] * inv,
@@ -652,7 +730,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
 #pragma unroll
     for (int c = 0; c < T::kChunks; ++c) {
-      tma_store(&omap, q_s + c * T::kRegion + 64 * g * T::kChunkBytes,
+      tma_store(&omap, q_s + c * T::kQRegion + 64 * g * T::kChunkBytes,
                 c * T::kChunk, q0 + 64 * g, bh);
     }
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -711,8 +789,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
   CUtensorMap qm, km, vm, om;
   const int bkv = bh / group;
-  if (!make_map<D>(&qm, q, sq, bh, kBm) || !make_map<D>(&km, k, skv, bkv, kBn) ||
-      !make_map<D>(&vm, v, skv, bkv, kBn) ||
+  if (!make_map<D>(&qm, q, sq, bh, kBm) ||
+      !make_map<D>(&km, k, skv, bkv, T::kBn) ||
+      !make_map<D>(&vm, v, skv, bkv, T::kBn) ||
       !make_map<D>(&om, out, sq, bh, kBm / 2)) {
     return cudaErrorInvalidValue;
   }
@@ -742,6 +821,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
                         window, st);
     case 128:
       return launch<128>(q, k, v, out, bh, sq, skv, group, scale, causal,
+                         window, st);
+    case 256:
+      return launch<256>(q, k, v, out, bh, sq, skv, group, scale, causal,
                          window, st);
     default:
       return cudaErrorInvalidValue;

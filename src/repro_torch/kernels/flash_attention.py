@@ -8,7 +8,10 @@ the tensors' device.  The dtype picks one of the kernel's two instances:
 bfloat16 runs ``wgmma_bf16`` (Hopper's tensor cores, TMA, warp
 specialisation), float32 ``tf32x3_f32`` (the same machinery on the TF32
 tensor cores, each f32 product formed from three tf32 passes: the 3xTF32
-split, accurate to about 2^-20 of each product).
+split, accurate to about 2^-20 of each product).  The bf16 instance takes
+head dims 32, 64, 96, 128 and 256 (RecurrentGemma's local attention), the
+f32 instance those up to 128: its D = 256 form lies on no path and is not
+ported (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ _INSTANCES = {
     torch.bfloat16: ("wgmma_bf16", "flash_attention_bf16"),
     torch.float32: ("tf32x3_f32", "flash_attention_f32"),
 }
-HEAD_DIMS = (32, 64, 96, 128)  # the kernel's template instances
+# instance -> the head dims of its template instances
+HEAD_DIMS = {"wgmma_bf16": (32, 64, 96, 128, 256), "tf32x3_f32": (32, 64, 96, 128)}
 
 
 def instance(dtype: torch.dtype) -> str:
@@ -49,7 +53,7 @@ def flash_attention_cuda(
 
     q: (BH, Sq, D); k, v: (BKV, Skv, D) with BH = BKV * group and Sq <= Skv;
     all contiguous CUDA tensors of one dtype (bfloat16 or float32) on one
-    device, D in ``HEAD_DIMS``, 16-byte aligned (TMA reads them).
+    device, D in the instance's ``HEAD_DIMS``, 16-byte aligned (TMA reads them).
     ``scale`` defaults to 1 / sqrt(D); a
     ``window`` > 0 keeps only the last ``window`` keys of each query.
     Returns a new (BH, Sq, D) tensor in q's dtype.  Raises on anything the
@@ -57,6 +61,13 @@ def flash_attention_cuda(
     """
     dtype, device = q.dtype, q.device
     name_of = instance(dtype)
+    d = q.shape[-1]
+    if d not in HEAD_DIMS[name_of]:
+        raise ValueError(
+            f"flash_attention's {name_of} instance takes head dims "
+            f"{HEAD_DIMS[name_of]}, got D = {d}"
+            + (" (not ported: ROADMAP Queue 2)" if d == 256 else "")
+        )
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != dtype:
             raise ValueError("q, k and v must be bfloat16 or float32 of one dtype")
@@ -77,8 +88,6 @@ def flash_attention_cuda(
             f"k and v must have shape (BKV, Skv, {d}), got {tuple(k.shape)} "
             f"and {tuple(v.shape)}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head dims {HEAD_DIMS}, got {d}")
     if bkv < 1 or bh % bkv:
         raise ValueError(f"query heads {bh} must be a multiple of KV heads {bkv}")
     if sq > skv:

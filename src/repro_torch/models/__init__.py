@@ -1,4 +1,5 @@
-"""The LM substrate's dense, attention-only models (``repro.models``)."""
+"""The LM substrate's models (``repro.models``): attention, MoE, SSM and
+RG-LRU layers in one decoder stack, and the modality frontend stubs."""
 
 from .transformer import (
     ForwardResult,
@@ -9,4 +10,5 @@ from .transformer import (
     init_caches,
     init_model,
     layer_counts,
+    param_count,
 )

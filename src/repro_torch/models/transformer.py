@@ -1,16 +1,19 @@
-"""Decoder stack of the dense, attention-only architectures.
+"""Generic decoder stack of the ten LM architectures.
 
 Counterpart of ``repro.models.transformer``.  A model is ``num_layers``
-layers cycling through the config's ``layer_pattern``; each layer is
-attention (``attn`` global, ``swa`` sliding window, ``local`` windowed)
-plus an MLP, pre-norm with residuals.  The reference scans blocks of
-stacked parameters; here the layers are an ``nn.ModuleList`` walked in
-order, so caches are a flat list with one entry a layer.
+layers cycling through the config's ``layer_pattern``, pre-norm with
+residuals.  Layer kinds:
 
-The mixture-of-experts, SSM (``ssd``) and RG-LRU (``rglru``) layers, the
-modality frontends and rematerialisation (training) are not ported yet
-(ROADMAP Queue 1 item 6, the rest of the LM substrate): a config or call
-that needs them raises ``ValueError``.
+* ``attn``, ``swa``, ``local``: global, sliding-window or local attention,
+  then an MLP, or a mixture of experts where ``block_spec`` says so;
+* ``ssd``: the Mamba-2 mixer, which is the whole block (no MLP);
+* ``rglru``: the RG-LRU recurrent block, then an MLP.
+
+The reference scans blocks of stacked parameters; here the layers are an
+``nn.ModuleList`` walked in order, so caches are a flat list with one
+entry a layer: a ring-buffer KV cache for attention, the (conv, SSM) or
+(conv, h) state for the recurrent kinds.  Rematerialisation (training) is
+not ported yet (ROADMAP Queue 1 item 6) and raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ from ..device import resolve_device
 from .attention import Attention, init_attention_cache, multihead_attention
 from .common import dtype_of, embed_init, linear, rms_norm, take_embedding
 from .mlp import MLP
+from .moe import MoE, moe_block
+from .rglru import RGLRU, init_rglru_state, rglru_block
+from .ssm import SSM, init_ssm_state, ssm_block
 
 ATTN_KINDS = ("attn", "swa", "local")
-_NOT_PORTED = (
-    "not ported yet (ROADMAP Queue 1 item 6, the rest of the LM substrate)"
-)
+RECURRENT_KINDS = ("ssd", "rglru")
 
 
 def block_spec(cfg):
@@ -51,14 +55,42 @@ def layer_counts(cfg):
     return nblocks, cfg.num_layers - nblocks * period
 
 
-def _check_supported(cfg) -> None:
-    for kind, use_moe in block_spec(cfg):
-        if kind not in ATTN_KINDS:
-            raise ValueError(f"layer kind {kind!r} is {_NOT_PORTED}")
+def param_count(cfg) -> int:
+    """Parameters of ``init_model(cfg)``, counted from the config's shapes
+    alone (every matrix, norm scale, bias and vector)."""
+    d, hd, v = cfg.d_model, cfg.resolved_head_dim, cfg.vocab_size
+    h, kv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    attn = d * hd * (h + 2 * kv) + h * hd * d + (2 * hd if cfg.qk_norm else 0)
+
+    def mlp(kind):
+        return d * f * (3 if kind == "swiglu" else 2)
+
+    total = v * d + d + (0 if cfg.tie_embeddings else d * v)
+    spec = block_spec(cfg)
+    for i in range(cfg.num_layers):
+        kind, use_moe = spec[i % len(spec)]
+        total += d  # norm1
+        if kind == "ssd":
+            d_in = cfg.ssm_expand * d
+            heads = d_in // cfg.ssm_head_dim
+            conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
+            total += d * (d_in + conv_ch + heads) + d_in * d  # w_in, w_out
+            total += (cfg.ssm_conv_width + 1) * conv_ch + 3 * heads + d_in
+            continue
+        total += d  # norm2
+        if kind == "rglru":
+            lw = cfg.lru_width or d
+            # w_x, w_gate, w_out; w_a, w_i; conv_w; conv_b, b_a, b_i, lam
+            total += 3 * d * lw + 2 * lw * lw + 4 * lw + 4 * lw
+        else:
+            total += attn
         if use_moe:
-            raise ValueError(f"mixture-of-experts layers are {_NOT_PORTED}")
-    if cfg.frontend != "none":
-        raise ValueError(f"frontend {cfg.frontend!r} is {_NOT_PORTED}")
+            e = cfg.num_experts
+            total += d * e + e * mlp("swiglu")
+            total += mlp("swiglu") if cfg.moe_shared_expert else 0
+        else:
+            total += mlp(cfg.mlp_kind)
+    return total
 
 
 def _window(cfg, kind: str) -> int:
@@ -66,20 +98,34 @@ def _window(cfg, kind: str) -> int:
 
 
 class Layer(nn.Module):
-    """norm1 -> attention -> residual, norm2 -> MLP -> residual."""
+    """One layer, holding what the reference's layer dict holds: ``norm1``
+    and the mixer (``attn``, ``ssm`` or ``rglru``); for the attention and
+    rglru kinds also ``norm2`` and the feed-forward (``mlp``, or ``moe``
+    on an attention layer that ``block_spec`` marks)."""
 
-    def __init__(self, cfg, kind: str, dtype, *, generator, device):
+    def __init__(self, cfg, kind: str, use_moe: bool, dtype, *, generator, device):
         super().__init__()
         kw = dict(generator=generator, device=device)
-        self.kind = kind
-        self.norm1 = nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=dtype, device=device)
-        )
-        self.attn = Attention(cfg, dtype, **kw)
-        self.norm2 = nn.Parameter(
-            torch.zeros(cfg.d_model, dtype=dtype, device=device)
-        )
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, **kw)
+        self.kind, self.use_moe = kind, use_moe
+
+        def norm():
+            return nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype, device=device))
+
+        self.norm1 = norm()
+        if kind in ATTN_KINDS:
+            self.attn = Attention(cfg, dtype, **kw)
+        elif kind == "ssd":
+            self.ssm = SSM(cfg, dtype, **kw)
+        elif kind == "rglru":
+            self.rglru = RGLRU(cfg, dtype, **kw)
+        else:
+            raise ValueError(f"unknown layer kind {kind!r}")
+        if kind != "ssd":
+            self.norm2 = norm()
+            if use_moe:
+                self.moe = MoE(cfg, dtype, **kw)
+            else:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, **kw)
 
 
 class Model(nn.Module):
@@ -90,8 +136,10 @@ class Model(nn.Module):
         super().__init__()
         dtype = dtype_of(cfg.dtype)
         kw = dict(generator=generator, device=device)
+        spec = block_spec(cfg)
         self.layers = nn.ModuleList(
-            Layer(cfg, cfg.layer_kind(i), dtype, **kw) for i in range(cfg.num_layers)
+            Layer(cfg, *spec[i % len(spec)], dtype, **kw)
+            for i in range(cfg.num_layers)
         )
         self.final_norm = nn.Parameter(
             torch.zeros(cfg.d_model, dtype=dtype, device=device)
@@ -113,7 +161,6 @@ def init_model(
     weights are drawn from ``generator``, which must lie on that device
     (default: a new one seeded with 0).
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev)
@@ -127,19 +174,49 @@ class ForwardResult(NamedTuple):
     caches: Any
 
 
-def _apply_layer(layer: Layer, x, cfg, *, attn_impl, positions, cache):
-    h, new_cache = multihead_attention(
-        layer.attn,
-        rms_norm(x, layer.norm1, cfg.norm_eps),
-        cfg,
-        layer_window=_window(cfg, layer.kind),
-        impl=attn_impl,
-        positions=positions,
-        cache=cache,
-    )
+def _apply_layer(layer: Layer, x, cfg, *, attn_impl, positions, cache, dropless):
+    """(x, the layer's new cache, its MoE aux loss or None)."""
+    h_in = rms_norm(x, layer.norm1, cfg.norm_eps)
+    if layer.kind == "ssd":
+        h, new_cache = ssm_block(layer.ssm, h_in, cfg, state=cache)
+        return x + h, new_cache, None
+    if layer.kind == "rglru":
+        h, new_cache = rglru_block(layer.rglru, h_in, cfg, state=cache)
+    else:
+        h, new_cache = multihead_attention(
+            layer.attn,
+            h_in,
+            cfg,
+            layer_window=_window(cfg, layer.kind),
+            impl=attn_impl,
+            positions=positions,
+            cache=cache,
+        )
     x = x + h
-    x = x + layer.mlp(rms_norm(x, layer.norm2, cfg.norm_eps))
-    return x, new_cache
+    h2 = rms_norm(x, layer.norm2, cfg.norm_eps)
+    aux = None
+    if layer.use_moe:
+        h2, aux = moe_block(layer.moe, h2, cfg, dropless=dropless)
+    else:
+        h2 = layer.mlp(h2)
+    return x + h2, new_cache, aux
+
+
+def _refuse_recurrent_continuation(cfg, positions, s: int) -> None:
+    """A cached call of several tokens that does not start at position 0 on
+    a model with ssd or rglru layers.  Their blocks, as the reference's,
+    restart the recurrence from zero whenever a call has more than one
+    token, so such a call would return wrong logits (the reference's
+    recurrent prefill fault, ROADMAP Queue 3)."""
+    if s > 1 and any(k in RECURRENT_KINDS for k in cfg.layer_pattern):
+        if bool((positions[..., 0] != 0).any()):
+            raise ValueError(
+                f"a cached call of {s} tokens after position 0 on a model with "
+                "ssd or rglru layers: their blocks restart the recurrence from a "
+                "zero state whenever a call has more than one token (the "
+                "reference's recurrent prefill fault, ROADMAP Queue 3); prefill "
+                "from position 0, then decode one token a call"
+            )
 
 
 def forward(
@@ -157,12 +234,20 @@ def forward(
     """Prefill or scoring forward.  tokens (B, S) integers or embeds
     (B, S, d), on the model's device.
 
-    With ``caches`` (``init_caches``) the per-layer caches are filled in
-    place and returned.  ``dropless`` steers MoE dispatch in the reference
-    and has nothing to steer here; ``remat`` (training) is not ported.
+    With ``caches`` (``init_caches``) the per-layer caches are filled (the
+    attention caches in place) and returned.  ``dropless`` steers MoE
+    dispatch; the default (None: ``caches is not None``) routes the cached
+    serving paths without capacity drops and every cacheless forward with
+    them, as the reference.  ``aux_loss`` is the MoE layers' router loss
+    summed (0 without MoE).  ``remat`` (training) is not ported.
     """
     if remat:
-        raise ValueError(f"remat=True (training) is {_NOT_PORTED}")
+        raise ValueError(
+            "remat=True (training) is not ported yet (ROADMAP Queue 1 item 6, "
+            "the rest of the LM substrate)"
+        )
+    if dropless is None:
+        dropless = caches is not None
     dev = model.embed.device
     if embeds is None:
         x = take_embedding(model.embed, torch.as_tensor(tokens, device=dev))
@@ -171,12 +256,24 @@ def forward(
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
-    new_caches = [] if caches is not None else None
+    new_caches = None
+    if caches is not None:
+        _refuse_recurrent_continuation(cfg, positions, s)
+        new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i, layer in enumerate(model.layers):
         cache = None if caches is None else caches[i]
-        x, nc = _apply_layer(
-            layer, x, cfg, attn_impl=attn_impl, positions=positions, cache=cache
+        x, nc, layer_aux = _apply_layer(
+            layer,
+            x,
+            cfg,
+            attn_impl=attn_impl,
+            positions=positions,
+            cache=cache,
+            dropless=dropless,
         )
+        if layer_aux is not None:
+            aux = aux + layer_aux
         if caches is not None:
             new_caches.append(nc)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -184,7 +281,6 @@ def forward(
         logits = x @ model.embed.T
     else:
         logits = model.lm_head(x)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)  # no MoE layer
     return ForwardResult(logits, aux, new_caches)
 
 
@@ -214,13 +310,19 @@ def decode_step(
 
 
 def init_caches(cfg, batch: int, max_len: int, *, device=None):
-    """One ring-buffer KV cache a layer (``init_attention_cache``)."""
-    _check_supported(cfg)
+    """One cache a layer: a ring-buffer KV cache (``init_attention_cache``)
+    for attention, the zero (conv, SSM) state for ``ssd`` and (conv, h) for
+    ``rglru``."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
-    return [
-        init_attention_cache(
-            cfg, batch, max_len, _window(cfg, cfg.layer_kind(i)), dtype, device=dev
+
+    def layer_cache(kind):
+        if kind == "ssd":
+            return init_ssm_state(cfg, batch, dtype, device=dev)
+        if kind == "rglru":
+            return init_rglru_state(cfg, batch, dtype, device=dev)
+        return init_attention_cache(
+            cfg, batch, max_len, _window(cfg, kind), dtype, device=dev
         )
-        for i in range(cfg.num_layers)
-    ]
+
+    return [layer_cache(cfg.layer_kind(i)) for i in range(cfg.num_layers)]

@@ -1,10 +1,14 @@
-"""Batched serving engine: prefill, then greedy decode over ring caches.
+"""Batched serving engine: prefill, then greedy decode over the caches.
 
 Counterpart of ``repro.serving.engine``.  The reference jit-compiles its
 prefill and serve step; here they are plain functions run under
-``torch.inference_mode()``.  With a cache, attention is the plain masked
-path (``models.attention``), as in the reference, so the engine launches
-no flash kernel; the prefill and scoring forward without caches does.
+``torch.inference_mode()``.  ``ServeState.caches`` holds one cache a layer:
+a ring-buffer KV cache for attention (O(window) for windowed layers) and
+the O(1) recurrent state of an ssd or rglru layer.  With a cache, attention
+is the plain masked path (``models.attention``), as in the reference, so
+the engine launches no flash kernel; the prefill and scoring forward
+without caches does.  The cached paths route MoE layers without capacity
+drops (``forward``'s ``dropless`` default).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from ..models.transformer import decode_step, forward, init_caches
 
 
 class ServeState(NamedTuple):
-    caches: Any
+    caches: Any  # one cache a layer (models.transformer.init_caches)
     pos: int  # next position to write (global stream index)
     last_tokens: torch.Tensor  # (B,) most recent token of each sequence
 
@@ -26,7 +30,7 @@ class ServeState(NamedTuple):
 def make_serve_fns(cfg, max_len: int, attn_impl: str = "naive"):
     """(prefill, serve_step): prefill(model, tokens (B, S)) and
     serve_step(model, state) each return (ServeState, last logits (B, V)).
-    The caches are updated in place."""
+    The KV caches are updated in place; recurrent states are replaced."""
 
     @torch.inference_mode()
     def prefill(model, tokens):

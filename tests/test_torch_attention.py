@@ -127,8 +127,40 @@ def test_flash_wrapper_picks_its_instance_by_dtype_and_refuses_others(monkeypatc
     assert flash_attention_cuda.launches_by_instance == {"wgmma_bf16": 0, "tf32x3_f32": 0}
 
 
+def test_flash_wrapper_takes_head_dim_256_in_bf16_only(monkeypatch):
+    """D = 256 (recurrentgemma's local attention) has a bf16 instance; the
+    f32 instance refuses it before building (ROADMAP Queue 2), and both
+    refuse a head dim they have no instance for."""
+    monkeypatch.setattr(_build, "library", lambda: pytest.fail("built the library"))
+    f32 = [torch.zeros((2, 64, 256)) for _ in range(3)]
+    with pytest.raises(ValueError, match="tf32x3_f32.*D = 256.*Queue 2"):
+        flash_attention_cuda(*f32)
+    bf16 = [t.to(torch.bfloat16) for t in f32]
+    with pytest.raises(ValueError, match="CUDA tensor"):  # past the head-dim check
+        flash_attention_cuda(*bf16)
+    for dtype in (torch.bfloat16, torch.float32):
+        odd = [torch.zeros((2, 64, 80), dtype=dtype) for _ in range(3)]
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_cuda(*odd)
+    assert flash_attention_cuda.launches == 0
+
+
+CSRC = Path(_build.__file__).with_name("csrc") / "flash_attention.cu"
+
+
+def _bf16_tile_keys(d):
+    """Keys a tile of the bf16 instance at head dim d: ``Tile<D>::kBn`` in
+    the .cu (128 up to D = 128, 64 at D = 256)."""
+    text = CSRC.read_text().split("namespace hopper {", 1)[1]
+    small, large = re.search(
+        r"static constexpr int kBn = D <= 128 \? (\d+) : (\d+);", text
+    ).groups()
+    return int(small) if d <= 128 else int(large)
+
+
 def _emulate_wgmma_bf16(q, k, v, *, causal=True, window=0):
-    """The bf16 kernel instance's arithmetic in plain torch: 128-key tiles;
+    """The bf16 kernel instance's arithmetic in plain torch: tiles of
+    ``_bf16_tile_keys(D)`` keys;
     S in f32 from the bf16 inputs, in log2 units (scale * log2 e); -1e30 for
     masked keys and as the running max's start; p = exp2(s - m); l summed
     from the f32 p; P rounded to bf16 before P V; the output
@@ -145,8 +177,9 @@ def _emulate_wgmma_bf16(q, k, v, *, causal=True, window=0):
     m = torch.full((bh, sq, 1), -1e30)
     lsum = torch.zeros((bh, sq, 1))
     acc = torch.zeros((bh, sq, d))
-    for k0 in range(0, skv, 128):
-        kt, vt = kf[:, k0 : k0 + 128], vf[:, k0 : k0 + 128]
+    tile = _bf16_tile_keys(d)
+    for k0 in range(0, skv, tile):
+        kt, vt = kf[:, k0 : k0 + tile], vf[:, k0 : k0 + tile]
         s = (qf @ kt.mT) * scale_log2
         kpos = torch.arange(k0, k0 + kt.shape[1])[None, :]
         keep = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
@@ -170,6 +203,7 @@ def _emulate_wgmma_bf16(q, k, v, *, causal=True, window=0):
         (8, 2, 64, 256, 32, 0),  # causal GQA over two key tiles, Skv > Sq
         (2, 2, 256, 256, 32, 32),  # window 32
         (4, 2, 1, 512, 64, 0),  # a single decode query
+        (4, 1, 128, 192, 256, 64),  # D 256 (64-key tiles), MQA, window, Sq < Skv
     ],
 )
 def test_wgmma_bf16_arithmetic_matches_flash_kernel(bh, bkv, sq, skv, d, window):
@@ -180,9 +214,6 @@ def test_wgmma_bf16_arithmetic_matches_flash_kernel(bh, bkv, sq, skv, d, window)
     assert got.dtype == torch.bfloat16 and got.shape == (bh, sq, d)
     kw = dict(window=window) if window else {}
     _check(got, js, "bfloat16", causal=True, **kw)
-
-
-CSRC = Path(_build.__file__).with_name("csrc") / "flash_attention.cu"
 
 
 def _f32_tile_keys():

@@ -237,3 +237,23 @@ def test_bivariate_tlr_objective_matches_the_reference_at_the_script_size():
         want = -float(jfn(jnp.asarray(x.numpy())))
         assert got[name] == pytest.approx(want, rel=1e-10)
     assert got["exact_end"] > got["tlr_end"]
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-780m"])
+def test_serve_lm_main_serves_the_tokens_of_generate(arch):
+    """The LM serving example (examples/torch/serve_lm.py) at a reduced
+    config on the CPU: the sliding-window MoE model and the attention-free
+    SSM.  Its prefill and decode loop give, token for token, what
+    ``generate`` gives for the same model and prompts (whose parity with
+    the reference's is held in tests/test_torch_moe.py and
+    tests/test_torch_recurrent.py)."""
+    from repro_torch.serving.engine import generate
+
+    ex = _example("serve_lm")
+    argv = ["--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "16"]
+    got = ex.main(argv + ["--steps", "6"])
+    cfg, model, prompts = ex.build(arch, 2, 16, 0, "cpu")
+    assert got["arch"] == cfg.name and torch.equal(got["prompts"], prompts)
+    assert got["tokens"].shape == (2, 6)
+    assert torch.equal(got["tokens"], generate(model, cfg, prompts, 6))
+    assert got["decode_s_per_token"] > 0

@@ -1,11 +1,14 @@
 """The port's LM serving path against the reference on the CPU.
 
 Reduced configs (2 layers, d 128, B = 2, S = 64, as tests/test_models_smoke.py)
-of the dense, attention-only architectures: the reference's ``init_model``
-weights carried across (``convert.lm_params_from_numpy``), then ``forward``
-for each attention implementation, greedy ``generate`` token for token, the
-port's own decode-matches-forward, and the windowed ring cache: bounded,
-refusing a prefill longer than the window, and the reference's fault there.
+of the dense, attention-only architectures (the MoE, recurrent and frontend
+ones are in tests/test_torch_moe.py and tests/test_torch_recurrent.py): the
+reference's ``init_model`` weights carried across
+(``convert.lm_params_from_numpy``), then ``forward`` for each attention
+implementation, greedy ``generate`` token for token, the port's own
+decode-matches-forward, and the windowed ring cache: bounded, refusing a
+prefill longer than the window, and the reference's fault there.  Each of
+the ten LM configs equals the reference's field for field.
 """
 
 import dataclasses
@@ -23,6 +26,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_arch as j_get_arch  # noqa: E402
+from repro.configs import LM_ARCH_NAMES  # noqa: E402
 from repro.models import decode_step as j_decode_step  # noqa: E402
 from repro.models import forward as j_forward  # noqa: E402
 from repro.models import init_caches as j_init_caches  # noqa: E402
@@ -38,6 +42,7 @@ from repro_torch.models import (  # noqa: E402
     forward,
     init_caches,
     init_model,
+    param_count,
 )
 from repro_torch.models.mlp import MLP  # noqa: E402
 from repro_torch.serving.engine import generate  # noqa: E402
@@ -185,17 +190,43 @@ def test_reference_windowed_prefill_fault_is_recorded():
 
 
 def test_unported_configs_and_options_raise():
-    with pytest.raises(KeyError, match="Queue 1 item 6"):
-        get_arch("mixtral-8x7b")
+    """All ten LM architectures resolve; training's ``remat`` is still
+    refused and an unknown arch is a KeyError."""
+    for name in LM_ARCH_NAMES:
+        assert get_arch(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    base = get_arch("qwen3-4b").reduced()
-    for kw in ({"layer_pattern": ("ssd",)}, {"moe": True}, {"frontend": "audio_stub"}):
-        with pytest.raises(ValueError, match="Queue 1 item 6"):
-            init_model(dataclasses.replace(base, **kw), device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("geostat-tlr")
     _, _, cfg, model, tokens = _setup("qwen3-mqa")
     with pytest.raises(ValueError, match="Queue 1 item 6"):
         forward(model, cfg, torch.as_tensor(tokens), remat=True)
+
+
+@pytest.mark.parametrize("name", LM_ARCH_NAMES)
+def test_param_count_is_the_reference_init_models(name):
+    """``param_count`` (chip_smoke.py's parameter gate) from the config's
+    shapes: the reference's ``init_model`` count at full size and at a cut
+    depth, and the port's own model's at the reduced size."""
+    for depth in (None, 3):
+        jcfg, cfg = j_get_arch(name), get_arch(name)
+        if depth:
+            jcfg = dataclasses.replace(jcfg, num_layers=depth)
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        shapes = jax.eval_shape(lambda k: j_init_model(k, jcfg), jax.random.PRNGKey(0))
+        assert param_count(cfg) == sum(
+            int(np.prod(x.shape)) for x in jax.tree.leaves(shapes)
+        )
+    small = get_arch(name).reduced()
+    model = init_model(small, device="cpu")
+    assert param_count(small) == sum(p.numel() for p in model.parameters())
+
+
+@pytest.mark.parametrize("name", LM_ARCH_NAMES)
+def test_config_equals_the_reference_field_for_field(name):
+    got, want = get_arch(name), j_get_arch(name)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(got.reduced()) == dataclasses.asdict(want.reduced())
 
 
 def test_init_model_draws_the_reference_shapes_from_a_generator():
