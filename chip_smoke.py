@@ -273,6 +273,33 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             last step's logits within 5e-2 of a cacheless naive forward over
             prompt plus generated tokens (on the rows whose last token's
             experts agree).
+15. train   LM training (``repro_torch.training``), after every earlier
+            model is freed.  (1) qwen3-4b at full width and depth (36
+            layers; 4.02e9 parameters, 16 bytes each of state: bf16
+            parameters and gradients, f32 master, m and v), bf16, remat
+            and naive attention as the reference trains, from a seeded
+            generator: TRAIN_STEPS ``train_step`` calls on one repeated
+            (1, 4096) batch of ``SyntheticTokens`` with AdamW's warm-up of
+            one step; each step's seconds (the first apart), tokens/s, loss
+            and grad norm, the peak memory, then one more step split into
+            ``grads_fn`` and ``adamw_update``, each timed.  It fails unless
+            the parameter count is ``param_count``'s, every loss and grad
+            norm is finite, the last loss is below the first, and every
+            parameter equals ``master.to(bfloat16)`` bit for bit after the
+            steps.  (2) The ten architectures reduced in f32 (TF32 off),
+            each from a seeded CPU model copied to the card: one
+            ``grads_fn`` with remat on the card against the same call on
+            the CPU, and against remat=False on the card; the largest gap
+            of the loss and of any gradient leaf over that leaf's largest
+            magnitude must be at most 1e-4, every gradient finite.  (3) The
+            trainer at the reduced qwen3-4b: a run whose fault hook raises
+            at step 8 (checkpoints every 5) is resumed by a fresh Trainer
+            with other weights, and must give an uninterrupted run's losses
+            and parameters bit for bit; then ``examples/torch/train_lm.py``
+            at its default size (100 steps), on the card, must end at step
+            100 with finite losses.  The training path runs none of the
+            hand-written kernels, as the reference's runs no Pallas kernel:
+            its launches (all 0) are recorded, not gated.
 
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
@@ -281,7 +308,8 @@ serve, exact (panel 512), exact4096, exact_f32, grad, mle, recover (the
 resumed fit and the fault checks; the killed child's launches are another
 process's), assess, dist (its five evaluations), examples (the card's runs),
 lm and lm_<arch> runs, where each lm run is the timed prefill forward
-and the engine's ``generate``; ``launches_by_path`` splits them and
+and the engine's ``generate``, and the train run (its full-width steps);
+``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
 nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
 Any failed phase makes the script exit non-zero without that last line; so
@@ -569,6 +597,18 @@ LM_FAMILIES = (
 )
 LM_FAMILY_PROMPTS, LM_FAMILY_STEPS = (8, 512), 32
 LM_ROUTING_FLIP_SHARE, LM_AUX_GAP = 2e-2, 1e-2
+# The train phase (PERF.md section 4): qwen3-4b at full width and depth in
+# bf16 with remat and naive attention (the reference's training path), on
+# one repeated batch (batch, sequence); the train steps, the weights' seed
+# and AdamW's warm-up of one step.  The ten architectures
+# reduced in f32: the batch of one gradient on the card against the CPU,
+# with the largest relative gap of any leaf (and of the loss) allowed.
+# The trainer's crash-and-resume at the reduced qwen3-4b: its steps, the
+# step whose fault hook raises, the checkpoint period.
+TRAIN_ARCH, TRAIN_BATCH = "qwen3-4b", (1, 4096)
+TRAIN_STEPS, TRAIN_SEED = 5, 21
+TRAIN_REDUCED_BATCH, TRAIN_F32_GAP = (2, 64), 1e-4
+TRAINER_STEPS, TRAINER_CRASH_STEP, TRAINER_EVERY = 12, 8, 5
 
 
 # Clock cycles of the sleep that cuda_ms queues its runs behind.
@@ -3976,6 +4016,301 @@ def phase_lm_families(torch, st):
         raise AssertionError(f"lm families failed their checks: {failed}")
 
 
+def grads_gap(got, want) -> float:
+    """The largest gap of any gradient leaf over that leaf's largest
+    magnitude (the leaves compared on the CPU, in f32)."""
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
+def train_full_width(torch, st) -> dict:
+    """qwen3-4b at full width in bf16: TRAIN_STEPS train steps with remat and
+    naive attention on one repeated batch (see the module note)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dataio.tokens import SyntheticTokens
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_model, param_count
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.training.train_step import TrainConfig, grads_fn, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_arch(TRAIN_ARCH)
+    tcfg = TrainConfig(
+        remat=True, attn_impl="naive", optimizer=AdamWConfig(warmup_steps=1)
+    )
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, generator=gen, device=dev)
+    opt = adamw_init(model)
+    torch.cuda.synchronize()
+    rec = {
+        "phase": "train",
+        "part": "full_width",
+        "arch": TRAIN_ARCH,
+        "dtype": cfg.dtype,
+        "num_layers": cfg.num_layers,
+        "remat": tcfg.remat,
+        "attn_impl": tcfg.attn_impl,
+        "batch": list(TRAIN_BATCH),
+        "init_s": time.perf_counter() - t0,
+        "n_params": sum(p.numel() for p in model.parameters()),
+        "n_params_from_config": param_count(cfg),
+        "state_bytes": sum(
+            p.numel() * (2 * p.element_size() + 12) for p in model.parameters()
+        ),
+    }
+    batch = SyntheticTokens(cfg.vocab_size, TRAIN_BATCH[1], TRAIN_BATCH[0], TRAIN_SEED)
+    batch = batch.batch(0)
+    step = make_train_step(cfg, None, tcfg)
+    losses, gnorms, step_s = [], [], []
+    ops.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, _, metrics = step(model, opt, None, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    st.setdefault("launches", {})["train"] = ops.launch_counts()
+    st.setdefault("instances", {})["train"] = ops.instance_counts()
+    n_tok = TRAIN_BATCH[0] * TRAIN_BATCH[1]
+    steady = step_s[1:]
+    rec.update(
+        losses=losses,
+        grad_norms=gnorms,
+        step_s=step_s,
+        first_step_s=step_s[0],
+        step_s_median=float(np.median(steady)),
+        tokens_per_sec=n_tok / float(np.median(steady)),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        launches=st["launches"]["train"],
+        params_equal_master_bf16=all(
+            torch.equal(p, master.to(p.dtype))
+            for p, master in zip(model.parameters(), opt.master, strict=True)
+        ),
+        opt_step=int(opt.step),
+    )
+    # one more step in its two halves, each timed: the gradients (forward,
+    # each block's recompute, backward) and the optimizer's update
+    t0 = time.perf_counter()
+    grads, _ = grads_fn(model, cfg, batch, tcfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(tcfg.optimizer, grads, opt, model)
+    torch.cuda.synchronize()
+    rec["breakdown_s"] = {"grads": t1 - t0, "update": time.perf_counter() - t1}
+    del model, opt, metrics, grads
+    torch.cuda.empty_cache()
+    checks = {
+        "n_params": rec["n_params"] == rec["n_params_from_config"],
+        "finite": all(math.isfinite(x) for x in losses + gnorms),
+        "loss_falls": losses[-1] < losses[0],
+        "params_equal_master_bf16": rec["params_equal_master_bf16"],
+        "opt_step": rec["opt_step"] == TRAIN_STEPS,
+    }
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    return rec
+
+
+def train_batch(cfg, seed: int) -> dict:
+    """A batch of TRAIN_REDUCED_BATCH tokens (numpy, from ``seed``); stub
+    embeddings in place of the tokens for the frontend archs."""
+    b, s = TRAIN_REDUCED_BATCH
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s + 1)).astype(np.int32)
+    batch = dict(tokens=tokens[:, :-1], targets=tokens[:, 1:])
+    if cfg.frontend != "none":
+        embeds = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+        batch = dict(embeds=embeds, targets=tokens[:, 1:])
+    return batch
+
+
+def train_reduced_archs(torch) -> dict:
+    """Each of the ten architectures reduced in f32: one ``grads_fn`` with
+    remat on the card against the same call on the CPU from the same
+    weights, and remat=True against remat=False on the card."""
+    import copy
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.models import init_model
+    from repro_torch.training.train_step import TrainConfig, grads_fn
+
+    dev = torch.device("cuda")
+    remat, plain = TrainConfig(remat=True), TrainConfig(remat=False)
+    archs = {}
+    for i, name in enumerate(ARCHS):
+        cfg = get_arch(name).reduced()
+        gen = torch.Generator().manual_seed(TRAIN_SEED + i)
+        cpu_model = init_model(cfg, generator=gen, device="cpu")
+        model = copy.deepcopy(cpu_model).to(dev)
+        batch = train_batch(cfg, TRAIN_SEED + i)
+        g_cpu, m_cpu = grads_fn(cpu_model, cfg, batch, remat)
+        g_dev, m_dev = grads_fn(model, cfg, batch, remat)
+        g_plain, _ = grads_fn(model, cfg, batch, plain)
+        loss_cpu, loss_dev = float(m_cpu["loss"]), float(m_dev["loss"])
+        archs[name] = {
+            "loss_cpu": loss_cpu,
+            "loss_card": loss_dev,
+            "loss_rel_gap": abs(loss_dev - loss_cpu) / abs(loss_cpu),
+            "grads_rel_gap_cpu": grads_gap(g_dev, g_cpu),
+            "grads_rel_gap_remat": grads_gap(g_dev, g_plain),
+            "grads_finite": all(bool(torch.isfinite(g).all()) for g in g_dev),
+        }
+        del model, g_dev, g_plain
+    torch.cuda.empty_cache()
+    gaps = [
+        max(a["loss_rel_gap"], a["grads_rel_gap_cpu"], a["grads_rel_gap_remat"])
+        for a in archs.values()
+    ]
+    rec = {
+        "phase": "train",
+        "part": "reduced_archs",
+        "dtype": "float32",
+        "batch": list(TRAIN_REDUCED_BATCH),
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "archs": archs,
+        "max_rel_gap": max(gaps),
+        "ok": len(archs) == 10
+        and max(gaps) <= TRAIN_F32_GAP
+        and all(a["grads_finite"] for a in archs.values()),
+    }
+    emit(rec)
+    return rec
+
+
+def train_trainer(torch, tmp: str) -> dict:
+    """The trainer at the reduced qwen3-4b on the card: a run crashed by its
+    fault hook at TRAINER_CRASH_STEP and resumed by a fresh Trainer (other
+    weights) against an uninterrupted run; then examples/torch/train_lm.py
+    at its default size."""
+    from repro_torch.checkpointing.checkpoint import latest_step
+    from repro_torch.configs import get_arch
+    from repro_torch.dataio.tokens import SyntheticTokens
+    from repro_torch.models import init_model
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    tcfg = TrainConfig(
+        remat=True,
+        optimizer=AdamWConfig(learning_rate=1e-2, warmup_steps=2, decay_steps=50),
+    )
+    step_fn = make_train_step(cfg, None, tcfg)
+    data = SyntheticTokens(cfg.vocab_size, 16, 4, seed=4)
+
+    def model(seed):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return init_model(cfg, generator=gen, device=dev)
+
+    def config(d):
+        return TrainerConfig(
+            total_steps=TRAINER_STEPS,
+            checkpoint_every=TRAINER_EVERY,
+            log_every=1,
+            checkpoint_dir=os.path.join(tmp, d),
+        )
+
+    class Crash(RuntimeError):
+        pass
+
+    def crash(step, batch):
+        if step == TRAINER_CRASH_STEP:
+            raise Crash(step)
+
+    t0 = time.perf_counter()
+    crashed = Trainer(step_fn, model(0), data, config("run"), fault_hook=crash)
+    try:
+        crashed.run()
+        raised = False
+    except Crash:
+        raised = True
+    crashed.ckpt.wait()
+    saved = latest_step(os.path.join(tmp, "run"))
+    resumed = Trainer(step_fn, model(99), data, config("run"))
+    out = resumed.run()
+    whole = Trainer(step_fn, model(0), data, config("whole"))
+    whole.run()
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t0
+    after = TRAINER_CRASH_STEP - TRAINER_CRASH_STEP % TRAINER_EVERY
+    got = [m["loss"] for m in resumed.metrics_log]
+    want = [m["loss"] for m in whole.metrics_log[after:]]
+    state = zip(
+        list(resumed.params.parameters()) + resumed.opt_state.master,
+        list(whole.params.parameters()) + whole.opt_state.master,
+    )
+    equal = all(torch.equal(a, b) for a, b in state)
+    gap = grads_gap(list(resumed.params.parameters()), list(whole.params.parameters()))
+
+    t0 = time.perf_counter()
+    ex = load_example("train_lm").main(["--ckpt-dir", os.path.join(tmp, "example")])
+    example_s = time.perf_counter() - t0
+    ex_losses = [m["loss"] for m in ex["log"]]
+    rec = {
+        "phase": "train",
+        "part": "trainer",
+        "arch": cfg.name,
+        "crash_raised": raised,
+        "checkpoint_at_crash": saved,
+        "resumed_final_step": out["final_step"],
+        "resumed_losses": got,
+        "uninterrupted_losses": want,
+        "state_equal": equal,
+        "params_rel_gap": gap,
+        "trainer_s": trainer_s,
+        "example": {
+            "device": ex["device"],
+            "n_params": ex["n_params"],
+            "final_step": ex["final_step"],
+            "logged_losses": ex_losses,
+            "seconds": example_s,
+        },
+    }
+    checks = {
+        "crash": raised and saved == after,
+        "resume": out["final_step"] == TRAINER_STEPS and got == want and equal,
+        "example": ex["final_step"] == 100
+        and ex["device"].startswith("cuda")
+        and all(math.isfinite(x) for x in ex_losses),
+    }
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    return rec
+
+
+def phase_train(torch, st):
+    """LM training on the card (see the module note); fails if a part
+    fails.  Every model of the earlier phases is freed before it runs."""
+    import gc
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    recs = [train_full_width(torch, st), train_reduced_archs(torch)]
+    with tempfile.TemporaryDirectory() as tmp:
+        recs.append(train_trainer(torch, tmp))
+    print(f"chip_smoke: train {time.perf_counter() - t0:.1f} s", flush=True)
+    failed = [r["part"] for r in recs if not r["ok"]]
+    if failed:
+        raise AssertionError(f"train parts failed their checks: {failed}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -4016,6 +4351,7 @@ def main() -> int:
         ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),
         ("lm_families", lambda: phase_lm_families(torch, st)),
+        ("train", lambda: phase_train(torch, st)),
     )
     for name, fn in phases:
         st["phase"] = name

@@ -18,6 +18,7 @@ from .core.prediction import CokrigeFactor
 from .core.tlr import TLRMatrix
 from .device import resolve_device
 from .models.transformer import Model, init_model, layer_counts
+from .training.optimizer import AdamWState
 
 
 def params_from_numpy(
@@ -172,3 +173,29 @@ def lm_params_from_numpy(tree, cfg, *, device=None, dtype=None) -> Model:
     if model.lm_head is not None:
         _copy(model.lm_head.weight, tree["lm_head"], transpose=True)
     return model
+
+
+def lm_leaves_from_numpy(tree, cfg, *, device=None) -> list:
+    """The leaves of a tree shaped as the reference's LM params (its
+    gradients, its optimizer's ``master``, ``m`` or ``v``; numpy arrays),
+    as float32 tensors in the port model's parameter order: unstacked and
+    transposed as ``lm_params_from_numpy`` does."""
+    model = lm_params_from_numpy(tree, cfg, device=device, dtype=torch.float32)
+    return [p.detach() for p in model.parameters()]
+
+
+def adamw_state_from_numpy(state, cfg, *, device=None) -> AdamWState:
+    """The port's ``AdamWState`` from the reference's, every tree passed
+    through ``np.asarray``: its step, and ``master``, ``m`` and ``v`` mapped
+    onto the port's parameters in float32."""
+    dev = resolve_device(device)
+
+    def leaves(name):
+        return lm_leaves_from_numpy(_field(state, name), cfg, device=dev)
+
+    return AdamWState(
+        step=_tensor(_field(state, "step"), dev, torch.int32),
+        master=leaves("master"),
+        m=leaves("m"),
+        v=leaves("v"),
+    )

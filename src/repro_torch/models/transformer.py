@@ -12,8 +12,10 @@ residuals.  Layer kinds:
 The reference scans blocks of stacked parameters; here the layers are an
 ``nn.ModuleList`` walked in order, so caches are a flat list with one
 entry a layer: a ring-buffer KV cache for attention, the (conv, SSM) or
-(conv, h) state for the recurrent kinds.  Rematerialisation (training) is
-not ported yet (ROADMAP Queue 1 item 6) and raises ``ValueError``.
+(conv, h) state for the recurrent kinds.  With ``remat=True`` (training)
+each block, one period of ``cfg.layer_pattern`` (the reference's unit of
+``jax.checkpoint``), runs under ``torch.utils.checkpoint``; the tail layers
+are not wrapped, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import Attention, init_attention_cache, multihead_attention
@@ -202,6 +205,22 @@ def _apply_layer(layer: Layer, x, cfg, *, attn_impl, positions, cache, dropless)
     return x + h2, new_cache, aux
 
 
+def _apply_layers(layers, x, aux, cfg, caches, **kw):
+    """Layers in order, each with its cache (``caches`` None: cacheless):
+    (x, aux plus their MoE aux losses, the new caches or None).  ``kw``:
+    ``_apply_layer``'s attn_impl, positions and dropless."""
+    new_caches = None if caches is None else []
+    for layer, cache in zip(
+        layers, [None] * len(layers) if caches is None else caches, strict=True
+    ):
+        x, nc, layer_aux = _apply_layer(layer, x, cfg, cache=cache, **kw)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+        if caches is not None:
+            new_caches.append(nc)
+    return x, aux, new_caches
+
+
 def _refuse_recurrent_continuation(cfg, positions, s: int) -> None:
     """A cached call of several tokens that does not start at position 0 on
     a model with ssd or rglru layers.  Their blocks, as the reference's,
@@ -239,13 +258,13 @@ def forward(
     dispatch; the default (None: ``caches is not None``) routes the cached
     serving paths without capacity drops and every cacheless forward with
     them, as the reference.  ``aux_loss`` is the MoE layers' router loss
-    summed (0 without MoE).  ``remat`` (training) is not ported.
+    summed (0 without MoE).  ``remat=True`` recomputes each block's
+    activations in the backward pass instead of keeping them (the values
+    are the same: MoE dispatch is deterministic, so the recompute routes
+    the same tokens); a cached call cannot take it.
     """
-    if remat:
-        raise ValueError(
-            "remat=True (training) is not ported yet (ROADMAP Queue 1 item 6, "
-            "the rest of the LM substrate)"
-        )
+    if remat and caches is not None:
+        raise ValueError("remat=True is for training; a cached call cannot take it")
     if dropless is None:
         dropless = caches is not None
     dev = model.embed.device
@@ -256,26 +275,21 @@ def forward(
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=dev)[None]
-    new_caches = None
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    kw = dict(attn_impl=attn_impl, positions=positions, dropless=dropless)
     if caches is not None:
         _refuse_recurrent_continuation(cfg, positions, s)
-        new_caches = []
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for i, layer in enumerate(model.layers):
-        cache = None if caches is None else caches[i]
-        x, nc, layer_aux = _apply_layer(
-            layer,
-            x,
-            cfg,
-            attn_impl=attn_impl,
-            positions=positions,
-            cache=cache,
-            dropless=dropless,
+    layers = list(model.layers)
+    period = len(cfg.layer_pattern)
+    nblocks = layer_counts(cfg)[0] if remat else 0
+    for b in range(nblocks):
+        block = layers[b * period : (b + 1) * period]
+        x, aux, _ = checkpoint(
+            _apply_layers, block, x, aux, cfg, None, use_reentrant=False, **kw
         )
-        if layer_aux is not None:
-            aux = aux + layer_aux
-        if caches is not None:
-            new_caches.append(nc)
+    x, aux, new_caches = _apply_layers(
+        layers[nblocks * period :], x, aux, cfg, caches, **kw
+    )
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if model.lm_head is None:
         logits = x @ model.embed.T

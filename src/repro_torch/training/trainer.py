@@ -1,0 +1,180 @@
+"""Fault-tolerant training loop: checkpoint and restart, NaN recovery,
+straggler watchdog, deterministic data replay.
+
+Counterpart of ``repro.training.trainer``:
+
+* process crash or preemption: ``Trainer.run`` resumes from the LATEST
+  checkpoint, and the data source (step -> batch) replays the stream;
+* a non-finite loss: restore the last checkpoint (or keep the state from
+  before the step where none exists yet) and skip the step's data, at most
+  ``max_nan_restores`` times;
+* stragglers: a step slower than ``straggler_zscore`` standard deviations
+  above the running mean is counted.
+
+The step function is the port's (``make_train_step``): it updates the model
+and the optimizer state in place, and leaves them as they were when the
+loss is not finite, which the reference's trainer gets by throwing the
+step's functional result away.
+
+A checkpoint holds ``opt`` (step, f32 ``master``, ``m``, ``v``) and the
+compression ``errors``, and no parameters: after every step
+``p == master.to(p.dtype)`` bit for bit, so a restore rebuilds the
+parameters from ``master``.  One rule for every dtype, and a bf16 model
+checkpoints no bf16 leaf (the reference's trainer saves its bf16
+parameters, which it cannot restore: ROADMAP Queue 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import tempfile
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..checkpointing.checkpoint import (
+    AsyncCheckpointer,
+    latest_step,
+    restore_checkpoint,
+)
+from .optimizer import adamw_init, param_list
+
+
+def _default_checkpoint_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    checkpoint_every: int = 25
+    checkpoint_dir: str = dataclasses.field(default_factory=_default_checkpoint_dir)
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    straggler_zscore: float = 3.0
+    max_nan_restores: int = 3
+
+
+class Trainer:
+    def __init__(
+        self,
+        step_fn: Callable,
+        params,
+        data_source,
+        tcfg: TrainerConfig,
+        grad_errors=None,
+        fault_hook: Callable | None = None,
+    ):
+        self.step_fn = step_fn
+        self.params = params
+        self.opt_state = adamw_init(params)
+        self.grad_errors = grad_errors
+        self.data = data_source
+        self.cfg = tcfg
+        self.ckpt = AsyncCheckpointer(tcfg.checkpoint_dir, tcfg.keep_checkpoints)
+        self.fault_hook = fault_hook  # tests inject failures here
+        self.metrics_log: list[dict] = []
+        self.straggler_steps: list[int] = []
+        self.nan_restores = 0
+        self._durations: list[float] = []
+
+    # -- checkpoint plumbing -------------------------------------------------
+
+    def _state_tree(self):
+        return dict(opt=self.opt_state, errors=self.grad_errors)
+
+    def save(self, step: int):
+        self.ckpt.save(step, self._state_tree(), extra=dict(step=step))
+
+    def _restore(self, step: int | None = None):
+        restored, _ = restore_checkpoint(
+            self.cfg.checkpoint_dir, self._state_tree(), step
+        )
+        self.opt_state = restored["opt"]
+        self.grad_errors = restored["errors"]
+        with torch.no_grad():
+            for p, master in zip(
+                param_list(self.params), self.opt_state.master, strict=True
+            ):
+                p.copy_(master)
+
+    def try_resume(self) -> int:
+        step = latest_step(self.cfg.checkpoint_dir)
+        if step is None:
+            return 0
+        self._restore(step)
+        return step
+
+    # -- the loop -------------------------------------------------------------
+
+    def _is_straggler(self, dt: float) -> bool:
+        if len(self._durations) < 8:
+            return False
+        mu = float(np.mean(self._durations))
+        sd = float(np.std(self._durations)) + 1e-9
+        return (dt - mu) / sd > self.cfg.straggler_zscore
+
+    def run(self, start_step: int | None = None) -> dict:
+        step = self.try_resume() if start_step is None else start_step
+        last_good = step
+        while step < self.cfg.total_steps:
+            batch = self.data.batch(step)
+            if self.fault_hook is not None:
+                self.fault_hook(step, batch)  # may raise / poison the batch
+            t0 = time.monotonic()
+            out = self.step_fn(self.params, self.opt_state, self.grad_errors, batch)
+            params, opt_state, grad_errors, metrics = out
+            loss = float(metrics["loss"])
+            dt = time.monotonic() - t0
+
+            if not math.isfinite(loss):
+                # NaN recovery: reload the last checkpoint, skip this batch.
+                self.nan_restores += 1
+                if self.nan_restores > self.cfg.max_nan_restores:
+                    raise FloatingPointError(
+                        f"loss non-finite at step {step}; restore budget spent"
+                    )
+                self.ckpt.wait()
+                if latest_step(self.cfg.checkpoint_dir) is not None:
+                    self._restore()
+                step += 1  # skip the poisoned data step
+                continue
+
+            self.params, self.opt_state, self.grad_errors = (
+                params,
+                opt_state,
+                grad_errors,
+            )
+            if self._is_straggler(dt):
+                self.straggler_steps.append(step)
+            self._durations.append(dt)
+            if len(self._durations) > 64:
+                self._durations.pop(0)
+
+            if step % self.cfg.log_every == 0:
+                self.metrics_log.append(
+                    dict(
+                        step=step,
+                        loss=loss,
+                        dt=dt,
+                        grad_norm=float(metrics["grad_norm"]),
+                    )
+                )
+            step += 1
+            if step % self.cfg.checkpoint_every == 0:
+                self.save(step)
+                last_good = step
+
+        self.save(self.cfg.total_steps)
+        self.ckpt.wait()
+        return dict(
+            final_step=step,
+            last_checkpoint=last_good,
+            nan_restores=self.nan_restores,
+            stragglers=self.straggler_steps,
+            log=self.metrics_log,
+        )

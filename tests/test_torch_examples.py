@@ -257,3 +257,30 @@ def test_serve_lm_main_serves_the_tokens_of_generate(arch):
     assert got["tokens"].shape == (2, 6)
     assert torch.equal(got["tokens"], generate(model, cfg, prompts, 6))
     assert got["decode_s_per_token"] > 0
+
+
+def test_train_lm_main_trains_and_checkpoints(tmp_path):
+    """The LM training example (examples/torch/train_lm.py) for a few steps
+    on the CPU: its first logged loss is the loss of a fresh model of the
+    same seed on the data of step 0, every logged loss and gradient norm is
+    finite, and the run ends with its checkpoint (whose train step is held
+    against the reference in tests/test_torch_training.py)."""
+    from repro_torch.checkpointing.checkpoint import latest_step
+    from repro_torch.configs import get_arch
+    from repro_torch.dataio.tokens import SyntheticTokens
+    from repro_torch.models import init_model
+    from repro_torch.training.train_step import TrainConfig, loss_fn
+
+    ex = _example("train_lm")
+    ckpt = str(tmp_path / "ckpt")
+    got = ex.main(["--steps", "3", "--device", "cpu", "--ckpt-dir", ckpt])
+    assert got["final_step"] == 3 and latest_step(ckpt) == 3
+    assert [m["step"] for m in got["log"]] == [0]
+    cfg = get_arch("qwen3-4b").reduced()
+    model = init_model(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    batch = SyntheticTokens(cfg.vocab_size, got["seq"], got["batch"], seed=0).batch(0)
+    tcfg = TrainConfig(attn_impl="chunked")
+    with torch.no_grad():
+        want = float(loss_fn(model, cfg, batch, tcfg)[0])
+    assert got["log"][0]["loss"] == want
+    assert all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in got["log"])

@@ -102,7 +102,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         example = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(example)
         calls.append(lambda main=example.main: main([]))
-    assert len(calls) == 19  # 15 entry points and 4 examples
+    assert len(calls) == 20  # 15 entry points and 5 examples
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

@@ -190,8 +190,9 @@ def test_reference_windowed_prefill_fault_is_recorded():
 
 
 def test_unported_configs_and_options_raise():
-    """All ten LM architectures resolve; training's ``remat`` is still
-    refused and an unknown arch is a KeyError."""
+    """All ten LM architectures resolve and an unknown arch is a KeyError;
+    training's ``remat=True`` gives the logits of ``remat=False``, and a
+    cached call refuses it."""
     for name in LM_ARCH_NAMES:
         assert get_arch(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
@@ -199,8 +200,18 @@ def test_unported_configs_and_options_raise():
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("geostat-tlr")
     _, _, cfg, model, tokens = _setup("qwen3-mqa")
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        forward(model, cfg, torch.as_tensor(tokens), remat=True)
+    with torch.inference_mode():
+        remat = forward(model, cfg, torch.as_tensor(tokens), remat=True).logits
+        plain = forward(model, cfg, torch.as_tensor(tokens)).logits
+    assert torch.equal(remat, plain)
+    with pytest.raises(ValueError, match="cached call"):
+        forward(
+            model,
+            cfg,
+            torch.as_tensor(tokens),
+            remat=True,
+            caches=init_caches(cfg, B, S, device="cpu"),
+        )
 
 
 @pytest.mark.parametrize("name", LM_ARCH_NAMES)
