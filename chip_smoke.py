@@ -210,7 +210,32 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             once a panel step (its float64-acc form) and its dmma_f64 never,
             and is within 1e-5 of (2).  The gap of (1) to the dense exact
             loglik is reported, not gated.
-12. examples the paper's three geostat examples (examples/torch/) through
+12. mesh    the multi-device forms on a torch.distributed ("data",
+            "model") mesh (``repro_torch.launch.mesh``; one process a rank,
+            started by ``spawn_ranks`` after the kernel library is built).
+            (a) MESH_WORLD = 4 ranks on a (2, 2) mesh on the one card over
+            gloo, which carries CUDA tensors (a stand-in: NCCL refuses two
+            ranks on one device): ``dist_tlr_loglik(from_tiles=True)`` at
+            the dist phase's inputs (n = 64^2, tile 512, max rank 128, TLR7,
+            f64), block-cyclic and masked, each rank generating, compressing
+            and factoring its own pair slots; ``dist_exact_loglik`` at the
+            exact phase's inputs (n = 16384, m = 32768, panel 512), each
+            rank holding its own panel-row blocks; then ``corrupt_diag_tile``
+            under the mesh (detected, the finite sentinel) and the jitter
+            ladder on four colliding locations of the dist inputs at nugget
+            0.  (b) One rank over NCCL, the same block-cyclic call.  It
+            fails unless every rank's TLR loglik is within 1e-8 (relative)
+            of the dist phase's same form, with the ranks' factor rank
+            totals summing to its total, the exact loglik within 1e-9 of
+            the exact phase's panel-512 loglik, the injected tile detected
+            with the sentinel loglik, the ladder ok within 1e-3 of the dense
+            loglik at its jitter, and every rank launched matern_tile (its
+            general instance), potrf, trsm, tlr_mm and syrk (the NCCL rank:
+            all but syrk), no fma_f32 instance, and no plain K_nu on CUDA.
+            Per rank it prints each evaluation's seconds, peak memory
+            (beside the single-device form's) and launches by instance; a
+            rank that fails fails the phase.
+13. examples the paper's three geostat examples (examples/torch/) through
             their ``main`` on the card: quickstart (n = 20^2, tile 100,
             rank 64; the dense exact loglik and TLR5/7/9) and tlr_vs_exact
             (n = 18^2, tile 108, rank 64; three dependence strengths, each
@@ -232,7 +257,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             (trsm: dtype, strip columns, update tile, row split; syrk: tile
             edge; each a kernel of its own) is one that a kernel check of
             phase 2 held against the plain version.
-13. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
+14. lm      LM serving for qwen3-4b at full width (d 2560, 32/8 heads, head
             dim 128, vocab 151936), random weights from a seeded generator.
             First a depth-4 float32 copy: ``forward(attn_impl="kernel")``
             against ``attn_impl="naive"`` on (1, 4096) tokens, relative gap
@@ -249,7 +274,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             attention: 0 flash launches), its prefill and each decode step
             timed, and the last step's logits within 5e-2 of a cacheless
             naive forward over prompt plus generated tokens.
-14. lm_families the other six LM architectures in turn (LM_FAMILIES), each
+15. lm_families the other six LM architectures in turn (LM_FAMILIES), each
             at full width in its config's bf16 with random weights from a
             seeded generator, at full depth where it fits (mamba2 48,
             recurrentgemma 38, pixtral 40, musicgen 48 layers) and cut where
@@ -273,7 +298,7 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             last step's logits within 5e-2 of a cacheless naive forward over
             prompt plus generated tokens (on the rows whose last token's
             experts agree).
-15. train   LM training (``repro_torch.training``), after every earlier
+16. train   LM training (``repro_torch.training``), after every earlier
             model is freed.  (1) qwen3-4b at full width and depth (36
             layers; 4.02e9 parameters, 16 bytes each of state: bf16
             parameters and gradients, f32 master, m and v), bf16, remat
@@ -307,7 +332,8 @@ after it: the kernels of a path must have launched during it.  Then a
 serve, exact (panel 512), exact4096, exact_f32, grad, mle, recover (the
 resumed fit and the fault checks; the killed child's launches are another
 process's), assess, dist (its five evaluations), examples (the card's runs),
-lm and lm_<arch> runs, where each lm run is the timed prefill forward
+mesh (every rank's evaluations, both backends), lm and lm_<arch> runs,
+where each lm run is the timed prefill forward
 and the engine's ``generate``, and the train run (its full-width steps);
 ``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
@@ -537,6 +563,16 @@ ASSESS_ZERO, ASSESS_ROUND, ASSESS_ORACLE_TOL, ASSESS_NAIVE_GAP = 1e-8, 1e-9, 1e-
 DIST_N_SIDE, DIST_SUPER, DIST_COL_BLOCK = 64, 4, 2
 DIST_SWEEP_B = 2 * DIST_N_SIDE**2 // TILE - 1
 DIST_F64_GAP, DIST_MIXED_GAP = 1e-8, 1e-5
+# The mesh phase: W ranks on the one card over gloo (the stand-in transport
+# of several ranks on one device: NCCL refuses two ranks on one GPU), and
+# one rank over NCCL, the production backend; the gates against the
+# single-device forms (the dist phase's TLR logliks at its inputs, the
+# exact phase's panel-512 loglik at the main cell's), the kernels every rank
+# must launch, and the ranks' time limit in seconds (a rank stuck in a
+# collective fails at it).
+MESH_WORLD, MESH_TLR_GAP, MESH_EXACT_GAP = 4, 1e-8, 1e-9
+MESH_KERNELS = ("matern_tile", "potrf", "trsm", "tlr_mm", "syrk")
+MESH_TIMEOUT_S = 480.0
 # The recover phase: the step whose save makes the parent kill its child
 # (with a save after every iteration, step 1 closes the second of
 # MLE_ITERS), the child's time limit in seconds, the gate of the resumed
@@ -2425,6 +2461,11 @@ def phase_exact(torch, st):
         )
         if not ok:
             failed.append(panel)
+        if path == "exact":  # the mesh phase's input and reference
+            st["exact_mesh_ref"] = dict(
+                locs=np.asarray(locs), z=z.cpu().numpy(), loglik=ll, s=total_s,
+                peak_bytes=peak,
+            )
     del dists
     torch.cuda.empty_cache()
     if failed:
@@ -3280,6 +3321,13 @@ def phase_dist(torch, st, n_side: int):
         del res
     st.setdefault("launches", {})["dist"] = total
     st.setdefault("instances", {})["dist"] = by_inst
+    # the mesh phase's inputs and single-device references
+    keep = ("loglik", "s", "peak_bytes", "factor_rank_total")
+    st["dist_ref"] = dict(
+        locs=np.asarray(locs),
+        z=z.cpu().numpy(),
+        records={k: {f: r.get(f) for f in keep} for k, r in records.items()},
+    )
 
     ref = records["tlr_loglik"]
     masked = records["dist_masked"]
@@ -3335,6 +3383,265 @@ def phase_dist(torch, st, n_side: int):
         raise AssertionError(f"dist forms failed their checks: {failed}")
 
 
+def mesh_rank(mesh, payload: dict) -> dict:
+    """One rank of the mesh phase (started by ``spawn_ranks``): the TLR
+    forms of ``payload["forms"]`` at the dist inputs, then, where the
+    payload holds them, the exact form and the faults, each evaluation with
+    its seconds, peak memory, launches and (TLR) the rank total of the
+    factor slots it holds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.covariance import MaternParams, pairwise_distances
+    from repro_torch.core.dist_cholesky import dist_exact_loglik
+    from repro_torch.core.dist_tlr import dist_tlr_loglik
+    from repro_torch.core.recovery import jitter_escalate
+    from repro_torch.kernels import ops
+    from repro_torch.testing import corrupt_diag_tile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    st = {"phase": "mesh"}
+    record_plans(st)
+    count_plain_kv(st)
+    params = MaternParams.bivariate(**MATERN, device=dev)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "evaluations": {}}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kept = []
+        restore = capture_factorizations(kept)
+        ops.reset_launch_counts()
+        times = {}
+        t0 = time.perf_counter()
+        try:
+            res = fn(times)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        rec = {
+            "s": time.perf_counter() - t0,
+            "phase_s": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": ops.launch_counts(),
+            "launches_by_instance": ops.instance_counts(),
+        }
+        if kept:
+            rec["factor_rank_total_held"] = sum(k["factor_rank_total"] for k in kept)
+        out["evaluations"][name] = rec
+        return res, rec
+
+    def parts(res) -> dict:
+        rec = {k: float(getattr(res, k)) for k in ("loglik", "logdet", "quad")}
+        return rec | {"status": res.status.as_dict()}
+
+    def tlr(times, at, nugget=NUGGET, **kw):
+        locs, z = at
+        return dist_tlr_loglik(
+            None, z, locs=locs, params=params, from_tiles=True, tol=TOL_TLR,
+            max_rank=KMAX, tile_size=TILE, nugget=nugget, gen="kernel", device=dev,
+            mesh=mesh, times=times, **kw,
+        )
+
+    base = (payload["locs"], torch.as_tensor(payload["z"], device=dev))
+    for name in payload["forms"]:
+        bc = name == "block_cyclic"
+        res, rec = run(name, lambda times: tlr(times, base, block_cyclic=bc))
+        rec.update(parts(res))
+    if "exact" in payload:
+        ex = payload["exact"]
+        dists = pairwise_distances(torch.as_tensor(ex["locs"], device=dev))
+        z = torch.as_tensor(ex["z"], device=dev)
+
+        def exact(times):
+            return dist_exact_loglik(
+                dists, z, params, nugget=NUGGET, panel=TILE, mesh=mesh, times=times
+            )
+
+        res, rec = run("exact", exact)
+        rec["loglik"] = float(res.loglik)
+        del dists, z
+    if "dup" in payload:
+        with corrupt_diag_tile(tile=0, magnitude=10.0):
+            res, rec = run(
+                "corrupt_diag_tile", lambda times: tlr(times, base, block_cyclic=True)
+            )
+        rec.update(parts(res))
+        dup = payload["dup"]
+        at = (dup["locs"], torch.as_tensor(dup["z"], device=dev))
+
+        def eval_at(jitter):
+            r = tlr(None, at, nugget=jitter, block_cyclic=True)
+            return r.loglik, r.status.ok & torch.isfinite(r.loglik)
+
+        lad, rec = run("ladder", lambda _: jitter_escalate(eval_at, **RECOVER_LADDER))
+        rec.update(
+            ok=bool(lad.ok), attempts=int(lad.attempts), jitter=float(lad.jitter),
+            loglik=float(lad.loglik),
+        )
+    out["plans"] = sorted(st.get("plans", {}).get("mesh", set()))
+    out["plain_kv_calls_on_cuda"] = st.get("kv_cuda", {}).get("mesh", 0)
+    return out
+
+
+def _fold(counts: list) -> dict:
+    """Sum launch-count dicts (of ints, or of instance dicts)."""
+    total = {}
+    for c in counts:
+        for name, v in c.items():
+            if isinstance(v, dict):
+                mine = total.setdefault(name, {})
+                for inst, n in v.items():
+                    mine[inst] = mine.get(inst, 0) + n
+            else:
+                total[name] = total.get(name, 0) + v
+    return total
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / abs(want)
+
+
+def _mesh_checks(ranks: list, kernels: tuple, single: dict, dense) -> list:
+    """The mesh phase's gates on one spawn's ranks; adds each evaluation's
+    gap and single-device figures to its record, returns the failures."""
+    failed = []
+    for name in ("block_cyclic", "masked"):
+        if name not in ranks[0]["evaluations"]:
+            continue
+        want = single[name]
+        held = sum(r["evaluations"][name]["factor_rank_total_held"] for r in ranks)
+        if held != want["factor_rank_total"]:
+            failed.append(f"{name}:rank_total")
+        for r in ranks:
+            rec = r["evaluations"][name]
+            rec["rel_gap"] = _rel(rec["loglik"], want["loglik"])
+            if not (rec["status"]["ok"] and rec["rel_gap"] <= MESH_TLR_GAP):
+                failed.append(f"{name}:rank{r['rank']}")
+    for r in ranks:
+        ev = r["evaluations"]
+        for name in ("block_cyclic", "masked", "exact"):
+            if name in ev:
+                ev[name]["single_device_s"] = single[name]["s"]
+                ev[name]["single_device_peak_bytes"] = single[name]["peak_bytes"]
+        if "exact" in ev:
+            rec = ev["exact"]
+            rec["rel_gap"] = _rel(rec["loglik"], single["exact"]["loglik"])
+            if not rec["rel_gap"] <= MESH_EXACT_GAP:
+                failed.append(f"exact:rank{r['rank']}")
+        if "corrupt_diag_tile" in ev:
+            rec, lad = ev["corrupt_diag_tile"], ev["ladder"]
+            good = not rec["status"]["ok"] and rec["loglik"] == single["sentinel"]
+            good = good and all(math.isfinite(rec[k]) for k in ("logdet", "quad"))
+            lad["dense_exact_loglik"] = dense(lad["jitter"])
+            lad["rel_gap"] = _rel(lad["loglik"], lad["dense_exact_loglik"])
+            if not (good and lad["ok"] and lad["rel_gap"] <= RECOVER_LADDER_GAP):
+                failed.append(f"faults:rank{r['rank']}")
+        inst = _fold([e["launches_by_instance"] for e in ev.values()])
+        r["launches_by_instance"] = inst
+        good = all(sum(inst[k].values()) > 0 for k in kernels)
+        good = good and f64_only(inst) and inst["matern_tile"]["general"] > 0
+        if not (good and r["plain_kv_calls_on_cuda"] == 0):
+            failed.append(f"kernels:rank{r['rank']}")
+    return failed
+
+
+def phase_mesh(torch, st):
+    """The multi-device forms on a mesh of ranks on the card: see the module
+    docstring, phase 12."""
+    from repro_torch.core.covariance import MaternParams
+    from repro_torch.core.likelihood import exact_loglik
+    from repro_torch.core.mle import apply_morton
+    from repro_torch.core.recovery import sentinel_loglik
+    from repro_torch.launch.mesh import mesh_shape_for, spawn_ranks
+
+    dref, eref = st["dist_ref"], st["exact_mesh_ref"]
+    dev = torch.device("cuda")
+    dup = dref["locs"].copy()
+    dup[-RECOVER_DUPS:] = dup[:RECOVER_DUPS]
+    dup_locs, dup_z = apply_morton(dup, dref["z"], 2)
+    base = dict(locs=dref["locs"], z=dref["z"])
+    gloo = dict(
+        base,
+        forms=("block_cyclic", "masked"),
+        exact=dict(locs=eref["locs"], z=eref["z"]),
+        dup=dict(locs=dup_locs, z=dup_z),
+    )
+    spawns = {
+        "gloo": (MESH_WORLD, "gloo", gloo),
+        "nccl": (1, "nccl", dict(base, forms=("block_cyclic",))),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs, spawn_s = {}, {}
+    for key, (world, backend, payload) in spawns.items():
+        t0 = time.perf_counter()
+        runs[key] = spawn_ranks(
+            mesh_rank, world, args=(payload,), backend=backend, device_type="cuda",
+            timeout_s=MESH_TIMEOUT_S,
+        )
+        spawn_s[key] = time.perf_counter() - t0
+
+    params = MaternParams.bivariate(**MATERN, device=dev)
+
+    @functools.cache
+    def dense(jitter):
+        res = exact_loglik(dup_locs, dup_z, params, nugget=jitter, device=dev)
+        return float(res.loglik)
+
+    single = {
+        "block_cyclic": dref["records"]["dist_block_cyclic"],
+        "masked": dref["records"]["dist_masked"],
+        "exact": eref,
+        "sentinel": sentinel_loglik(torch.float64),
+    }
+    failed = []
+    for key, kernels in (("gloo", MESH_KERNELS), ("nccl", TLR_KERNELS)):
+        found = _mesh_checks(runs[key], kernels, single, dense)
+        failed += [f"{key}:{f}" for f in found]
+    ranks = [r for spawn in runs.values() for r in spawn]
+    every = [e for r in ranks for e in r["evaluations"].values()]
+    launches = _fold([e["launches"] for e in every])
+    instances = _fold([e["launches_by_instance"] for e in every])
+    st.setdefault("launches", {})["mesh"] = launches
+    st.setdefault("instances", {})["mesh"] = instances
+    st.setdefault("plans", {})["mesh"] = {tuple(p) for r in ranks for p in r["plans"]}
+    emit(
+        {
+            "phase": "mesh",
+            "ok": not failed,
+            "failed": failed,
+            "gloo": {
+                "world": MESH_WORLD,
+                "mesh_shape": list(mesh_shape_for(MESH_WORLD)),
+                "transport": "gloo over CUDA tensors, several ranks on one device "
+                "(a stand-in: NCCL refuses two ranks on one GPU)",
+                "spawn_s": spawn_s["gloo"],
+                "ranks": runs["gloo"],
+            },
+            "nccl": {"world": 1, "spawn_s": spawn_s["nccl"], "ranks": runs["nccl"]},
+            "n_tlr": len(dref["locs"]),
+            "n_exact": len(eref["locs"]),
+            "tile_size": TILE,
+            "max_rank": KMAX,
+            "tol": TOL_TLR,
+            "nugget": NUGGET,
+            "reduced": {
+                "n": {"main_cell": len(eref["locs"]), "tlr_forms": len(dref["locs"])},
+                "why": "the TLR forms at the dist phase's inputs, against its "
+                "single-device logliks; four ranks on one card test placement "
+                "and collectives, not scaling",
+            },
+            "launches": launches,
+            "launches_by_instance": instances,
+        }
+    )
+    if failed:
+        raise AssertionError(f"mesh forms failed their checks: {failed}")
+
+
 def load_example(name: str):
     """The module of ``examples/torch/<name>.py``."""
     import importlib.util
@@ -3356,7 +3663,7 @@ def _example_logliks(name: str, out: dict) -> list:
 
 def phase_examples(torch, st):
     """The paper's three geostat examples through their ``main``: see the
-    module docstring, phase 12."""
+    module docstring, phase 13."""
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
@@ -3539,7 +3846,7 @@ def phase_plans(st):
     plans = st.get("plans", {})
     checked = plans.get("kernels", set())
     paths = ("main", "serve", "exact", "exact_f32", "mle", "recover", "assess")
-    paths += ("dist", "examples")
+    paths += ("dist", "mesh", "examples")
     by_path = {p: plans.get(p, set()) for p in paths}
     missing = sorted(set().union(*by_path.values()) - checked)
     ok = bool(checked) and not missing
@@ -4347,6 +4654,7 @@ def main() -> int:
         ("recover", lambda: phase_recover(torch, st)),
         ("assess", lambda: phase_assess(torch, st, args.n_side)),
         ("dist", lambda: phase_dist(torch, st, args.n_side)),
+        ("mesh", lambda: phase_mesh(torch, st)),
         ("examples", lambda: phase_examples(torch, st)),
         ("plans", lambda: phase_plans(st)),
         ("lm", lambda: phase_lm(torch, st)),

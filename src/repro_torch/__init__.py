@@ -1,7 +1,8 @@
 """PyTorch and CUDA port of the multivariate geostatistics package.
 
 The module tree mirrors ``repro`` (the JAX reference): ``core/``,
-``checkpointing/``, ``distribution/``, ``kernels/``, ``serving/``,
+``checkpointing/``, ``distribution/``, ``kernels/``, ``launch/`` (device
+meshes and rank processes), ``serving/``,
 ``testing/`` (fault injection) and, for the LM substrate, ``configs/`` and
 ``models/`` hold the counterparts of the functions of the same names there.  The port imports ``torch`` and ``numpy`` only.
 

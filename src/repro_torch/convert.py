@@ -17,6 +17,7 @@ from .core.optimize import NMState
 from .core.prediction import CokrigeFactor
 from .core.tlr import TLRMatrix
 from .device import resolve_device
+from .distribution.block_cyclic import pair_layout
 from .models.transformer import Model, init_model, layer_counts
 from .training.optimizer import AdamWState
 
@@ -72,11 +73,15 @@ def cokrige_factor_from_numpy(
     """A TLR ``CokrigeFactor`` from the arrays of the reference's handle:
     diag_l (T, nb, nb), u and v (length, nb, kmax) pair-major, ranks
     (length,), alpha (m,), locs (n, d); ``params`` a ``MaternParams`` or
-    its four arrays (sigma2, a, nu, beta).  The reference's slots must be
-    laid out for one shard, the port's single-device placement."""
-    if n_shards != 1:
+    its four arrays (sigma2, a, nu, beta).  The slots may be laid out for
+    any shard count (a factor of the reference's mesh forms holds every slot
+    of ``pair_layout(T, n_shards)``); their number must match it."""
+    T = np.shape(diag_l)[0]
+    length = pair_layout(T, n_shards).length
+    if np.shape(u)[0] != length:
         raise ValueError(
-            f"the port serves single-device factors, got n_shards={n_shards}"
+            f"u holds {np.shape(u)[0]} pair slots; a layout of {T} tiles for "
+            f"n_shards={n_shards} has {length}"
         )
     dev = resolve_device(device)
     if not isinstance(params, MaternParams):

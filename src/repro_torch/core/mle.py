@@ -53,10 +53,10 @@ class MLEConfig:
     # Generator-direct TLR (tlr_compress_tiles): never builds the dense Sigma.
     tlr_from_tiles: bool = False
     # Route the TLR backend through core.dist_tlr.dist_tlr_loglik (the
-    # distributed pipeline's forms, on one device); generator-direct like
+    # distributed pipeline's forms, without a mesh); generator-direct like
     # tlr_from_tiles.  block_cyclic (pair-major storage), super_panels
     # (two-level factorization) and shard_svd are read by that path only;
-    # on one device shard_svd selects nothing.
+    # without a mesh shard_svd selects nothing.
     dist_tlr_from_tiles: bool = False
     block_cyclic: bool = False
     super_panels: int = 1

@@ -39,7 +39,9 @@ class CokrigeFactor:
     ``kind="dense"``: ``diag_l`` is the (m, m) lower Cholesky factor of
     Sigma and u/v/ranks are None.  ``kind="tlr"``: ``diag_l`` holds the
     (T, nb, nb) factored diagonal tiles and u/v/ranks the pair-major
-    strict-lower factor tiles, whose layout follows from ``n_shards``.
+    strict-lower factor tiles, whose layout follows from ``n_shards``:
+    every slot, or, where ``shard`` is set (a fit on a mesh), the own slots
+    of the rank whose pair-shard index it is.
     """
 
     diag_l: torch.Tensor  # dense (m, m) factor | TLR (T, nb, nb) tiles
@@ -55,6 +57,7 @@ class CokrigeFactor:
     d_spatial: int = 2
     z: torch.Tensor | None = None  # (m,) observed data (for re-fits)
     status: object = None  # FactorStatus | None: factor health
+    shard: int | None = None  # pair-shard index of own-slot u/v/ranks
 
     @property
     def m(self) -> int:

@@ -42,6 +42,12 @@ import numpy as np
 import torch
 
 from ..device import as_tensor
+from ..distribution.block_cyclic import (
+    _pair_shard,
+    column_owner_tables,
+    owned_pair_tables,
+    pair_axis,
+)
 from ..distribution.compress_svd import svd_truncate_batch
 from ..distribution.pair_qr import sharded_recompress
 from ..kernels import ops
@@ -215,6 +221,15 @@ def apply_nugget(diag_tiles: torch.Tensor, nugget, dtype=None) -> torch.Tensor:
     return diag_tiles + torch.as_tensor(nugget, dtype=dtype) * eye
 
 
+def diag_tiles(panels, params: MaternParams, nugget, gen: str, d_spatial: int):
+    """The (T, nb, nb) diagonal tiles of the location blocks ``panels``,
+    with the nugget applied (the GEN of the diagonal)."""
+    diag = torch.stack(
+        [build_sigma_panel(b, b, params, d_spatial=d_spatial, gen=gen) for b in panels]
+    )
+    return apply_nugget(diag, nugget, diag.dtype)
+
+
 def generate_tiles(
     locs,
     params: MaternParams,
@@ -241,10 +256,7 @@ def generate_tiles(
     nbl = nb // p  # locations per tile
     T = m // nb
     panels = [locs[t * nbl : (t + 1) * nbl] for t in range(T)]
-    diag = torch.stack(
-        [build_sigma_panel(b, b, params, d_spatial=d_spatial, gen=gen) for b in panels]
-    )
-    diag = apply_nugget(diag, nugget, diag.dtype)
+    diag = diag_tiles(panels, params, nugget, gen, d_spatial)
 
     def lower_panels():
         for j in range(T - 1):
@@ -667,11 +679,60 @@ def tlr_panel_body(k: int, diag, u, v, ranks, status=None, *, tol, scale, pairs)
     return diag, u, v, ranks
 
 
-def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, scale):
+def _shard_of(mesh, shard_axes):
+    """The rank's ``PairShard`` when ``mesh`` and ``shard_axes`` place the
+    pair slots on the mesh, else None (the whole layout is held)."""
+    if mesh is None or not shard_axes:
+        return None
+    pair_axis(mesh)  # refuses what is not a named DeviceMesh
+    return _pair_shard(mesh, tuple(shard_axes))
+
+
+def _shard_column(k: int, lkk, up, vp, layout, shard, fresh: bool):
+    """Panel column k on a mesh: the TRSM on this rank's slots of the
+    column, then one ``all_gather`` of every rank's (U, solved V) slots.
+
+    Returns ``(uk, vk, vp)``: the (T-1-k, nb, kmax) column of rows k+1..T-1
+    on every rank, and ``vp`` with this rank's solved slots written.  Each
+    rank sends its slots padded to the largest count of the step.
+    """
+    T, kmax = layout.n_tiles, up.shape[-1]
+    rows, slots = column_owner_tables(layout)
+    valid = rows[:, k, :] < T  # (S, L)
+    counts = valid.sum(1)
+    mine = int(counts[shard.index])
+    own = index_of(slots[shard.index, k, :mine], up.device)
+    vk_own = vp[own]
+    if mine:
+        vk_own = _trsm_widened(lkk, vk_own)
+        vp = _put(vp, own, vk_own, fresh)
+    pair = torch.cat([up[own], vk_own], dim=-1)
+    parts = shard.gather_rows(pair, int(counts.max()))
+    sd, sp = np.nonzero(valid)
+    order = np.argsort(rows[sd, k, sp])
+    at = (torch.as_tensor(x[order], device=parts.device) for x in (sd, sp))
+    col = parts[tuple(at)]
+    return col[..., :kmax].contiguous(), col[..., kmax:].contiguous(), vp
+
+
+def tlr_panel_body_bc(
+    k: int,
+    diag,
+    up,
+    vp,
+    ranks,
+    status=None,
+    *,
+    layout,
+    tol,
+    scale,
+    mesh=None,
+    shard_axes=None,
+):
     """One right-looking panel step k on pair-major strict-lower storage
     (``distribution.block_cyclic.PairLayout``), updating ``diag``, ``up``,
     ``vp``, ``ranks`` in place (into new tensors while autograd records
-    them): the reference's ``tlr_panel_body_bc`` on one device.
+    them): the reference's ``tlr_panel_body_bc``.
 
     Panel column k is read through ``layout.pos[k+1:, k]``, the slots of
     its rows i > k only; the reference instead gathers all T rows through
@@ -681,23 +742,43 @@ def tlr_panel_body_bc(k: int, diag, up, vp, ranks, status=None, *, layout, tol, 
     helper as the grid body, with the same values and status accounting.
     With one shard the column's slots, and the active pairs', are
     consecutive, so both are views of the storage.
+
+    ``mesh`` with ``shard_axes`` (the reference's placement arguments)
+    select which slots this rank updates: ``up``, ``vp`` and ``ranks`` then
+    hold only the rank's own ``layout.pairs_per_shard`` slots
+    (``block_cyclic.PairShard``).  The rank solves its slots of column k,
+    one ``all_gather`` gives every rank the whole column
+    (``_shard_column``), every rank runs the same POTRF and diagonal SYRK
+    on its replicated diagonal tiles, and each recompresses only its own
+    active pairs; a status then counts only this rank's non-finite values
+    (the caller sums them).  Without ``shard_axes`` every rank holds and
+    updates the whole layout, as on one device.
     """
     T = diag.shape[0]
     dev = up.device
     fresh = ops.records_grad(diag, up, vp)
+    shard = _shard_of(mesh, shard_axes)
+    if shard is not None and fresh:
+        raise ValueError(
+            "the mesh forms define no derivative through their collectives"
+        )
     lkk = ops.potrf(diag[k : k + 1])
     if status is not None:
         status = status.update_potrf(lkk)
     if k + 1 < T:
-        col = index_of(layout.pos[k + 1 :, k], dev)
-        # ---- TRSM on panel column k (V only; U untouched, §5.3).
-        vk = _trsm_widened(lkk, vp[col])
-        vp = _put(vp, col, vk, fresh)
-        uk = up[col]
+        if shard is None:
+            col = index_of(layout.pos[k + 1 :, k], dev)
+            # ---- TRSM on panel column k (V only; U untouched, §5.3).
+            vk = _trsm_widened(lkk, vp[col])
+            vp = _put(vp, col, vk, fresh)
+            uk = up[col]
+            il, jl = layout.il, layout.jl
+        else:
+            uk, vk, vp = _shard_column(k, lkk, up, vp, layout, shard, fresh)
+            il, jl = (t[shard.index] for t in owned_pair_tables(layout))
         # ---- SYRK onto the trailing diagonal tiles i > k.
         diag = _syrk_update(diag, slice(k + 1, T), uk, vk, fresh)
         # ---- GEMM + recompress over the active pairs (pads fail il > jl).
-        il, jl = layout.il, layout.jl
         act = np.nonzero((il > jl) & (jl > k))[0]
         if len(act):
             li = torch.as_tensor(il[act] - (k + 1), device=dev)
@@ -745,10 +826,23 @@ def panel_loop(diag, u, v, ranks, k_hi: int, *, tol, scale, status=None, k_lo=0)
 
 
 def pair_panel_loop(
-    diag, up, vp, ranks, k_hi: int, *, layout, tol, scale, status=None, k_lo=0
+    diag,
+    up,
+    vp,
+    ranks,
+    k_hi: int,
+    *,
+    layout,
+    tol,
+    scale,
+    status=None,
+    k_lo=0,
+    mesh=None,
+    shard_axes=None,
 ):
-    """The pair body for k in [k_lo, k_hi), in place."""
-    kw = dict(layout=layout, tol=tol, scale=scale)
+    """The pair body for k in [k_lo, k_hi), in place; ``mesh`` and
+    ``shard_axes`` as for ``tlr_panel_body_bc``."""
+    kw = dict(layout=layout, tol=tol, scale=scale, mesh=mesh, shard_axes=shard_axes)
     return _loop(tlr_panel_body_bc, diag, up, vp, ranks, k_lo, k_hi, status, **kw)
 
 

@@ -13,17 +13,42 @@ strict-lower predicate ``il > jl``.
 elsewhere, as in the reference; the port never indexes with that sentinel.
 It reads a column's pairs through ``pos[k+1:, k]``, the rows below the
 diagonal only (``core.tlr.tlr_panel_body_bc``).
+
+On a ``DeviceMesh`` (``launch.mesh``) the pair axis spans every row axis and
+"model" (``pair_shards``, ``pair_axis``); a rank's pair-shard index is its
+mesh coordinate flattened over ``pair_axis`` (first axis slowest), and shard
+d owns the global slots ``d * pairs_per_shard + q`` (``PairShard``).  The
+static tables ``column_owner_tables``, ``owned_pair_tables`` and
+``slice_positions`` are numpy copies of the reference's.  A mesh with an
+axis outside the pair axis (a "pod" axis that ``row_axes`` leave out) is
+refused: those meshes belong with the LM half of the multi-device forms
+(ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["PairLayout", "pair_layout", "pair_shards", "grid_to_pairs", "pairs_to_grid"]
+__all__ = [
+    "PairLayout",
+    "PairShard",
+    "pair_layout",
+    "pair_shards",
+    "pair_axis",
+    "pair_shard",
+    "gather_pairs",
+    "grid_to_pairs",
+    "pairs_to_grid",
+    "slice_positions",
+    "column_owner_tables",
+    "owned_pair_tables",
+]
 
 
 class PairLayout(NamedTuple):
@@ -75,14 +100,143 @@ def pair_layout(n_tiles: int, n_shards: int = 1) -> PairLayout:
 
 
 def pair_shards(mesh=None, row_axes=("data",)) -> int:
-    """Number of shards the pair axis spans: 1 without a mesh.  The port
-    runs on one device, so a mesh raises."""
-    if mesh is not None:
+    """Number of shards the pair axis spans: every row axis and "model" (the
+    pair list is 1-D, so the whole mesh can split it); 1 without a mesh."""
+    shard = pair_shard(mesh, row_axes)
+    return 1 if shard is None else shard.count
+
+
+def pair_axis(mesh, row_axes=("data",)):
+    """The mesh axes the pair axis is laid out over, in order (None off-mesh)."""
+    if mesh is None:
+        return None
+    names = _mesh_names(mesh)
+    if "model" in tuple(row_axes):
         raise ValueError(
-            "mesh is not ported: the port's TLR forms run on one device "
-            "(ROADMAP Queue 1 item 7, the multi-device forms); pass mesh=None"
+            f"row_axes={tuple(row_axes)!r}: 'model' always closes the pair axis"
         )
-    return 1
+    return tuple(a for a in tuple(row_axes) + ("model",) if a in names)
+
+
+def _mesh_names(mesh) -> tuple:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError(
+            f"mesh must be a torch.distributed DeviceMesh (launch.mesh), got "
+            f"{type(mesh).__name__}"
+        )
+    names = mesh.mesh_dim_names
+    if names is None:
+        raise ValueError("mesh must name its dims, as ('data', 'model')")
+    return tuple(names)
+
+
+@dataclasses.dataclass(frozen=True)
+class PairShard:
+    """This rank's place on the pair axis of a mesh.
+
+    ``index`` is the rank's pair-shard index d (its coordinate flattened over
+    ``axes``, the first axis slowest), ``ranks[d]`` the global rank of shard
+    d, and ``group`` the process group the pair axis spans (the mesh's, which
+    must be the whole process group).  Shard d owns the global pair slots
+    ``d * pairs_per_shard + q``.  Where ``axes`` leave mesh axes out (only
+    ``pair_qr.sharded_recompress`` allows it), every rank along those axes
+    holds a copy of its shard: ``ranks[d]`` is the first copy, and
+    ``primary`` says whether this rank is its shard's.
+
+    The shard order follows ``axes``, not the mesh's dim order, so the
+    collectives of every form reassemble parts through ``gather`` and
+    ``gather_rows``, which put them in shard order.
+    """
+
+    axes: tuple
+    count: int
+    index: int
+    ranks: tuple
+    group: object
+    primary: bool = True
+
+    def owns(self, layout: PairLayout) -> slice:
+        """This shard's slots of ``layout`` (built for ``count`` shards)."""
+        pps = layout.pairs_per_shard
+        return slice(self.index * pps, (self.index + 1) * pps)
+
+    def gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every shard's ``t`` (one shape on every rank), in shard order
+        (one ``all_gather``)."""
+        from ..launch.mesh import all_gather
+
+        parts = all_gather(t, self.group)
+        return [parts[r] for r in self.ranks]
+
+    def gather_rows(self, t: torch.Tensor, rows: int) -> torch.Tensor:
+        """Every shard's ``t``, whose leading size may differ from shard to
+        shard, zero-padded to ``rows`` and stacked in shard order:
+        (count, rows, ...) (one ``all_gather``)."""
+        from ..launch.mesh import all_gather_rows
+
+        parts = all_gather_rows(t, rows, self.group)
+        if self.ranks == tuple(range(parts.shape[0])):
+            return parts
+        return parts[torch.as_tensor(self.ranks, device=parts.device)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_shard(mesh, axes: tuple, replicate: bool = False) -> PairShard:
+    """This rank's ``PairShard`` over the mesh axes ``axes``.  A mesh axis
+    outside ``axes`` is refused, or, with ``replicate``, holds copies."""
+    import torch.distributed as dist
+
+    names = tuple(mesh.mesh_dim_names)
+    unknown = [a for a in axes if a not in names]
+    if unknown:
+        raise ValueError(f"axes {unknown} are not axes of the mesh {names}")
+    outside = [a for a in names if a not in axes]
+    if outside and not replicate:
+        raise ValueError(
+            f"mesh axes {outside} lie outside the pair axis {axes}: meshes with "
+            "a 'pod' (or other) axis that row_axes leave out are not ported "
+            "(ROADMAP Queue 1 item 7, the multi-device forms); include it in "
+            "row_axes"
+        )
+    world = dist.get_world_size()
+    if mesh.mesh.numel() != world:
+        raise ValueError(
+            f"the mesh holds {mesh.mesh.numel()} ranks of {world}: it must span all"
+        )
+    order = [names.index(a) for a in axes + tuple(outside)]
+    count = math.prod(int(mesh.mesh.shape[names.index(a)]) for a in axes)
+    grid = mesh.mesh.permute(*order).reshape(count, -1)
+    index, copy = (int(i) for i in torch.nonzero(grid == dist.get_rank())[0])
+    return PairShard(
+        axes=axes,
+        count=count,
+        index=index,
+        ranks=tuple(int(r) for r in grid[:, 0].tolist()),
+        group=dist.group.WORLD,
+        primary=copy == 0,
+    )
+
+
+def pair_shard(mesh, row_axes=("data",)) -> PairShard | None:
+    """This rank's ``PairShard`` on ``mesh`` (None without a mesh).
+
+    Raises ``ValueError`` for an object that is not a named ``DeviceMesh``
+    and for a mesh with an axis outside the pair axis.
+    """
+    if mesh is None:
+        return None
+    return _pair_shard(mesh, pair_axis(mesh, row_axes))
+
+
+def gather_pairs(x: torch.Tensor, shard: PairShard | None) -> torch.Tensor:
+    """The full (length, ...) pair-major tensor from every shard's own
+    (pairs_per_shard, ...) slots (``all_gather``); ``x`` itself without a
+    shard."""
+    if shard is None or shard.count == 1:
+        return x
+    return torch.cat(shard.gather(x))
 
 
 def grid_to_pairs(x: torch.Tensor, layout: PairLayout) -> torch.Tensor:
@@ -107,3 +261,63 @@ def pairs_to_grid(xp: torch.Tensor, layout: PairLayout) -> torch.Tensor:
         torch.as_tensor(layout.jl[keep], dtype=torch.long, device=dev),
     ] = xp[torch.as_tensor(keep, device=dev)]
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _column_owner_tables(n_tiles: int, n_shards: int):
+    layout = pair_layout(n_tiles, n_shards)
+    T, S, pps = layout.n_tiles, layout.n_shards, layout.pairs_per_shard
+    per_col = max(-(-(T - 1) // S), 1)
+    rows = np.full((S, T, per_col), T, np.int32)
+    slots = np.full((S, T, per_col), pps, np.int32)
+    counts = np.zeros((S, T), np.int32)
+    for s in np.nonzero(layout.valid)[0]:
+        i, j = int(layout.il[s]), int(layout.jl[s])
+        d, local = s // pps, s % pps
+        rows[d, j, counts[d, j]] = i
+        slots[d, j, counts[d, j]] = local
+        counts[d, j] += 1
+    return rows, slots
+
+
+def column_owner_tables(layout: PairLayout):
+    """Per-shard, per-column slot ownership of the block-cyclic deal.
+
+    Returns ``(rows, slots)``, int32 arrays of shape (S, T, L) with
+    L = ceil((T-1)/S): ``rows[d, j]`` lists the strict-lower row tiles i of
+    column j whose pair slot shard d owns, in increasing order, and
+    ``slots[d, j]`` the matching shard-local slots.  Every shard owns
+    floor or ceil((T-1-j)/S) of column j's pairs.  Unused entries carry the
+    sentinels row ``T`` and local slot ``pairs_per_shard``.
+    """
+    return _column_owner_tables(layout.n_tiles, layout.n_shards)
+
+
+@functools.lru_cache(maxsize=None)
+def _owned_pair_tables(n_tiles: int, n_shards: int):
+    layout = pair_layout(n_tiles, n_shards)
+    T, S, pps = layout.n_tiles, layout.n_shards, layout.pairs_per_shard
+    valid = layout.valid
+    rows = np.where(valid, layout.il, T).astype(np.int32).reshape(S, pps)
+    cols = np.where(valid, layout.jl, T).astype(np.int32).reshape(S, pps)
+    return rows, cols
+
+
+def owned_pair_tables(layout: PairLayout):
+    """Per-shard (row, col) tile indices of the owned pairs, slot-major.
+
+    Returns ``(rows, cols)``, int32 arrays of shape (S, pairs_per_shard):
+    the tile (i, j) at shard d's local slot q (global slot
+    d * pairs_per_shard + q), with the sentinel row = col = ``T`` at pads.
+    """
+    return _owned_pair_tables(layout.n_tiles, layout.n_shards)
+
+
+def slice_positions(outer: PairLayout, inner: PairLayout, offset: int) -> np.ndarray:
+    """Slot map for trailing-submatrix slicing: inner slot q holds the pair
+    at outer slot ``src[q]`` (pair (i + offset, j + offset)); ``outer.length``
+    at inner pads."""
+    src = np.full(inner.length, outer.length, np.int32)
+    keep = inner.valid
+    src[keep] = outer.pos[inner.il[keep] + offset, inner.jl[keep] + offset]
+    return src

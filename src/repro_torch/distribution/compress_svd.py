@@ -1,15 +1,23 @@
-"""Compression-phase truncation SVD of a batch of tiles.
+"""Compression-phase truncation SVD of a batch of tiles, split over the pair
+axis of a mesh.
 
-Counterpart of ``repro.distribution.compress_svd.svd_truncate_batch``.  The
-reference's ``shard_map`` form belongs to the multi-device forms (ROADMAP
-Queue 1 item 7).
+Counterpart of ``repro.distribution.compress_svd``.  ``svd_truncate_batch``
+is the math every compression runs.  ``sharded_truncate_svd`` on a
+``DeviceMesh`` has every rank SVD only its own contiguous block of the
+(replicated) batch and return the whole result through one ``all_gather``,
+as ``pair_qr.sharded_recompress`` does; ``mesh=None`` or empty ``axes`` is
+the replicated batch.  The owned-slot compression, where a rank also
+generates only its own tiles, is
+``core.dist_tlr._compress_tiles_pair_sharded``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["svd_truncate_batch"]
+from .pair_qr import _check_mesh, gather_blocks, shard_blocks
+
+__all__ = ["svd_truncate_batch", "sharded_truncate_svd"]
 
 
 def svd_truncate_batch(tiles: torch.Tensor, tol, kmax: int, scale):
@@ -30,3 +38,15 @@ def svd_truncate_batch(tiles: torch.Tensor, tol, kmax: int, scale):
 
     uu, ss, vvt = _svd_or_nan(tiles, cuda_driver="gesvd")
     return _truncate_svd(uu, ss, vvt, tol, kmax, scale)
+
+
+def sharded_truncate_svd(tiles, tol, kmax: int, scale, *, mesh=None, axes=None):
+    """Truncation SVD of a (B, nb, nb) tile batch, each rank truncating its
+    block of the batch laid out over the mesh axes ``axes``.  Returns
+    (U, V, ranks) of the whole batch on every rank."""
+    axes = tuple(axes) if axes else ()
+    _check_mesh(mesh)
+    if mesh is None or not axes:
+        return svd_truncate_batch(tiles, tol, kmax, scale)
+    (block,), length, shard = shard_blocks((tiles,), mesh, axes)
+    return gather_blocks(svd_truncate_batch(block, tol, kmax, scale), length, shard)

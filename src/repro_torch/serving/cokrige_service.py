@@ -1,6 +1,6 @@
 """Cokriging as a service: factor once, predict many (Eq. 3 at scale).
 
-Counterpart of ``repro.serving.cokrige_service`` on one device:
+Counterpart of ``repro.serving.cokrige_service``:
 
   * ``fit_factor`` (once per locations and theta): generator-direct GEN +
     compress into pair-major storage, the pair-native TLR Cholesky, and
@@ -14,6 +14,19 @@ Counterpart of ``repro.serving.cokrige_service`` on one device:
 The products of a batch are the cokriging mean, kriging variances, central
 prediction intervals and, given a ``torch.Generator``, conditional draws
 (per location, from the p x p conditional covariance).
+
+On a mesh (``mesh=`` a ``DeviceMesh``, ``launch.mesh``; every rank makes
+the same call) ``fit_factor`` compresses and factors with the rank's share
+of the pair slots (``core.dist_tlr``; ``row_axes``, ``shard_svd`` and
+``shard_recompress`` as there), and the factor holds the rank's own slots
+(``n_shards`` the mesh's pair-axis size) beside whole diagonal tiles and a
+whole alpha.  A request splits the c0 tile rows over the row axes, as the
+reference's ``P(row, None, None)``: each row block is generated once, by
+the rank at "model" coordinate 0, and one ``all_reduce`` gives every rank
+the whole panel; the forward sweep runs on the rank's own slots, and the
+prediction comes back whole on every rank.  Every host-side decision (the
+health check, the jitter ladder of degraded mode) reads the status, which
+is whole on every rank, so all ranks take it the same way.
 
 PyTorch runs eagerly, so ``make_cokrige_serve_fns`` returns the two
 functions bound to one configuration, with nothing compiled.  The
@@ -45,7 +58,8 @@ from ..core.dist_tlr import (
 from ..core.prediction import CokrigeFactor
 from ..core.tlr import _lap, choose_tile_size
 from ..device import as_tensor
-from ..distribution.block_cyclic import pair_layout, pair_shards
+from ..distribution.block_cyclic import pair_layout, pair_shard, pair_shards
+from ..launch.mesh import all_reduce_
 
 __all__ = [
     "CokrigeServeConfig",
@@ -90,15 +104,6 @@ class ServeError(ValueError):
         }
 
 
-# Knobs of the reference's sharded forms, with the only values the
-# single-device port takes.
-_SINGLE_DEVICE = {
-    "row_axes": ("data",),
-    "shard_svd": True,
-    "shard_recompress": True,
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class CokrigeServeConfig:
     """Static knobs of one serving deployment.
@@ -108,8 +113,10 @@ class CokrigeServeConfig:
     ``"xla"``); ``interval`` is the central prediction-interval mass (0.95:
     the 2.5%/97.5% band).  ``col_block`` (columns to one compression SVD
     batch) and ``super_panels`` (super-steps of the factorization) are
-    passed on as in the reference; its sharding knobs (``row_axes``,
-    ``shard_svd``, ``shard_recompress``) take only their defaults here.
+    passed on as in the reference, and so are its sharding knobs
+    (``row_axes``, ``shard_svd``, ``shard_recompress``), which select
+    nothing without a mesh.  ``row_axes`` may not name "model", which always
+    closes the pair axis.
     """
 
     tile_size: int = 0
@@ -139,14 +146,10 @@ class CokrigeServeConfig:
     def __post_init__(self):
         if self.gen not in GENERATORS:
             raise ValueError(f"gen must be one of {GENERATORS}, got {self.gen!r}")
-        for name, default in _SINGLE_DEVICE.items():
-            value = getattr(self, name)
-            if (tuple(value) if name == "row_axes" else value) != default:
-                raise ValueError(
-                    f"{name}={value!r} is not ported (only {name}={default!r}); "
-                    "the sharded forms are ROADMAP Queue 1 item 7, the "
-                    "multi-device forms"
-                )
+        if "model" in tuple(self.row_axes):
+            raise ValueError(
+                f"row_axes={self.row_axes!r}: 'model' always closes the pair axis"
+            )
 
 
 class CokrigePrediction(NamedTuple):
@@ -185,17 +188,18 @@ def fit_factor(
     jitter ladder of ``heal_factor``).  Numpy inputs go to ``device`` (the
     CUDA device unless ``"cpu"`` is asked for).  Given a ``times`` dict,
     the seconds of each phase (``gen``, ``compress``, ``factorize``,
-    ``solve``) are added to it.
+    ``solve``) are added to it.  On a mesh the factor holds the rank's own
+    pair slots (see the module docstring).
     """
-    pair_shards(mesh)
     locs = as_tensor(locs, device=device)
     z = as_tensor(z, device=locs.device)
     m = z.shape[0]
     p = params.p
     nb = choose_tile_size(m, cfg.tile_size, multiple_of=p)
-    layout = pair_layout(m // nb, 1)
+    layout = pair_layout(m // nb, pair_shards(mesh, cfg.row_axes))
     eff_nugget = cfg.nugget if nugget is None else cfg.nugget + nugget
     scale = torch.max(params.sigma2) + cfg.nugget
+    shards = dict(mesh=mesh, row_axes=cfg.row_axes)
     t = dist_compress_tiles(
         locs,
         params,
@@ -208,7 +212,9 @@ def fit_factor(
         scale=scale,
         layout=layout,
         col_block=cfg.col_block,
+        shard_svd=cfg.shard_svd,
         times=times,
+        **shards,
     )
     diag_l, u, v, ranks, status = dist_tlr_cholesky_pairs(
         t.diag,
@@ -219,14 +225,20 @@ def fit_factor(
         tol=cfg.tol,
         scale=scale,
         super_panels=cfg.super_panels,
+        shard_recompress=cfg.shard_recompress,
+        own_slots=t.shard is not None,
         track_status=True,
         times=times,
+        **shards,
     )
     del t
+    # with shard_recompress the factor holds the rank's own slots
+    shard = pair_shard(mesh, cfg.row_axes) if cfg.shard_recompress else None
+    shards["own_slots"] = shard is not None
     t0 = _lap(times, None, 0.0, diag_l)
     zt = z.to(diag_l.dtype)
-    y = dist_tlr_solve_lower_pairs(diag_l, u, v, zt, layout=layout)
-    alpha = dist_tlr_solve_upper_pairs(diag_l, u, v, y, layout=layout)
+    y = dist_tlr_solve_lower_pairs(diag_l, u, v, zt, layout=layout, **shards)
+    alpha = dist_tlr_solve_upper_pairs(diag_l, u, v, y, layout=layout, **shards)
     status = status.add_nonfinite(torch.sum(~torch.isfinite(alpha)).to(torch.int32))
     _lap(times, "solve", t0, alpha)
     return CokrigeFactor(
@@ -242,10 +254,32 @@ def fit_factor(
         d_spatial=cfg.d_spatial,
         z=z,
         status=status,
+        shard=None if shard is None else shard.index,
     )
 
 
-def _predict_core(factor: CokrigeFactor, pred_locs: torch.Tensor, *, gen: str):
+def _c0_row_block(T: int, mesh, row_axes) -> tuple[int, int]:
+    """The tile rows [lo, hi) of c0 this rank generates: the tile rows split
+    into contiguous blocks over the row axes (``P(row, None, None)``), each
+    generated by the rank at "model" coordinate 0 of its row coordinate; an
+    empty range on the others."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    coord = dict(zip(names, mesh.get_coordinate()))
+    rows = [a for a in row_axes if a in names]
+    if any(coord[a] for a in names if a not in rows):
+        return 0, 0
+    block, count = 0, 1
+    for a in rows:
+        block, count = block * int(sizes[a]) + coord[a], count * int(sizes[a])
+    bounds = np.linspace(0, T, count + 1).round().astype(int)
+    return int(bounds[block]), int(bounds[block + 1])
+
+
+def _predict_core(
+    factor: CokrigeFactor, pred_locs: torch.Tensor, *, gen: str, mesh=None,
+    row_axes=("data",),
+):
     """Mean and conditional covariance of one batch against a cached factor.
 
     Returns (mean (B, p), cond_cov (B, p, p)).  The c0 panel batch is
@@ -266,16 +300,22 @@ def _predict_core(factor: CokrigeFactor, pred_locs: torch.Tensor, *, gen: str):
     else:
         T, nb = factor.diag_l.shape[0], factor.diag_l.shape[1]
         layout = pair_layout(T, factor.n_shards)
-        c0 = build_c0_panels(
-            factor.locs,
-            pred_locs,
-            params,
-            nbl=nb // p,
-            d_spatial=factor.d_spatial,
-            gen=gen,
-        ).reshape(m, B * p)
+        nbl = nb // p
+        kw = dict(nbl=nbl, d_spatial=factor.d_spatial, gen=gen)
+        if mesh is None:
+            c0 = build_c0_panels(factor.locs, pred_locs, params, **kw)
+        else:
+            group = pair_shard(mesh, row_axes).group
+            lo, hi = _c0_row_block(T, mesh, row_axes)
+            c0 = pred_locs.new_zeros((T, nb, B * p))
+            if hi > lo:
+                obs = factor.locs[lo * nbl : hi * nbl]
+                c0[lo:hi] = build_c0_panels(obs, pred_locs, params, **kw)
+            all_reduce_(c0, group=group)
+        c0 = c0.reshape(m, B * p)
         w = dist_tlr_solve_lower_pairs(
-            factor.diag_l, factor.u, factor.v, c0, layout=layout
+            factor.diag_l, factor.u, factor.v, c0, layout=layout, mesh=mesh,
+            row_axes=row_axes, own_slots=factor.shard is not None,
         )
     mean = (c0.T @ factor.alpha).reshape(B, p)
     w3 = w.reshape(m, B, p)
@@ -290,12 +330,15 @@ def predict_with_factor(
     *,
     interval: float = 0.95,
     gen: str = "plain",
+    mesh=None,
+    row_axes=("data",),
     generator: torch.Generator | None = None,
     n_draws: int = 1,
 ) -> CokrigePrediction:
     """Decode one batch: mean, variance, interval, optional draws.
 
-    A pure function of the factor.  ``generator`` (a ``torch.Generator`` on
+    A pure function of the factor (on a mesh, of every rank's share of
+    it).  ``generator`` (a ``torch.Generator`` on
     the factor's device; the reference takes a JAX key) switches on
     conditional-simulation draws: (n_draws, B, p) samples from each
     location's conditional law N(mean, cond_cov), through the Cholesky of
@@ -303,7 +346,7 @@ def predict_with_factor(
     """
     alpha = factor.alpha
     pred_locs = as_tensor(pred_locs, device=alpha.device, dtype=alpha.dtype)
-    mean, cond = _predict_core(factor, pred_locs, gen=gen)
+    mean, cond = _predict_core(factor, pred_locs, gen=gen, mesh=mesh, row_axes=row_axes)
     var = torch.clamp(torch.diagonal(cond, dim1=-2, dim2=-1), min=0.0)
     half = _z_crit(interval, var) * torch.sqrt(var)
     draws = None
@@ -330,10 +373,10 @@ def make_cokrige_serve_fns(cfg: CokrigeServeConfig, mesh=None):
     deployment config.
 
     The reference returns the pair jit-compiled; PyTorch runs eagerly, so
-    these are the plain functions with the configuration bound.
+    these are the plain functions with the configuration and the mesh bound.
     """
-    pair_shards(mesh)
-    fit = functools.partial(fit_factor, cfg=cfg)
+    pair_shards(mesh, cfg.row_axes)
+    fit = functools.partial(fit_factor, cfg=cfg, mesh=mesh)
 
     def predict(factor, pred_locs, generator=None, n_draws: int = 1):
         return predict_with_factor(
@@ -341,6 +384,8 @@ def make_cokrige_serve_fns(cfg: CokrigeServeConfig, mesh=None):
             pred_locs,
             interval=cfg.interval,
             gen=cfg.gen,
+            mesh=mesh,
+            row_axes=cfg.row_axes,
             generator=generator,
             n_draws=n_draws,
         )

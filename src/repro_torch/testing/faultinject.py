@@ -16,6 +16,12 @@ the change) and never writes into the compress output.  The port has no
 jit: a patch reaches every call made inside its ``with`` block, wherever
 the calling function was defined, and none made after it.
 
+A patch is per process: on a mesh (``launch.mesh``) each rank enters it
+itself.  The sharded compression reaches the same sites, and a ``PairTLR``
+that holds a rank's own slots (``shard`` set) is corrupted at the same
+global slots as the whole one: a rank changes only the slots it holds, so
+the ranks together inject the single-device fault.
+
 Context managers (composable: they nest, and each restores the functions
 it replaced on exit and on an exception):
 
@@ -52,6 +58,16 @@ _PATCH_SITES = (
     (_dist_mod, "dist_compress_tiles"),
     (_serve_mod, "dist_compress_tiles"),
 )
+
+
+def _global_slots(t) -> torch.Tensor | None:
+    """The global slot of each pair slot a ``PairTLR`` holding one rank's
+    own slots holds (None for every other form)."""
+    shard = getattr(t, "shard", None)
+    if shard is None:
+        return None
+    pps = t.u.shape[0]
+    return shard * pps + torch.arange(pps, device=t.u.device)
 
 
 def _replace_fields(t, **kw):
@@ -121,7 +137,11 @@ def nan_compress_panel(panel: int = 0):
                 "poisoned; pick a row >= 1 or the pair-major form"
             )
         u = t.u.clone()
-        u[panel] = math.nan
+        held = _global_slots(t)
+        if held is None:
+            u[panel] = math.nan
+        else:
+            u[held == panel] = math.nan
         return _replace_fields(t, u=u)
 
     with _patch_compress(transform):
@@ -139,9 +159,13 @@ def zero_shard(shard: int = 0, n_shards: int = 8):
 
     def transform(t):
         parts = {}
+        held = _global_slots(t)
         for name in ("diag", "u", "v"):
             x = getattr(t, name).clone()
-            x[shard::n_shards] = 0.0
+            if held is None or name == "diag":
+                x[shard::n_shards] = 0.0
+            else:
+                x[held % n_shards == shard] = 0.0
             parts[name] = x
         return _replace_fields(t, **parts)
 

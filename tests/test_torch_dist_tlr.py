@@ -227,15 +227,32 @@ def test_pair_solves_match_jax_and_invert_the_factor(case):
     )
 
 
-def test_meshes_are_refused(case):
-    """The port is single-device: a mesh raises instead of being ignored."""
-    with pytest.raises(ValueError, match="mesh"):
+def test_meshes_are_refused(case, tmp_path):
+    """Only a named torch.distributed DeviceMesh is taken as a mesh
+    (tests/test_torch_mesh.py runs the mesh forms on W ranks); without one
+    the pair axis spans one shard, and a mesh with an axis outside the pair
+    axis (a "pod" axis that row_axes leave out) is refused, naming ROADMAP
+    Queue 1 item 7."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tb.pair_shards(object())
     assert tb.pair_shards(None) == 1
     jt = case["jt"]
     u, v = _t(jt.u), _t(jt.v)
-    with pytest.raises(ValueError, match="mesh"):
-        sharded_recompress(u, v, u, v, 1e-7, 1.0, mesh=object())
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        sharded_recompress(u, v, u, v, 1e-7, 1.0, mesh=object(), axes=("data",))
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        names = ("pod", "data", "model")
+        pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=names)
+        with pytest.raises(ValueError, match="Queue 1 item 7"):
+            tb.pair_shards(pod)
+        assert tb.pair_shards(pod, ("pod", "data")) == 1
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

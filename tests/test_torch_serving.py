@@ -284,6 +284,16 @@ def test_grouped_super_panel_factor_predicts_what_the_default_predicts(m512):
     ],
 )
 def test_config_refuses_what_is_not_ported(knob):
-    with pytest.raises(ValueError):
-        svc.CokrigeServeConfig(**knob)
+    """A generator name of the reference (``"pallas"``) and a row axis named
+    "model" (which always closes the pair axis) are refused by the config.
+    The sharding knobs are ported: the config takes them, and only a
+    torch.distributed DeviceMesh is taken as the mesh they apply on
+    (tests/test_torch_mesh.py serves on W ranks)."""
+    if "shard_svd" in knob or "shard_recompress" in knob:
+        cfg = svc.CokrigeServeConfig(**knob)
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            svc.make_cokrige_serve_fns(cfg, object())
+    else:
+        with pytest.raises(ValueError):
+            svc.CokrigeServeConfig(**knob)
     assert svc.CokrigeServeConfig(row_axes=["data"]).row_axes == ["data"]
