@@ -43,7 +43,8 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             flash_attention is held at every shape its two
             instances take (FLASH_CASES, recurrentgemma-9b's local
             attention at head dim 256 among them, bf16 only and timed:
-            bf16 on wgmma, f32 on tf32 wgmma
+            bf16 on wgmma, f32 on tf32 wgmma, and the lm_mesh path's
+            shape on a rank timed beside the whole model's
             with the 3xTF32 split, both at ATTN_TOL; the f32 bound at three
             tf32 passes at 495 TFLOP/s, with one f32 pass at 67 TFLOP/s on
             the FP32 cores beside it, and the f32 depth-4, decode and q128
@@ -325,6 +326,40 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             100 with finite losses.  The training path runs none of the
             hand-written kernels, as the reference's runs no Pallas kernel:
             its launches (all 0) are recorded, not gated.
+17. lm_mesh the LM multi-device forms (``distribution.sharding``,
+            ``models.shardspecs``, ``make_train_step(cfg, mesh)``) on
+            LM_MESH_WORLD = 4 ranks of a (2, 2) ("data", "model") mesh on
+            the one card over gloo (NCCL refuses two ranks on one device).
+            First the single-device references on the card: qwen3-4b at
+            full width cut to 8 of 36 layers, bf16, seeded: its prefill of
+            (2, 4096) through the flash kernel (last-token logits, ms) and
+            3 train steps (remat, naive attention, AdamW's warm-up of one
+            step; losses, seconds, peak; the final parameters saved to a
+            temporary file); mixtral-8x7b at full width cut to 2 of 32
+            layers: the forward of each batch row alone (logits at every
+            64th position and the last, routing).  Then each rank builds
+            the same weights, takes its shard (FSDP over "data", tensor
+            parallel over "model": 16 of the 32 query heads, 4 of the 8 KV
+            heads; the vocabulary over "model") and its data-parallel row,
+            and runs the sharded prefill (one warm-up, one timed), the
+            three sharded train steps (each rank's shard of the f32 master
+            weights held against the saved ones) and mixtral's sharded
+            prefill (TP inside each expert, the shard-local dispatch of its
+            row).  It fails unless every rank's last-token logits, losses,
+            gradient norms and mixtral's logits at the positions whose
+            experts agree in both runs are within 5e-2 (the lm phase's
+            gap), no leaf of the master weights has more than 0.75 of its
+            elements off the single-device ones by more than 1e-2 of its
+            largest movement over the steps, nor more than 0.2 by more
+            than 1e-1 (LM_MESH_OFF_SHARE; the gaps over each leaf's
+            magnitude and movement are printed),
+            each mixtral layer flips at most 2% of a row's tokens
+            (lm_families'), and each rank launched the flash kernel 8 times
+            in the timed prefill, all ``wgmma_bf16``.  Per rank it prints
+            the peak memory, the prefill and step seconds and the time in
+            every collective of ``launch.mesh`` (``time_collectives``),
+            beside the single-device numbers.  On one card it tests
+            placement and collectives, not scaling.
 
 Before each path runs, every kernel's launch count is set to 0, and read
 after it: the kernels of a path must have launched during it.  Then a
@@ -334,7 +369,8 @@ resumed fit and the fault checks; the killed child's launches are another
 process's), assess, dist (its five evaluations), examples (the card's runs),
 mesh (every rank's evaluations, both backends), lm and lm_<arch> runs,
 where each lm run is the timed prefill forward
-and the engine's ``generate``, and the train run (its full-width steps);
+and the engine's ``generate``, the train run (its full-width steps) and
+lm_mesh (every rank's timed sharded prefill);
 ``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
 nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -482,8 +518,10 @@ ATTN_TOL = {
 # phi3's head dim, the other head-dim instances, a length that is not a
 # multiple of 128, recurrentgemma-9b's local attention at head dim 256
 # (prefill at B = 2, S = 4096: 2 x 16 query heads, 2 x 1 KV heads, window
-# 2048; bf16 only: the f32 instance has no D = 256) and a ragged D = 256
-# shape; and the (case, dtype) pairs that are timed.
+# 2048; bf16 only: the f32 instance has no D = 256), a ragged D = 256
+# shape and the lm_mesh path's shape on a rank (one row of the (2, 4096)
+# batch, 16 of qwen3-4b's 32 query heads and 4 of its 8 KV heads); and the
+# (case, dtype) pairs that are timed.
 FLASH_CASES = (
     ("path", 64, 16, 4096, 4096, 128, "bfloat16", 0),
     ("depth4_f32", 32, 8, 4096, 4096, 128, "float32", 0),
@@ -501,6 +539,7 @@ FLASH_CASES = (
     ("s4000", 64, 16, 4000, 4000, 128, "bfloat16", 0),
     ("recurrentgemma_d256", 32, 2, 4096, 4096, 256, "bfloat16", 2048),
     ("d256_ragged", 6, 2, 300, 333, 256, "bfloat16", 100),
+    ("lm_mesh_rank", 16, 4, 4096, 4096, 128, "bfloat16", 0),
 )
 FLASH_TIMED = (
     ("path", "bfloat16"),
@@ -508,6 +547,7 @@ FLASH_TIMED = (
     ("decode", "float32"),
     ("q128_kv4096", "float32"),
     ("recurrentgemma_d256", "bfloat16"),
+    ("lm_mesh_rank", "bfloat16"),
 )
 # The tolerances of tests/test_kernels.py::test_potrf_kernel and
 # ::test_trsm_kernel.
@@ -646,6 +686,35 @@ TRAIN_STEPS, TRAIN_SEED = 5, 21
 TRAIN_REDUCED_BATCH, TRAIN_F32_GAP = (2, 64), 1e-4
 TRAINER_STEPS, TRAINER_CRASH_STEP, TRAINER_EVERY = 12, 8, 5
 
+# The lm_mesh phase (PERF.md section 4): the LM multi-device forms on
+# LM_MESH_WORLD ranks of a LM_MESH_SHAPE ("data", "model") mesh on the one
+# card over gloo.  qwen3-4b at full width, cut to LM_MESH_LAYERS of its 36
+# layers (1.2e9 parameters), bf16, from LM_MESH_SEED: one sharded prefill of
+# LM_MESH_BATCH through the flash kernel, held on the last token's logits,
+# and LM_MESH_STEPS sharded train steps (remat, naive attention, the train
+# phase's AdamW warm-up of one step), held on the losses and the gathered
+# parameters, each against the same on one device; mixtral-8x7b at full
+# width cut to LM_MESH_MOE_LAYERS of 32 layers, one sharded prefill (TP
+# inside the experts) against the single-device forward of each
+# data-parallel rank's row alone, at every LM_MESH_SAMPLE-th token position
+# and the last.  The gates are the lm phase's LM_BF16_GAP (logits, losses,
+# gradient norms) and the lm_families phase's LM_ROUTING_FLIP_SHARE a MoE
+# layer.  The f32 master weights are held, shard by shard, on the share of
+# each leaf's elements off the single-device ones by more than 1e-2 and by
+# more than 1e-1 of the leaf's largest movement over the steps, at most
+# LM_MESH_OFF_SHARE: AdamW's first steps move an element by about lr
+# whatever its gradient's size, so an element whose gradient is at bf16
+# rounding level moves either way in the two runs, while a wrong gradient
+# moves most of its leaf's elements otherwise.  On an H100 sound runs read
+# 0.469 and 0.047 at most (q_norm), a run with scripts/lm_mesh.py --plant's
+# fault (q_norm's and k_norm's gradients unsummed over "model", which moves
+# no gradient norm past 1.2e-3) 0.992 and 0.773.
+LM_MESH_ARCH, LM_MESH_LAYERS, LM_MESH_SEED = "qwen3-4b", 8, 31
+LM_MESH_WORLD, LM_MESH_SHAPE = 4, (2, 2)
+LM_MESH_BATCH, LM_MESH_STEPS = (2, 4096), 3
+LM_MESH_MOE, LM_MESH_MOE_LAYERS, LM_MESH_MOE_SEED = "mixtral-8x7b", 2, 32
+LM_MESH_SAMPLE, LM_MESH_TIMEOUT_S = 64, 600.0
+LM_MESH_OFF_SHARE = (0.75, 0.2)
 
 # Clock cycles of the sleep that cuda_ms queues its runs behind.
 QUEUE_SLEEP_CYCLES = 5_000_000
@@ -4618,6 +4687,428 @@ def phase_train(torch, st):
         raise AssertionError(f"train parts failed their checks: {failed}")
 
 
+def lm_mesh_samples(seq: int) -> list:
+    """The token positions the mixtral prefill is held at."""
+    return sorted(set(range(0, seq, LM_MESH_SAMPLE)) | {seq - 1})
+
+
+def lm_mesh_setup(torch, name: str, layers: int, seed: int, dev):
+    """(config cut to ``layers``, its model from ``seed`` on ``dev``, a
+    (2, 4096) batch of tokens as numpy)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(get_arch(name), num_layers=layers)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_model(cfg, generator=gen, device=dev)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, size=LM_MESH_BATCH).astype(np.int64)
+    return cfg, model, tokens
+
+
+def lm_mesh_tcfg():
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainConfig
+
+    opt = AdamWConfig(warmup_steps=1)
+    return TrainConfig(remat=True, attn_impl="naive", optimizer=opt)
+
+
+def lm_mesh_batches(cfg) -> list:
+    from repro_torch.dataio.tokens import SyntheticTokens
+
+    data = SyntheticTokens(
+        cfg.vocab_size, LM_MESH_BATCH[1], LM_MESH_BATCH[0], LM_MESH_SEED
+    )
+    return [data.batch(i) for i in range(LM_MESH_STEPS)]
+
+
+def lm_mesh_single(torch, ref_path: str) -> dict:
+    """The lm_mesh phase's single-device references on the card: qwen3-4b's
+    prefill (last-token logits, ms) and train steps (losses, seconds, peak;
+    the final f32 master weights saved to ``ref_path``, each leaf's largest
+    movement and magnitude), then mixtral's forward of each row alone
+    (sampled logits, routing)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, tokens = lm_mesh_setup(
+        torch, LM_MESH_ARCH, LM_MESH_LAYERS, LM_MESH_SEED, dev
+    )
+    out["n_params"] = sum(p.numel() for p in model.parameters())
+    toks = torch.as_tensor(tokens, device=dev)
+    with torch.inference_mode():
+        forward(model, cfg, toks, attn_impl="kernel")  # warm-up
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logits = forward(model, cfg, toks, attn_impl="kernel").logits
+        stop.record()
+        stop.synchronize()
+        out["prefill_ms"] = start.elapsed_time(stop)
+        out["last_logits"] = logits[:, -1].float().cpu().numpy()
+        out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(model)
+    init = [m.to("cpu", copy=True) for m in opt.master]
+    step = make_train_step(cfg, None, lm_mesh_tcfg())
+    losses, gnorms, step_s = [], [], []
+    for b in lm_mesh_batches(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, _, m = step(model, opt, None, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    out.update(losses=losses, grad_norms=gnorms, step_s=step_s,
+               train_peak_bytes=torch.cuda.max_memory_allocated())
+    # the final masters; each leaf's largest movement over the steps and
+    # largest magnitude (a norm scale w, which starts at 0, as the 1 + w the
+    # model applies)
+    names = [n for n, _ in model.named_parameters()]
+    moved, magnitude = {}, {}
+    for n, m, m0 in zip(names, opt.master, init, strict=True):
+        moved[n] = float((m - m0.to(dev)).abs().max())
+        one = 1.0 if "norm" in n.rsplit(".", 1)[-1] else 0.0
+        magnitude[n] = float((m + one).abs().max())
+    out.update(param_moved=moved, param_magnitude=magnitude)
+    torch.save({n: m.cpu() for n, m in zip(names, opt.master, strict=True)}, ref_path)
+    del model, opt, step, init
+    torch.cuda.empty_cache()
+
+    cfg, model, tokens = lm_mesh_setup(
+        torch, LM_MESH_MOE, LM_MESH_MOE_LAYERS, LM_MESH_MOE_SEED, dev
+    )
+    pos = lm_mesh_samples(LM_MESH_BATCH[1])
+    sampled, routing = [], []
+    with torch.inference_mode():
+        for r in range(LM_MESH_BATCH[0]):
+            rec = []
+            restore = record_routing(torch, rec)
+            try:
+                row = torch.as_tensor(tokens[r : r + 1], device=dev)
+                logits = forward(model, cfg, row, attn_impl="kernel").logits
+            finally:
+                restore()
+            sampled.append(logits[0, pos].float().cpu().numpy())
+            routing.append([x[0].cpu().numpy() for x in rec])
+            del logits
+    out.update(moe_sampled=sampled, moe_routing=routing)
+    ops.reset_launch_counts()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_rank(mesh, payload: dict) -> dict:
+    """One rank of the lm_mesh phase (started by ``spawn_ranks``): the
+    sharded qwen3-4b prefill and train steps, the gathered master weights
+    held on rank 0 against the single-device ones, then the sharded mixtral
+    prefill; each with its times, peak memory and (prefill) launches, and
+    the time of every collective (``launch.mesh.time_collectives``: each
+    synchronized on both sides, so the timed runs are a little slower)."""
+    from repro_torch.launch.mesh import time_collectives
+
+    with time_collectives() as clock:
+        return _lm_mesh_rank(mesh, payload, clock)
+
+
+def _lm_mesh_rank(mesh, payload: dict, clock: dict) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import all_reduce_
+    from repro_torch.models import forward
+    from repro_torch.models.settings import fsdp_gather
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import make_train_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    if payload.get("plant"):
+        # the planted fault of scripts/lm_mesh.py --plant: the gradients of
+        # q_norm and k_norm (applied to this rank's heads) not summed over
+        # "model"
+        from repro_torch.training import train_step as ts
+
+        ts.MODEL_SUMMED = ()
+    rows = sh.shard_batch({"r": np.arange(LM_MESH_BATCH[0])}, mesh)["r"]
+    out = {"rank": rank, "coordinate": list(mesh.get_coordinate())}
+    out["rows"] = rows.tolist()
+
+    def collectives_s():
+        now = {k: clock.get(k, 0.0) for k in ("all_gather", "all_reduce", "broadcast")}
+        clock.clear()
+        return now
+
+    # qwen3-4b: the prefill
+    cfg, model, tokens = lm_mesh_setup(
+        torch, LM_MESH_ARCH, LM_MESH_LAYERS, LM_MESH_SEED, dev
+    )
+    sh.shard_params(model, cfg, mesh)
+    out["param_shard_elements"] = sum(p.numel() for p in model.parameters())
+    local = sh.shard_batch({"t": torch.as_tensor(tokens, device=dev)}, mesh)["t"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode(), fsdp_gather(mesh):
+        forward(model, cfg, local, attn_impl="kernel")  # warm-up
+        torch.cuda.synchronize()
+        collectives_s()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = forward(model, cfg, local, attn_impl="kernel").logits
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = ops.launch_counts()
+        out["prefill_launches_by_instance"] = ops.instance_counts()
+        out["prefill_collectives_s"] = collectives_s()
+        last = sh.gather_logits(logits[:, -1:], cfg, mesh)[:, 0].float()
+    want = torch.as_tensor(payload["last_logits"][rows], device=dev)
+    out["prefill_rel_gap"] = rel_gap(torch, last, want)
+    out["prefill_finite"] = bool(torch.isfinite(last).all())
+    out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del logits, last
+    torch.cuda.empty_cache()
+
+    # the train steps
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(model)
+    tcfg = lm_mesh_tcfg()
+    step = make_train_step(cfg, mesh, tcfg)
+    losses, gnorms, step_s, coll = [], [], [], []
+    for b in lm_mesh_batches(cfg):
+        b = sh.shard_batch(b, mesh)
+        torch.cuda.synchronize()
+        collectives_s()
+        t0 = time.perf_counter()
+        model, opt, _, m = step(model, opt, None, b)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        coll.append(collectives_s())
+    out.update(losses=losses, grad_norms=gnorms, step_s=step_s,
+               step_collectives_s=coll,
+               train_peak_bytes=torch.cuda.max_memory_allocated())
+    for key, got in (("loss", losses), ("grad_norm", gnorms)):
+        want = payload["losses" if key == "loss" else "grad_norms"]
+        out[f"{key}_rel_gaps"] = [
+            abs(g - w) / abs(w) for g, w in zip(got, want, strict=True)
+        ]
+    # the master weights held shard by shard against the single-device
+    # ones (no gather): each leaf's largest gap over its largest magnitude
+    # and over its largest movement, and the shares of its elements off by
+    # more than 1e-2 and 1e-1 of that movement (the gates), summed over the
+    # ranks (a replicated leaf counts on each rank, in both terms)
+    del step
+    ref = torch.load(payload["ref_path"], mmap=True)
+    names = [n for n, _ in model.named_parameters()]
+    moved = payload["param_moved"]
+    worst = torch.zeros(len(names), device=dev)
+    counts = torch.zeros(len(names), 3, device=dev, dtype=torch.float64)
+    for i, (name, master, sharding) in enumerate(
+        zip(names, opt.master, sh.param_shardings(model, cfg), strict=True)
+    ):
+        want = sh.shard_tensor(ref[name], sharding).to(dev)
+        diff = (master - want).abs()
+        worst[i] = diff.max()
+        counts[i, 0] = diff.numel()
+        counts[i, 1] = (diff > 1e-2 * moved[name]).sum()
+        counts[i, 2] = (diff > 1e-1 * moved[name]).sum()
+        del want, diff
+    del opt, model, ref
+    torch.cuda.empty_cache()
+    all_reduce_(worst, op="max", group=None)
+    all_reduce_(counts, group=None)
+    if rank == 0:
+        mag = payload["param_magnitude"]
+        worst, counts = worst.tolist(), counts.tolist()
+        gaps = {n: w / mag[n] for n, w in zip(names, worst)}
+        over_move = {n: w / max(moved[n], 1e-30) for n, w in zip(names, worst)}
+        offs = {n: c[1] / c[0] for n, c in zip(names, counts)}
+        offs_tenth = {n: c[2] / c[0] for n, c in zip(names, counts)}
+        out["param_rel_gap_max"] = max(gaps.values())
+        out["param_rel_gap_worst"] = max(gaps, key=gaps.get)
+        out["param_off_share_max"] = max(offs.values())
+        out["param_off_share_worst"] = max(offs, key=offs.get)
+        out["param_off_share"] = offs
+        out["param_off_tenth_share_max"] = max(offs_tenth.values())
+        out["param_off_tenth_share_worst"] = max(offs_tenth, key=offs_tenth.get)
+        out["param_off_tenth_share"] = offs_tenth
+        out["param_gap_over_move_max"] = max(over_move.values())
+        out["param_gap_over_move_worst"] = max(over_move, key=over_move.get)
+        out["params_compared"] = len(gaps)
+
+    # mixtral: the prefill, TP inside the experts
+    cfg, model, tokens = lm_mesh_setup(
+        torch, LM_MESH_MOE, LM_MESH_MOE_LAYERS, LM_MESH_MOE_SEED, dev
+    )
+    sh.shard_params(model, cfg, mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    local = sh.shard_batch({"t": torch.as_tensor(tokens, device=dev)}, mesh)["t"]
+    pos = lm_mesh_samples(LM_MESH_BATCH[1])
+    rec = []
+    restore = record_routing(torch, rec)
+    try:
+        with torch.inference_mode(), fsdp_gather(mesh):
+            collectives_s()
+            t0 = time.perf_counter()
+            logits = forward(model, cfg, local, attn_impl="kernel").logits
+            torch.cuda.synchronize()
+            out["moe_prefill_s"] = time.perf_counter() - t0
+            out["moe_prefill_collectives_s"] = collectives_s()
+            sampled = sh.gather_logits(logits[:, pos], cfg, mesh)[0].float()
+    finally:
+        restore()
+    row = int(rows[0])
+    got_routing = [x[0] for x in rec]
+    want_routing = [torch.as_tensor(x, device=dev) for x in payload["moe_routing"][row]]
+    agree, shares = same_routing(
+        torch, [g[None] for g in got_routing], [w[None] for w in want_routing],
+        (1, LM_MESH_BATCH[1]),
+    )
+    keep = agree[0, pos]
+    want = torch.as_tensor(payload["moe_sampled"][row], device=dev)
+    out.update(
+        moe_flip_share_by_layer=shares,
+        moe_sampled_agreeing=int(keep.sum()),
+        moe_rel_gap=masked_gap(torch, [sampled], [want], [keep]),
+        moe_rel_gap_all_sampled=rel_gap(torch, [sampled], [want]),
+        moe_finite=bool(torch.isfinite(sampled).all()),
+        moe_peak_bytes=torch.cuda.max_memory_allocated(),
+    )
+    return out
+
+
+def phase_lm_mesh(torch, st, plant: bool = False):
+    """The LM multi-device forms on a mesh of ranks on the card: see the
+    module docstring, phase 17.  ``plant``: with scripts/lm_mesh.py's
+    planted fault in the ranks."""
+    import gc
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+
+    if not st.get("flash_ok"):
+        raise AssertionError("a flash instance failed the device phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "single_device_params.pt")
+        t0 = time.perf_counter()
+        single = lm_mesh_single(torch, ref_path)
+        single_s = time.perf_counter() - t0
+        keys = (
+            "last_logits", "losses", "grad_norms", "moe_sampled", "moe_routing",
+            "param_moved", "param_magnitude",
+        )
+        payload = {k: single[k] for k in keys}
+        payload.update(ref_path=ref_path, plant=plant)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(
+            lm_mesh_rank, LM_MESH_WORLD, args=(payload,), backend="gloo",
+            device_type="cuda", timeout_s=LM_MESH_TIMEOUT_S,
+            mesh_shape=LM_MESH_SHAPE,
+        )
+        spawn_s = time.perf_counter() - t0
+    launches = _fold([r["prefill_launches"] for r in ranks])
+    instances = _fold([r["prefill_launches_by_instance"] for r in ranks])
+    st.setdefault("launches", {})["lm_mesh"] = launches
+    st.setdefault("instances", {})["lm_mesh"] = {
+        "flash_attention": instances["flash_attention"]
+    }
+    n_moe = LM_MESH_MOE_LAYERS
+    checks = {}
+    for r in ranks:
+        tag = f"rank{r['rank']}"
+        by_inst = r["prefill_launches_by_instance"]["flash_attention"]
+        checks[f"{tag}:prefill_launches"] = by_inst == {
+            "wgmma_bf16": LM_MESH_LAYERS, "tf32x3_f32": 0
+        }
+        checks[f"{tag}:prefill_gap"] = (
+            r["prefill_finite"] and r["prefill_rel_gap"] <= LM_BF16_GAP
+        )
+        checks[f"{tag}:losses"] = all(
+            math.isfinite(x) for x in r["losses"]
+        ) and max(r["loss_rel_gaps"] + r["grad_norm_rel_gaps"]) <= LM_BF16_GAP
+        checks[f"{tag}:moe_gap"] = r["moe_finite"] and r["moe_rel_gap"] <= LM_BF16_GAP
+        checks[f"{tag}:moe_flips"] = (
+            max(r["moe_flip_share_by_layer"]) <= LM_ROUTING_FLIP_SHARE
+            and len(r["moe_flip_share_by_layer"]) == n_moe
+        )
+    checks["params"] = (
+        ranks[0]["param_off_share_max"] <= LM_MESH_OFF_SHARE[0]
+        and ranks[0]["param_off_tenth_share_max"] <= LM_MESH_OFF_SHARE[1]
+    )
+    failed = [k for k, v in checks.items() if not v]
+    rec = {
+        "phase": "lm_mesh",
+        "ok": not failed,
+        "planted_fault": plant,
+        "failed": failed,
+        "world": LM_MESH_WORLD,
+        "mesh_shape": list(LM_MESH_SHAPE),
+        "transport": "gloo over CUDA tensors, several ranks on one device "
+        "(a stand-in: NCCL refuses two ranks on one GPU)",
+        "arch": LM_MESH_ARCH,
+        "layers": LM_MESH_LAYERS,
+        "batch": list(LM_MESH_BATCH),
+        "moe_arch": LM_MESH_MOE,
+        "moe_layers": LM_MESH_MOE_LAYERS,
+        "reduced": {
+            "num_layers": {
+                LM_MESH_ARCH: [LM_MESH_LAYERS, 36], LM_MESH_MOE: [n_moe, 32]
+            },
+            "why": "four ranks and the single-device references share one 80 GB "
+            "card and the phase's time; on one card these forms test placement "
+            "and collectives, not scaling",
+        },
+        "single_device": {
+            k: v for k, v in single.items()
+            if not isinstance(v, (list, dict, np.ndarray))
+        }
+        | {"losses": single["losses"], "step_s": single["step_s"]},
+        "single_device_s": single_s,
+        "spawn_s": spawn_s,
+        "ranks": ranks,
+        "launches": launches,
+        "launches_by_instance": instances,
+        "gates": {
+            "logits_losses_grad_norms": LM_BF16_GAP,
+            "flip_share": LM_ROUTING_FLIP_SHARE,
+            "param_off_share_1e-2_1e-1": LM_MESH_OFF_SHARE,
+        },
+        "checks": checks,
+        "s": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    ops.reset_launch_counts()
+    print(f"chip_smoke: lm_mesh {rec['s']:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"lm_mesh failed its checks: {failed}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
@@ -4660,6 +5151,7 @@ def main() -> int:
         ("lm", lambda: phase_lm(torch, st)),
         ("lm_families", lambda: phase_lm_families(torch, st)),
         ("train", lambda: phase_train(torch, st)),
+        ("lm_mesh", lambda: phase_lm_mesh(torch, st)),
     )
     for name, fn in phases:
         st["phase"] = name

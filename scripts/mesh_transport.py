@@ -16,7 +16,12 @@ one JSON line for each check:
     4 KiB, 4 MiB and 64 MiB a rank (ms a call, median of 5, host clock
     after a synchronize): the stand-in transport of several ranks on one
     card, and whether each collective takes CUDA tensors (else
-    ``launch.mesh`` would have to stage it through the host).
+    ``launch.mesh`` would have to stage it through the host);
+  * ``gloo_cuda_dtypes``: W ranks over gloo on a ("pod", "data", "model")
+    mesh, all_reduce and all_gather of bfloat16, float32 and int32 CUDA
+    tensors, on the whole group and on the groups of ("model",) and
+    ("pod", "data") (``launch.mesh.axis_group``), checked against the
+    values sent: the dtypes and groups the sharded LM's collectives use.
 """
 
 from __future__ import annotations
@@ -96,6 +101,36 @@ def collectives_rank(mesh, timed: bool) -> dict:
     return out
 
 
+def dtypes_rank(mesh) -> dict:
+    """all_reduce and all_gather of each dtype on CUDA tensors, over the
+    whole group and two axis groups; a record a (dtype, group)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": dist.get_rank(), "coordinate": list(mesh.get_coordinate())}
+    groups = {"world": None, "model": ("model",), "pod_data": ("pod", "data")}
+    for gname, axes in groups.items():
+        group = None if axes is None else lm.axis_group(mesh, axes)
+        size = dist.get_world_size(group)
+        me = dist.get_rank(group)
+        for dt in (torch.bfloat16, torch.float32, torch.int32):
+            key = f"{gname}:{str(dt).split('.')[-1]}"
+            try:
+                t = torch.full((1024,), me + 1, dtype=dt, device=dev)
+                lm.all_reduce_(t, group=group)
+                parts = lm.all_gather(torch.full((8,), me + 1, dtype=dt, device=dev),
+                                      group=group)
+                ok = bool((t == size * (size + 1) // 2).all()) and t.is_cuda
+                ok = ok and all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+                out[key] = {"ok": ok, "size": size}
+            except Exception as exc:  # the record says which failed
+                out[key] = {"ok": False, "error": f"{type(exc).__name__}: {exc}"[:400]}
+    return out
+
+
 def nccl_rank(mesh) -> dict:
     import torch
 
@@ -129,6 +164,11 @@ def main() -> int:
     ).stdout.strip()
     emit({"torch": torch.__version__, "cuda": torch.version.cuda, "gpu": smi,
           "device_count": torch.cuda.device_count()})
+    res = spawn_ranks(dtypes_rank, 4, backend="gloo", device_type="cuda",
+                      timeout_s=120.0, mesh_shape=(2, 1, 2))
+    emit({"check": "gloo_cuda_dtypes", "world": 4, "results": res})
+    dtypes_ok = all(v["ok"] for r in res for k, v in r.items() if ":" in k)
+    emit({"gloo_takes_the_lm_dtypes": dtypes_ok})
     try:
         res = spawn_ranks(nccl_rank, args.world, backend="nccl", device_type="cuda",
                           timeout_s=60.0)

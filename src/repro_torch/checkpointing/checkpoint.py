@@ -22,6 +22,13 @@ of a CPU tensor shares its memory; so every save takes an owned host copy
 of each leaf (detached from autograd) before it returns.  A bfloat16 leaf
 is refused: numpy has no bfloat16, and the reference's own bf16 checkpoint
 cannot be restored (ROADMAP Queue 3).
+
+Elastic restore: ``restore_checkpoint(shardings=)`` places each leaf as a
+tree of ``distribution.sharding.Sharding`` values says, this rank's shard
+of it on its mesh, so a checkpoint restores onto another mesh shape or
+from one device onto a mesh; without shardings every leaf comes back
+whole (onto one device).  A checkpoint is written whole: on a mesh the
+leaves are gathered first and one rank writes (``training.trainer``).
 """
 
 from __future__ import annotations
@@ -44,12 +51,22 @@ BF16_REFUSAL = (
 )
 
 
+def _is_sharding(node) -> bool:
+    from ..distribution.sharding import Sharding
+
+    return isinstance(node, Sharding)
+
+
 def _walk(node, path: str, names: list, leaves: list):
     """Append ``node``'s leaves and their names; return a function that
-    rebuilds ``node``'s structure from an iterator of new leaves."""
+    rebuilds ``node``'s structure from an iterator of new leaves.  A
+    ``Sharding`` is a leaf."""
     if node is None:
         return lambda it: None
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
+    parts = None
+    if _is_sharding(node):
+        pass
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
         keys, rebuild = list(node._fields), lambda vals: type(node)(*vals)
         parts = [(f".{k}", getattr(node, k)) for k in keys]
     elif dataclasses.is_dataclass(node) and not isinstance(node, type):
@@ -76,7 +93,7 @@ def _walk(node, path: str, names: list, leaves: list):
         def rebuild(vals):
             return kind(vals)
 
-    else:
+    if parts is None:
         names.append(path)
         leaves.append(node)
         return lambda it: next(it)
@@ -291,14 +308,10 @@ def restore_checkpoint(
     The leaf names must equal the manifest's.  Every leaf comes back as a
     tensor of its saved dtype, on ``device`` if given, else on the device
     of the matching target leaf where that is a tensor, else on the CPU.
-    ``shardings`` (the reference's re-placement onto a device mesh) is not
-    ported and raises.
+    ``shardings``, a tree of the target's structure with a
+    ``distribution.sharding.Sharding`` a leaf, re-places every leaf on the
+    current mesh: this rank's shard of it (elastic restore; no collective).
     """
-    if shardings is not None:
-        raise ValueError(
-            "shardings is not ported: restoring onto a device mesh belongs to "
-            "the multi-device forms (ROADMAP Queue 1 item 7)"
-        )
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -319,11 +332,24 @@ def restore_checkpoint(
             f"tgt : {names[:5]}..."
         )
 
-    def place(arr, tgt):
+    placements = [None] * len(leaves)
+    if shardings is not None:
+        from ..distribution.sharding import shard_tensor
+
+        sh_names, placements, _ = _flatten_with_names(shardings)
+        if sh_names != names:
+            raise ValueError("the shardings tree does not match the checkpoint's")
+
+    def place(arr, tgt, sharding):
         dev = device
         if dev is None:
             dev = tgt.device if isinstance(tgt, torch.Tensor) else "cpu"
-        return torch.from_numpy(arr).to(dev)
+        t = torch.from_numpy(arr)
+        if sharding is not None:
+            t = shard_tensor(t, sharding)
+        return t.to(dev)
 
-    restored = unflatten([place(a, t) for a, t in zip(leaves, tgt_leaves)])
+    restored = unflatten(
+        [place(*x) for x in zip(leaves, tgt_leaves, placements, strict=True)]
+    )
     return restored, manifest

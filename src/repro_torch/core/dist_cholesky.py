@@ -51,7 +51,7 @@ import torch
 from ..device import as_tensor
 from ..distribution.block_cyclic import PairShard, pair_shard
 from ..kernels import ops
-from ..launch.mesh import all_reduce_, broadcast_
+from ..launch.mesh import broadcast_
 from .covariance import MaternParams, _pair_correlations, build_sigma
 from .likelihood import LoglikResult
 from .tlr import _lap
@@ -239,7 +239,7 @@ def panels_backward_solve(
             below = [outs[i] for i in mine if i > k]
             if below:
                 part = pan.mT @ torch.cat(below, dim=0)
-            rhs = rhs - all_reduce_(part, group=shard.group)
+            rhs = rhs - shard.sum(part)
         elif pan is not None:
             # subtract contributions of already-solved lower blocks.
             x_below = torch.cat(outs[k + 1 :], dim=0)

@@ -74,7 +74,6 @@ from ..distribution.block_cyclic import (
 from ..distribution.compress_svd import svd_truncate_batch
 from ..distribution.pair_qr import warn_fallback_once
 from ..kernels import ops
-from ..launch.mesh import all_reduce_
 from .covariance import MaternParams, build_sigma_panel
 from .likelihood import LoglikResult
 from .precision import uv_dtype
@@ -567,7 +566,7 @@ def _tlr_cholesky_super_pairs(
     if shard is None or not track_status:
         return out
     status = out[4]
-    count = all_reduce_(status.nonfinite_count.reshape(1).clone(), group=shard.group)
+    count = shard.sum(status.nonfinite_count.reshape(1).clone())
     return out[:4] + (status._replace(nonfinite_count=count[0]),)
 
 
@@ -613,7 +612,7 @@ def _solve_lower_own(diag_l, up, vp, z, *, layout, shard, z_partial: bool = Fals
     out = torch.empty_like(z)
     for k in range(T):
         part = z[k] - acc[k] if z_partial else -acc[k]
-        part = all_reduce_(part.clone(), group=shard.group)
+        part = shard.sum(part.clone())
         rhs = part if z_partial else z[k] + part
         wk = ops.trsm(diag_l[k : k + 1], rhs[None])[0]
         out[k] = wk
@@ -695,7 +694,7 @@ def dist_tlr_solve_upper_pairs(
             if len(rows):
                 uk, vk = up[slots].to(y.dtype), vp[slots].to(y.dtype)
                 part = (vk @ (uk.mT @ out[rows])).sum(0)
-            rhs = rhs - all_reduce_(part, group=shard.group)
+            rhs = rhs - shard.sum(part)
         elif k + 1 < T:
             col = index_of(layout.pos[k + 1 :, k], y.device)
             uk, vk = up[col].to(y.dtype), vp[col].to(y.dtype)

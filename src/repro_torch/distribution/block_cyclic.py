@@ -19,10 +19,11 @@ On a ``DeviceMesh`` (``launch.mesh``) the pair axis spans every row axis and
 mesh coordinate flattened over ``pair_axis`` (first axis slowest), and shard
 d owns the global slots ``d * pairs_per_shard + q`` (``PairShard``).  The
 static tables ``column_owner_tables``, ``owned_pair_tables`` and
-``slice_positions`` are numpy copies of the reference's.  A mesh with an
-axis outside the pair axis (a "pod" axis that ``row_axes`` leave out) is
-refused: those meshes belong with the LM half of the multi-device forms
-(ROADMAP Queue 1 item 7).
+``slice_positions`` are numpy copies of the reference's.  On a mesh with
+an axis outside the pair axis (the multi-pod mesh's "pod" axis where
+``row_axes`` leave it out) every rank along that axis holds a copy of its
+shard, as the reference replicates over it; ``PairShard.sum`` counts each
+shard once.
 """
 
 from __future__ import annotations
@@ -140,10 +141,12 @@ class PairShard:
     ``axes``, the first axis slowest), ``ranks[d]`` the global rank of shard
     d, and ``group`` the process group the pair axis spans (the mesh's, which
     must be the whole process group).  Shard d owns the global pair slots
-    ``d * pairs_per_shard + q``.  Where ``axes`` leave mesh axes out (only
-    ``pair_qr.sharded_recompress`` allows it), every rank along those axes
-    holds a copy of its shard: ``ranks[d]`` is the first copy, and
-    ``primary`` says whether this rank is its shard's.
+    ``d * pairs_per_shard + q``.  Where ``axes`` leave mesh axes out (a
+    "pod" axis that ``row_axes`` leave out, as in the reference's multi-pod
+    mesh), every rank along those axes holds a copy of its shard and
+    computes what the copy computes: ``ranks[d]`` is the first copy,
+    ``primary`` says whether this rank is its shard's, and ``sum`` counts
+    each shard once.
 
     The shard order follows ``axes``, not the mesh's dim order, so the
     collectives of every form reassemble parts through ``gather`` and
@@ -161,6 +164,16 @@ class PairShard:
         """This shard's slots of ``layout`` (built for ``count`` shards)."""
         pps = layout.pairs_per_shard
         return slice(self.index * pps, (self.index + 1) * pps)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the shards of their ``t``, in place (one
+        ``all_reduce``): a copy of a shard adds zeros, so each shard counts
+        once."""
+        from ..launch.mesh import all_reduce_
+
+        if not self.primary:
+            t.zero_()
+        return all_reduce_(t, group=self.group)
 
     def gather(self, t: torch.Tensor) -> list[torch.Tensor]:
         """Every shard's ``t`` (one shape on every rank), in shard order
@@ -183,9 +196,10 @@ class PairShard:
 
 
 @functools.lru_cache(maxsize=None)
-def _pair_shard(mesh, axes: tuple, replicate: bool = False) -> PairShard:
-    """This rank's ``PairShard`` over the mesh axes ``axes``.  A mesh axis
-    outside ``axes`` is refused, or, with ``replicate``, holds copies."""
+def _pair_shard(mesh, axes: tuple) -> PairShard:
+    """This rank's ``PairShard`` over the mesh axes ``axes``.  Every rank
+    along a mesh axis outside ``axes`` holds a copy of its shard (the
+    reference replicates over it)."""
     import torch.distributed as dist
 
     names = tuple(mesh.mesh_dim_names)
@@ -193,13 +207,6 @@ def _pair_shard(mesh, axes: tuple, replicate: bool = False) -> PairShard:
     if unknown:
         raise ValueError(f"axes {unknown} are not axes of the mesh {names}")
     outside = [a for a in names if a not in axes]
-    if outside and not replicate:
-        raise ValueError(
-            f"mesh axes {outside} lie outside the pair axis {axes}: meshes with "
-            "a 'pod' (or other) axis that row_axes leave out are not ported "
-            "(ROADMAP Queue 1 item 7, the multi-device forms); include it in "
-            "row_axes"
-        )
     world = dist.get_world_size()
     if mesh.mesh.numel() != world:
         raise ValueError(
@@ -222,8 +229,9 @@ def _pair_shard(mesh, axes: tuple, replicate: bool = False) -> PairShard:
 def pair_shard(mesh, row_axes=("data",)) -> PairShard | None:
     """This rank's ``PairShard`` on ``mesh`` (None without a mesh).
 
-    Raises ``ValueError`` for an object that is not a named ``DeviceMesh``
-    and for a mesh with an axis outside the pair axis.
+    Raises ``ValueError`` for an object that is not a named ``DeviceMesh``.
+    A mesh axis outside the pair axis (a "pod" axis that ``row_axes`` leave
+    out) holds copies of the shards, as the reference replicates over it.
     """
     if mesh is None:
         return None

@@ -11,22 +11,16 @@ with error feedback,
 
 ``quantize_dequantize_psum_sim`` applies these numerics to gradients that
 are already reduced, leaf by leaf (the train step's form).  The collective
-forms (``compressed_psum``, ``compressed_psum_leaf``) are ``shard_map``
-reductions over a device mesh and belong to the multi-device forms (ROADMAP
-Queue 1 item 7).
+forms (``compressed_psum``, ``compressed_psum_leaf``) reduce over the
+"pod" axis of a mesh (``launch.mesh.axis_group``): an int32 sum of the
+int8 blocks (what crosses the slow link), a sum of the scales and of the
+pod count, and each pod's own quantisation error.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-
-MESH_REFUSAL = (
-    "the compressed psum is a collective over a device mesh: it belongs to "
-    "the multi-device forms (ROADMAP Queue 1 item 7); use "
-    "quantize_dequantize_psum_sim on one device"
-)
-
 
 def _quantize(g, block: int = 256):
     """(int8 blocks (nblocks, block), their float32 scales (nblocks, 1))."""
@@ -47,12 +41,37 @@ def _dequantize(q, scale, shape, block: int = 256):
     return flat[:n].reshape(shape)
 
 
-def compressed_psum_leaf(g, axis_name: str, error):
-    raise ValueError(MESH_REFUSAL)
+def compressed_psum_leaf(g, group, error):
+    """One leaf: the error-feedback int8 mean over ``group`` (the process
+    group of the reduced axis; None for one rank).  (mean in ``g``'s dtype,
+    this rank's float32 error)."""
+    from ..launch.mesh import group_sum
+
+    gf = g.to(torch.float32) + error
+    q, scale = _quantize(gf)
+    qsum = group_sum(q.to(torch.int32), group)  # the slow hop, in integers
+    ssum = group_sum(scale.clone(), group)
+    npods = group_sum(torch.ones((), dtype=torch.float32, device=g.device), group)
+    # the mean of the pods' dequantised contributions: their scales differ,
+    # so the mean scale stands in for them (the usual approximation)
+    mean = _dequantize(qsum, ssum / npods, g.shape) / npods
+    new_error = gf - _dequantize(q, scale, g.shape)  # this pod's own error
+    return mean.to(g.dtype), new_error
 
 
 def compressed_psum(tree, mesh, axis_name: str = "pod", errors=None):
-    raise ValueError(MESH_REFUSAL)
+    """The error-feedback compressed mean over ``axis_name`` of ``mesh`` of
+    a list of gradients: (means, new float32 errors), one a gradient;
+    ``errors`` None starts from zeros.  Every rank of the mesh calls it."""
+    from ..launch.mesh import axis_group
+
+    group = axis_group(mesh, axis_name)
+    if errors is None:
+        errors = [
+            torch.zeros(g.shape, dtype=torch.float32, device=g.device) for g in tree
+        ]
+    out = [compressed_psum_leaf(g, group, e) for g, e in zip(tree, errors, strict=True)]
+    return [m for m, _ in out], [e for _, e in out]
 
 
 def quantize_dequantize_psum_sim(grads, errors):

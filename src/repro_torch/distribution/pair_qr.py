@@ -93,7 +93,7 @@ def shard_blocks(arrays, mesh, axes):
     from .block_cyclic import _pair_shard
 
     _check_mesh(mesh)
-    shard = _pair_shard(mesh, tuple(axes), replicate=True)
+    shard = _pair_shard(mesh, tuple(axes))
     padded, length = pad_leading(arrays, shard.count)
     per = padded[0].shape[0] // shard.count
     lo = shard.index * per
@@ -136,10 +136,5 @@ def sharded_recompress(
     un, vn, rn = gather_blocks(out[:3], length, shard)
     if not with_count:
         return un, vn, rn
-    from ..launch.mesh import all_reduce_
-
-    mine = out[3].reshape(1).clone()
-    if not shard.primary:  # each slot counted once, by its shard's first copy
-        mine.zero_()
-    bad = all_reduce_(mine, group=shard.group)[0]
+    bad = shard.sum(out[3].reshape(1).clone())[0]
     return un, vn, rn, bad

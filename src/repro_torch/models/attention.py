@@ -12,6 +12,13 @@ implementations, chosen by ``impl``:
 With a cache (prefill into a cache, decode) attention is the explicit-position
 masked path over the ring buffer, whatever ``impl`` says, as in the
 reference.  Caches are updated in place.
+
+On a mesh (``tp``, a ``shardspecs.ModelParallel``) the layer is
+tensor-parallel over "model": this rank's query heads, and its KV heads
+(GQA groups kept whole), or K and V whole where the axis does not divide
+the KV heads (``shardspecs.kv_whole``); ``wo`` row-parallel, then the sum
+over the axis.  ``impl="kernel"`` runs the flash kernel on this rank's
+heads.  A cached call takes no mesh.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ import torch
 from torch import nn
 
 from ..kernels import ops as kops
-from .common import apply_rope, linear, rms_norm
+from ..launch.mesh import copy_to_region, reduce_from_region
+from .common import apply_linear, apply_rope, linear, rms_norm
 
 _MASKED = -1e30  # the chunked path's masked score, as the reference's
 
@@ -169,6 +177,26 @@ def _cache_insert(cache, k, v, positions):
     return cache
 
 
+def _local_heads(cfg, tp):
+    """(query heads, KV heads computed, KV heads kept) on this rank and the
+    first KV head it keeps of those computed."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if tp is None:
+        return h, kvh, kvh, 0
+    if h % tp.size:
+        raise ValueError(f"{tp.size} model-parallel ranks do not divide {h} heads")
+    hl = h // tp.size
+    if kvh % tp.size == 0:
+        return hl, kvh // tp.size, kvh // tp.size, 0
+    group = h // kvh  # K and V whole: keep the one KV head of this rank's group
+    if group % hl:
+        raise ValueError(
+            f"{tp.size} model-parallel ranks split the query heads of a GQA group "
+            f"of {group} across KV heads ({h} heads, {kvh} KV heads)"
+        )
+    return hl, kvh, 1, tp.rank * hl // group
+
+
 def multihead_attention(
     params: Attention,
     x,
@@ -178,19 +206,27 @@ def multihead_attention(
     impl: str = "naive",
     positions=None,
     cache=None,
+    tp=None,
 ):
     """Full attention layer.  x: (B, S, d).
 
     With ``cache`` (decode, or prefill into a cache): the new K/V are
     inserted at their ring slots and attention runs over the cache with
-    explicit positions.  Returns (out, the updated cache or None).
+    explicit positions.  ``tp`` computes this rank's heads (module note).
+    Returns (out, the updated cache or None).
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kvh = cfg.num_heads, cfg.num_kv_heads
-    q = params.wq(x).reshape(b, s, h, hd)
-    k = params.wk(x).reshape(b, s, kvh, hd)
-    v = params.wv(x).reshape(b, s, kvh, hd)
+    h, kv_all, kvh, kv0 = _local_heads(cfg, tp)
+    group = None if tp is None else tp.group
+    if cache is not None and group is not None:
+        raise ValueError("a cached call does not run on a mesh")
+    x = copy_to_region(x, group)
+    q = apply_linear(x, params.wq).reshape(b, s, h, hd)
+    k = apply_linear(x, params.wk).reshape(b, s, kv_all, hd)
+    v = apply_linear(x, params.wv).reshape(b, s, kv_all, hd)
+    if kvh != kv_all:
+        k, v = k[:, :, kv0 : kv0 + kvh], v[:, :, kv0 : kv0 + kvh]
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps)
         k = rms_norm(k, params.k_norm, cfg.norm_eps)
@@ -221,4 +257,5 @@ def multihead_attention(
         raise ValueError(
             f"attention impl must be naive, chunked or kernel, got {impl!r}"
         )
-    return params.wo(out.reshape(b, s, h * hd)), new_cache
+    out = apply_linear(out.reshape(b, s, h * hd), params.wo)
+    return reduce_from_region(out, group), new_cache

@@ -9,6 +9,7 @@ drawn from a ``torch.Generator`` on the device they are made on.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _DTYPES = {
@@ -48,6 +49,12 @@ def linear(fan_in: int, fan_out: int, dtype, *, generator, device) -> nn.Linear:
     with torch.no_grad():
         layer.weight.copy_(w.T)
     return layer
+
+
+def apply_linear(x, w):
+    """``x @ W^T`` for an ``nn.Linear`` or its (out, in) weight ``W`` (a
+    layer's weights gathered on a mesh come as tensors)."""
+    return F.linear(x, w.weight if isinstance(w, nn.Linear) else w)
 
 
 def rms_norm(x, weight, eps: float = 1e-6):

@@ -16,8 +16,22 @@ tokens.  Here each expert's kept rows are gathered, in slot order, and
 multiplied by its weights alone (one ``torch.matmul`` a weight an expert
 that received rows): padded slots add nothing to the output, so the values
 are the reference's.  The expert GEMMs are plain products, outside any
-kernel in the reference too.  The reference's sharding constraints apply
-only under a device mesh (ROADMAP Queue 1 item 7).
+kernel in the reference too.
+
+On a mesh (``settings.fsdp_gather``) the reference's numbers change, not
+only its placement, and the port follows them:
+
+* dispatch is shard-local over the data-parallel axes ("pod", "data"):
+  capacity and slots count within each shard's contiguous token block,
+  which is each data-parallel rank dispatching its own batch rows (so the
+  batch must divide over them, ``distribution.sharding.shard_batch``);
+* the aux loss stays global: ``density`` and ``density_prob`` are means
+  over every token, their sums reduced over the data-parallel axes before
+  the product;
+* experts lie over "model" (EP, llama4) or are tensor-parallel inside
+  each expert (mixtral), as ``shardspecs.moe_specs`` says; activations are
+  replicated along "model", so the sum over "model" of the ranks' partial
+  outputs combines the experts (no all-to-all).
 """
 
 from __future__ import annotations
@@ -26,8 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch.mesh import (
+    axis_group,
+    axis_size,
+    copy_to_region,
+    group_sum,
+    reduce_from_region,
+)
+from . import settings
 from .common import dense_init
-from .mlp import MLP
+from .mlp import MLP, mlp
+from .shardspecs import batch_axes, expert_parallel, model_parallel
 
 
 def _experts(e: int, fan_in: int, fan_out: int, dtype, *, generator, device):
@@ -79,11 +102,15 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
     ``dropless=True`` sizes each expert at the token count, so no pair is
     dropped (the cached serving paths: capacity dropping depends on how
     the sequence was batched, so a cached decode could not reproduce it).
+    On a mesh, ``x`` holds this rank's batch rows (module note).
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     t = b * s
     xf = x.reshape(t, d)
+    mesh = settings.FSDP_GATHER_MESH
+    tp = model_parallel(mesh)
+    group = tp.group
 
     logits = xf.float() @ params.router  # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -92,9 +119,17 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)  # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balancing loss on the first choice (Switch / Mixtral)
-    density = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
-    aux_loss = e * torch.sum(density * probs.mean(dim=0))
+    # load-balancing loss on the first choice (Switch / Mixtral), over
+    # every token of the batch
+    first = F.one_hot(expert_idx[:, 0], e).float()
+    if mesh is None:
+        density, density_prob = first.mean(dim=0), probs.mean(dim=0)
+    else:
+        dp = axis_group(mesh, batch_axes(mesh))
+        total = t * axis_size(mesh, batch_axes(mesh))
+        density = group_sum(first.sum(dim=0), dp) / total
+        density_prob = reduce_from_region(probs.sum(dim=0), dp) / total
+    aux_loss = e * torch.sum(density * density_prob)
 
     cap = _round_capacity(t) if dropless else _capacity(t, k, e, cfg.capacity_factor)
     # slot of each pair within its expert: pairs before it, token-major
@@ -104,12 +139,21 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
     keep = slot < cap
     gate_vals = gate_vals * keep.reshape(t, k).to(gate_vals.dtype)
 
-    # the kept pairs grouped by expert, each group in slot order
-    pairs = torch.nonzero(keep)[:, 0]
+    # this rank's experts: every one, or (EP) its slice of them
+    e0, e1 = 0, e
+    if expert_parallel(cfg):
+        if e % tp.size:
+            raise ValueError(
+                f"{tp.size} model-parallel ranks do not divide {e} experts"
+            )
+        e0 = tp.rank * (e // tp.size)
+        e1 = e0 + e // tp.size
+    # the kept pairs of these experts grouped by expert, each in slot order
+    pairs = torch.nonzero(keep & (flat_e >= e0) & (flat_e < e1))[:, 0]
     order = torch.sort(flat_e[pairs], stable=True).indices
     pairs = pairs[order]
-    counts = torch.bincount(flat_e[pairs], minlength=e).tolist()
-    rows = xf[pairs // k]
+    counts = torch.bincount(flat_e[pairs] - e0, minlength=e1 - e0).tolist()
+    rows = copy_to_region(xf, group)[pairs // k]
     out = torch.empty_like(rows)
     start = 0
     for i, n in enumerate(counts):
@@ -120,9 +164,11 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
         start += n
     picked = torch.zeros((t * k, d), dtype=x.dtype, device=x.device)
     picked[pairs] = out
-    # combine in float32, then cast
-    y = (picked.reshape(t, k, d).float() * gate_vals[..., None].float()).sum(dim=1)
-    y = y.to(x.dtype)
+    # combine in float32 (summed over the experts' ranks), then cast; each
+    # rank's experts give a part of the gates' gradient
+    gate = copy_to_region(gate_vals, group)
+    y = (picked.reshape(t, k, d).float() * gate[..., None].float()).sum(dim=1)
+    y = reduce_from_region(y, group).to(x.dtype)
     if params.shared is not None:
-        y = y + params.shared(xf)
+        y = y + mlp(params.shared, xf, "swiglu", tp)
     return y.reshape(b, s, d), aux_loss

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, linear
+from .common import apply_linear, dense_init, linear
 
 _C = 8.0
 
@@ -93,8 +93,9 @@ def rglru_block(params: RGLRU, x, cfg, state=None):
     """x: (B, S, d) -> (B, S, d).  ``state`` (decode): dict(conv=(B, 3, L)
     in the model dtype, h=(B, L) in float32).  Returns (out, new state)."""
     s = x.shape[1]
-    xb = params.w_x(x)
-    gate = F.gelu(params.w_gate(x), approximate="tanh")  # jax.nn.gelu's default
+    xb = apply_linear(x, params.w_x)
+    # jax.nn.gelu's default
+    gate = F.gelu(apply_linear(x, params.w_gate), approximate="tanh")
     conv_state = None if state is None else state["conv"]
     xb, new_conv = _conv1d(xb, params.conv_w, params.conv_b, conv_state)
 
@@ -111,7 +112,7 @@ def rglru_block(params: RGLRU, x, cfg, state=None):
     else:
         new_h = torch.exp(log_a[:, 0]) * state["h"] + gated_in[:, 0]
         h = new_h[:, None]
-    out = params.w_out(h.to(x.dtype) * gate)
+    out = apply_linear(h.to(x.dtype) * gate, params.w_out)
     return out, dict(conv=new_conv, h=new_h)
 
 

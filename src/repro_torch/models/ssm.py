@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, linear, rms_norm
+from .common import apply_linear, dense_init, linear, rms_norm
 
 
 def _dims(cfg):
@@ -147,7 +147,7 @@ def ssm_block(params: SSM, x, cfg, state=None):
     d_in, heads, g, n, conv_ch = _dims(cfg)
     p = cfg.ssm_head_dim
 
-    proj = params.w_in(x)
+    proj = apply_linear(x, params.w_in)
     z, xbc, dt_raw = torch.split(proj, [d_in, conv_ch, heads], dim=-1)
     dt = F.softplus(dt_raw.float() + params.dt_bias)  # (B, S, H)
 
@@ -190,7 +190,7 @@ def ssm_block(params: SSM, x, cfg, state=None):
     y = y.reshape(b, s, d_in).to(x.dtype)
     # gated RMSNorm, then the output projection
     y = rms_norm(y * F.silu(z), params.norm_w, cfg.norm_eps)
-    return params.w_out(y), dict(conv=new_conv, ssm=final)
+    return apply_linear(y, params.w_out), dict(conv=new_conv, ssm=final)
 
 
 def init_ssm_state(cfg, batch: int, dtype, *, device):

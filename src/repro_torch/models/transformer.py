@@ -16,6 +16,17 @@ entry a layer: a ring-buffer KV cache for attention, the (conv, SSM) or
 each block, one period of ``cfg.layer_pattern`` (the reference's unit of
 ``jax.checkpoint``), runs under ``torch.utils.checkpoint``; the tail layers
 are not wrapped, as in the reference.
+
+On a mesh (``settings.fsdp_gather(mesh)``, the model sharded by
+``distribution.sharding.shard_params``) each rank holds its shard of every
+weight and its data-parallel rows of the batch.  ``_apply_layer`` gathers a
+layer's "data" factor just in time and computes tensor-parallel on the
+"model" factor (``shardspecs``); the embedding is vocab-parallel (a masked
+lookup, then the sum over "model") and the head column-parallel, so the
+logits come back as this rank's slice of the vocabulary
+(``sharding.gather_logits`` joins them).  Where ``PRODUCTION_TP`` does not
+divide the vocabulary (mamba2's 50280) the table is gathered whole and the
+logits are whole.
 """
 
 from __future__ import annotations
@@ -27,10 +38,26 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..launch.mesh import copy_to_region, reduce_from_region
+from . import settings
 from .attention import Attention, init_attention_cache, multihead_attention
-from .common import dtype_of, embed_init, linear, rms_norm, take_embedding
-from .mlp import MLP
+from .common import (
+    apply_linear,
+    dtype_of,
+    embed_init,
+    linear,
+    rms_norm,
+    take_embedding,
+)
+from .mlp import MLP, mlp
 from .moe import MoE, moe_block
+from .shardspecs import (
+    embed_spec,
+    gather_axes,
+    gather_layer_params,
+    model_parallel,
+    vocab_parallel,
+)
 from .rglru import RGLRU, init_rglru_state, rglru_block
 from .ssm import SSM, init_ssm_state, ssm_block
 
@@ -179,30 +206,76 @@ class ForwardResult(NamedTuple):
 
 def _apply_layer(layer: Layer, x, cfg, *, attn_impl, positions, cache, dropless):
     """(x, the layer's new cache, its MoE aux loss or None)."""
-    h_in = rms_norm(x, layer.norm1, cfg.norm_eps)
+    mesh = settings.FSDP_GATHER_MESH
+    w, tp = layer, None
+    if mesh is not None:
+        # ZeRO-3: the layer's FSDP-sharded weights gathered just in time
+        w = gather_layer_params(layer, cfg, layer.kind, layer.use_moe, mesh)
+        tp = model_parallel(mesh)
+    h_in = rms_norm(x, w.norm1, cfg.norm_eps)
     if layer.kind == "ssd":
-        h, new_cache = ssm_block(layer.ssm, h_in, cfg, state=cache)
+        h, new_cache = ssm_block(w.ssm, h_in, cfg, state=cache)
         return x + h, new_cache, None
     if layer.kind == "rglru":
-        h, new_cache = rglru_block(layer.rglru, h_in, cfg, state=cache)
+        h, new_cache = rglru_block(w.rglru, h_in, cfg, state=cache)
     else:
         h, new_cache = multihead_attention(
-            layer.attn,
+            w.attn,
             h_in,
             cfg,
             layer_window=_window(cfg, layer.kind),
             impl=attn_impl,
             positions=positions,
             cache=cache,
+            tp=tp,
         )
     x = x + h
-    h2 = rms_norm(x, layer.norm2, cfg.norm_eps)
+    h2 = rms_norm(x, w.norm2, cfg.norm_eps)
     aux = None
     if layer.use_moe:
-        h2, aux = moe_block(layer.moe, h2, cfg, dropless=dropless)
+        h2, aux = moe_block(w.moe, h2, cfg, dropless=dropless)
     else:
-        h2 = layer.mlp(h2)
+        h2 = mlp(w.mlp, h2, cfg.mlp_kind, tp)
     return x + h2, new_cache, aux
+
+
+def _on_mesh(model):
+    """The mesh the model computes on (None on one device); a sharded
+    model runs only under its own mesh."""
+    mesh = settings.FSDP_GATHER_MESH
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError(
+            "a model sharded on a mesh runs under models.settings.fsdp_gather(mesh) "
+            "of that mesh, and a whole model under none"
+        )
+    return mesh
+
+
+def _embed(model, cfg, tokens, mesh):
+    """The embedding lookup: vocab-parallel on a mesh (module note)."""
+    if mesh is None:
+        return take_embedding(model.embed, tokens)
+    if not vocab_parallel(cfg):
+        table = gather_axes(model.embed, embed_spec(cfg), mesh, ("model",), False)
+        return take_embedding(table, tokens)
+    tp = model_parallel(mesh)
+    rows = model.embed.shape[0]
+    local = tokens - tp.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = take_embedding(model.embed, torch.where(inside, local, 0))
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    x = torch.where(inside[..., None], x, zero)
+    return reduce_from_region(x, tp.group)
+
+
+def _head(model, cfg, x, mesh):
+    """The logits: this rank's vocabulary slice where vocab-parallel."""
+    w = model.embed if model.lm_head is None else model.lm_head.weight
+    if mesh is None:
+        return apply_linear(x, w)
+    if not vocab_parallel(cfg):
+        return apply_linear(x, gather_axes(w, embed_spec(cfg), mesh, ("model",), False))
+    return apply_linear(copy_to_region(x, model_parallel(mesh).group), w)
 
 
 def _apply_layers(layers, x, aux, cfg, caches, **kw):
@@ -261,15 +334,20 @@ def forward(
     summed (0 without MoE).  ``remat=True`` recomputes each block's
     activations in the backward pass instead of keeping them (the values
     are the same: MoE dispatch is deterministic, so the recompute routes
-    the same tokens); a cached call cannot take it.
+    the same tokens); a cached call cannot take it.  On a mesh (module
+    note) ``tokens``/``embeds`` are this rank's batch rows and the logits
+    its slice of the vocabulary; no cache.
     """
     if remat and caches is not None:
         raise ValueError("remat=True is for training; a cached call cannot take it")
+    mesh = _on_mesh(model)
+    if mesh is not None and caches is not None:
+        raise ValueError("a cached call does not run on a mesh")
     if dropless is None:
         dropless = caches is not None
     dev = model.embed.device
     if embeds is None:
-        x = take_embedding(model.embed, torch.as_tensor(tokens, device=dev))
+        x = _embed(model, cfg, torch.as_tensor(tokens, device=dev), mesh)
     else:
         x = embeds.to(dtype_of(cfg.dtype))
     s = x.shape[1]
@@ -291,11 +369,7 @@ def forward(
         layers[nblocks * period :], x, aux, cfg, caches, **kw
     )
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    if model.lm_head is None:
-        logits = x @ model.embed.T
-    else:
-        logits = model.lm_head(x)
-    return ForwardResult(logits, aux, new_caches)
+    return ForwardResult(_head(model, cfg, x, mesh), aux, new_caches)
 
 
 def decode_step(

@@ -8,9 +8,13 @@ update is functional; here it runs in place, leaf by leaf, under
 take another 8 GB.  Each step ends with ``p.copy_(master)``, which casts as
 ``master.to(p.dtype)`` does, so ``p == master.to(p.dtype)`` bit for bit after
 every step.  The learning rate, the bias corrections and the clip are
-float32 tensors on the device, as the reference computes them.  The
-ZeRO sharding specs (``opt_state_specs``) belong to the multi-device forms
-(ROADMAP Queue 1 item 7).
+float32 tensors on the device, as the reference computes them.
+
+On a mesh (ZeRO: ``opt_state_specs``) the state holds this rank's shards,
+placed as the parameters are, and the update is elementwise on them; only
+the gradients' norm, and so the clip, needs the other ranks:
+``global_norm`` sums each leaf's squares over the axes it is sharded on,
+and counts a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -77,9 +81,34 @@ def lr_schedule(cfg: AdamWConfig, step):
     return cfg.learning_rate * torch.where(step < cfg.warmup_steps, warm, decayed)
 
 
-def global_norm(tensors):
-    """sqrt of the sum of squares of every element, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+def opt_state_specs(p_specs) -> AdamWState:
+    """The specs of the ``AdamWState`` of parameters of specs ``p_specs``
+    (one a parameter, in the model's order): ZeRO sharding, the moments and
+    the master placed as their parameters, the step replicated."""
+    return AdamWState(step=(), master=list(p_specs), m=list(p_specs), v=list(p_specs))
+
+
+def global_norm(tensors, shardings=None):
+    """sqrt of the sum of squares of every element, in float32.  With
+    ``shardings`` (a ``distribution.sharding.Sharding`` a tensor: each is
+    this rank's shard) each leaf's squares are summed over the axes it is
+    sharded on only, so a replicated leaf counts once; every rank gets the
+    same norm (collective)."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tensors))
+    from ..launch.mesh import axis_group, group_sum
+    from ..models.shardspecs import entry_axes
+
+    sums = {}
+    for x, sh in zip(tensors, shardings, strict=True):
+        axes = {n for e in sh.spec for n in entry_axes(e)}
+        key = tuple(a for a in sh.mesh.mesh_dim_names if a in axes)
+        part = torch.sum(torch.square(x.float()))
+        sums[key] = part if key not in sums else sums[key] + part
+    mesh, total = shardings[0].mesh, 0
+    for key, part in sums.items():
+        total = total + group_sum(part, axis_group(mesh, key) if key else None)
+    return torch.sqrt(total)
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -87,13 +116,14 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params, shardings=None):
     """One step, in place: (params, the state with its step advanced,
     metrics ``grad_norm`` and ``lr``).  ``master``, ``m`` and ``v`` are
-    updated in place, so ``state`` itself sees the step's moments."""
+    updated in place, so ``state`` itself sees the step's moments.  On a
+    mesh, ``shardings`` places each parameter (``global_norm``)."""
     plist = param_list(params)
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     clip = torch.clamp(
         _f32(cfg.grad_clip_norm, gnorm) / torch.clamp(gnorm, min=1e-12), max=1.0
     )

@@ -22,6 +22,15 @@ compression ``errors``, and no parameters: after every step
 parameters from ``master``.  One rule for every dtype, and a bf16 model
 checkpoints no bf16 leaf (the reference's trainer saves its bf16
 parameters, which it cannot restore: ROADMAP Queue 3).
+
+On a mesh (``shardings``: each parameter's ``distribution.sharding.Sharding``)
+the parameters, the state and the errors are this rank's shards, and the
+step is ``make_train_step(cfg, mesh, ...)``'s.  A save gathers every leaf
+(a collective on every rank) and the mesh's rank 0 writes the whole tree,
+so a checkpoint restores onto any mesh shape or one device; a restore
+places each leaf by the shardings (``restore_checkpoint(shardings=)``).
+After rank 0's write ends the ranks meet, so none reads ``LATEST`` before
+it is flipped.
 """
 
 from __future__ import annotations
@@ -38,10 +47,11 @@ import torch
 
 from ..checkpointing.checkpoint import (
     AsyncCheckpointer,
+    _flatten_with_names,
     latest_step,
     restore_checkpoint,
 )
-from .optimizer import adamw_init, param_list
+from .optimizer import AdamWState, adamw_init, param_list
 
 
 def _default_checkpoint_dir() -> str:
@@ -68,8 +78,10 @@ class Trainer:
         tcfg: TrainerConfig,
         grad_errors=None,
         fault_hook: Callable | None = None,
+        shardings: list | None = None,
     ):
         self.step_fn = step_fn
+        self.shardings = shardings
         self.params = params
         self.opt_state = adamw_init(params)
         self.grad_errors = grad_errors
@@ -87,12 +99,47 @@ class Trainer:
     def _state_tree(self):
         return dict(opt=self.opt_state, errors=self.grad_errors)
 
+    def _state_shardings(self):
+        """The shardings of ``_state_tree``'s leaves (None off a mesh)."""
+        if self.shardings is None:
+            return None
+        from ..distribution.sharding import Sharding
+
+        sh = list(self.shardings)
+        step = Sharding(sh[0].mesh, ())
+        errors = None if self.grad_errors is None else sh
+        return dict(opt=AdamWState(step, sh, sh, sh), errors=errors)
+
+    def _rank(self) -> int:
+        import torch.distributed as dist
+
+        return 0 if self.shardings is None else dist.get_rank()
+
     def save(self, step: int):
-        self.ckpt.save(step, self._state_tree(), extra=dict(step=step))
+        tree = self._state_tree()
+        if self.shardings is not None:
+            from ..distribution.sharding import unshard_tensor
+
+            _, leaves, unflatten = _flatten_with_names(tree)
+            _, placed, _ = _flatten_with_names(self._state_shardings())
+            tree = unflatten([unshard_tensor(x, s) for x, s in zip(leaves, placed)])
+        if self._rank() == 0:
+            self.ckpt.save(step, tree, extra=dict(step=step))
+
+    def wait(self):
+        """Join the outstanding write; on a mesh every rank then meets."""
+        self.ckpt.wait()
+        if self.shardings is not None:
+            from ..launch.mesh import all_reduce_
+
+            all_reduce_(torch.zeros(1, device=self.opt_state.master[0].device))
 
     def _restore(self, step: int | None = None):
         restored, _ = restore_checkpoint(
-            self.cfg.checkpoint_dir, self._state_tree(), step
+            self.cfg.checkpoint_dir,
+            self._state_tree(),
+            step,
+            shardings=self._state_shardings(),
         )
         self.opt_state = restored["opt"]
         self.grad_errors = restored["errors"]
@@ -138,7 +185,7 @@ class Trainer:
                     raise FloatingPointError(
                         f"loss non-finite at step {step}; restore budget spent"
                     )
-                self.ckpt.wait()
+                self.wait()
                 if latest_step(self.cfg.checkpoint_dir) is not None:
                     self._restore()
                 step += 1  # skip the poisoned data step
@@ -170,7 +217,7 @@ class Trainer:
                 last_good = step
 
         self.save(self.cfg.total_steps)
-        self.ckpt.wait()
+        self.wait()
         return dict(
             final_step=step,
             last_checkpoint=last_good,

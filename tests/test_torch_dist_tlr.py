@@ -231,8 +231,8 @@ def test_meshes_are_refused(case, tmp_path):
     """Only a named torch.distributed DeviceMesh is taken as a mesh
     (tests/test_torch_mesh.py runs the mesh forms on W ranks); without one
     the pair axis spans one shard, and a mesh with an axis outside the pair
-    axis (a "pod" axis that row_axes leave out) is refused, naming ROADMAP
-    Queue 1 item 7."""
+    axis (a "pod" axis that row_axes leave out) holds copies of the shards,
+    as the reference replicates over it."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -248,8 +248,7 @@ def test_meshes_are_refused(case, tmp_path):
     try:
         names = ("pod", "data", "model")
         pod = init_device_mesh("cpu", (1, 1, 1), mesh_dim_names=names)
-        with pytest.raises(ValueError, match="Queue 1 item 7"):
-            tb.pair_shards(pod)
+        assert tb.pair_shards(pod) == 1 and tb.pair_shard(pod).primary
         assert tb.pair_shards(pod, ("pod", "data")) == 1
     finally:
         dist.destroy_process_group()

@@ -140,7 +140,10 @@ def runs():
     x = R.inputs()
     jt, carried = _carried(x)
     with concurrent.futures.ThreadPoolExecutor(len(WORLDS)) as pool:
-        spawn = partial(lm.spawn_ranks, R.run_all, args=(carried,), timeout_s=300.0)
+        spawn = partial(
+            lm.spawn_ranks, R.run_all, args=(carried,), device_type="cpu",
+            timeout_s=300.0,
+        )
         futures = {w: pool.submit(spawn, w) for w in WORLDS}
         ref = _jax_references(x, jt)
         own = R.run_all(None, carried)
@@ -153,19 +156,59 @@ def _each(runs, w):
 
 
 @pytest.mark.parametrize("w", WORLDS)
-def test_launcher_builds_the_reference_mesh_shape_and_refuses_a_pod_axis(runs, w):
+def test_launcher_builds_the_reference_mesh_shape_and_a_pod_axis(runs, w):
     """Every rank sees the mesh the reference's shape rule gives, at its own
-    coordinate; a "pod" axis that row_axes leave out is refused naming
-    Queue 1 item 7, and counted when row_axes include it."""
+    coordinate; a "pod" axis that row_axes leave out holds copies of one
+    shard (the reference replicates over it), and splits the pairs when
+    row_axes include it."""
     assert lm.mesh_shape_for(w) == SHAPES[w]
     coords = set()
     for r in _each(runs, w):
         m = r["meshes"]
         assert m["shape"] == SHAPES[w]
         coords.add(m["coordinate"])
-        assert "pod" in m["pod_refused"] and "Queue 1 item 7" in m["pod_refused"]
+        assert m["pod_outside_row_axes"] == 1
+        assert m["pod_copy_primary"] == (m["rank"] == 0)  # pod coordinate 0
         assert m["pod_in_row_axes"] == w
     assert len(coords) == w
+
+
+@pytest.mark.parametrize("rows", ["data", "pod_data"])
+@pytest.mark.parametrize("form", ["loglik", "serve"])
+def test_pod_mesh_forms_match_jax(runs, form, rows):
+    """The block-cyclic TLR loglik and serving on the W = 4 spawn's (2, 1, 2)
+    ("pod", "data", "model") mesh, with row_axes ("data",) (two pair shards,
+    each held by both pods) and ("pod", "data") (four shards): the
+    reference's mesh=None loglik to 1e-9 and serving outputs to PARITY, the
+    port's mesh=None forms to 1e-12, the same on every rank."""
+    ref, own = runs["ref"], runs["own"]
+    for r in _each(runs, 4):
+        got = r["pod"][f"{form}_{rows}"]
+        assert got["status"]["ok"]
+        if form == "loglik":
+            assert got["shards"] == (2 if rows == "data" else 4)
+            assert float(got["loglik"]) == pytest.approx(ref["loglik"], rel=1e-9)
+            want = own["loglik"]["block_cyclic"]
+            for field in ("loglik", "logdet", "quad"):
+                assert float(got[field]) == pytest.approx(float(want[field]), rel=OWN)
+            continue
+        assert _rel(got["alpha"], ref["serve"]["alpha"]) <= PARITY
+        assert _rel(got["alpha"], own["serve"]["alpha"]) <= OWN
+        for field in ("mean", "variance", "lower", "upper"):
+            assert _rel(got[field], ref["serve"][field]) <= PARITY, field
+            assert _rel(got[field], own["serve"][field]) <= OWN, field
+
+
+def test_pod_mesh_exact_form_matches_jax(runs):
+    """dist_exact_loglik on the (2, 1, 2) pod mesh, its pair axis ("data",
+    "model") held by both pods: the reference's loglik to 1e-9, the port's
+    mesh=None to 1e-12."""
+    ref, own = runs["ref"]["exact"], runs["own"]["exact"]
+    for r in _each(runs, 4):
+        got = r["pod"]["exact"]
+        assert float(got["loglik"]) == pytest.approx(ref["loglik"], rel=1e-9)
+        for field in ("loglik", "logdet", "quad"):
+            assert float(got[field]) == pytest.approx(float(own[field]), rel=OWN)
 
 
 @pytest.mark.parametrize("w", WORLDS)
@@ -444,4 +487,27 @@ def test_spawned_ranks_fail_fast_and_report_the_rank():
     """A rank that raises fails the spawn with its traceback, while the
     others wait in a collective: no hang, no caught failure."""
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
-        lm.spawn_ranks(R.fail_on_rank_one, 2, timeout_s=60.0)
+        lm.spawn_ranks(R.fail_on_rank_one, 2, device_type="cpu", timeout_s=60.0)
+
+
+def test_the_launchers_take_the_card_unless_the_cpu_is_named(tmp_path, monkeypatch):
+    """make_mesh_for_devices, make_production_mesh and spawn_ranks run on
+    CUDA by default: without a CUDA device each raises, naming the CPU
+    option, before it builds or starts anything; device_type="cpu" builds
+    the mesh on the CPU."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        lm.spawn_ranks(R.fail_on_rank_one, 2)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            lm.make_mesh_for_devices()
+        with pytest.raises(RuntimeError, match="device_type='cpu'"):
+            lm.make_production_mesh(multi_pod=True)
+        mesh = lm.make_mesh_for_devices(device_type="cpu")
+        assert mesh.device_type == "cpu" and tuple(mesh.mesh_dim_names) == lm.AXES
+    finally:
+        dist.destroy_process_group()

@@ -306,16 +306,6 @@ def test_remat_forward_keeps_the_logits_and_the_tail():
     assert _leaf_gap(ga, gb) <= TOL
 
 
-def test_mesh_forms_are_refused():
-    cfg = get_arch(ARCH).reduced()
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        make_train_step(cfg, object(), TrainConfig())
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        tcomp.compressed_psum([torch.zeros(3)], object())
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        tcomp.compressed_psum_leaf(torch.zeros(3), "pod", torch.zeros(3))
-
-
 # ---------------------------------------------------------------------------
 # compression, tokens
 # ---------------------------------------------------------------------------

@@ -340,26 +340,64 @@ def case_faults(mesh, x) -> dict:
 
 
 def case_meshes(mesh) -> dict:
-    """A "pod" axis outside the pair axis is refused; inside it, counted."""
+    """A "pod" axis outside the pair axis holds copies of the shards (the
+    reference replicates over it); inside it, it splits the pairs."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.distribution.block_cyclic import pair_shards
+    from repro_torch.distribution.block_cyclic import pair_shard, pair_shards
+    from repro_torch.launch.mesh import POD_AXES, make_mesh
 
     world = dist.get_world_size()
-    names = ("pod", "data", "model")
-    pod = init_device_mesh("cpu", (world, 1, 1), mesh_dim_names=names)
-    try:
-        pair_shards(pod, ("data",))
-        refused = None
-    except ValueError as e:
-        refused = str(e)
+    pod = make_mesh((world, 1, 1), POD_AXES, device_type="cpu")
+    copy = pair_shard(pod, ("data",))
     return dict(
-        pod_refused=refused,
+        pod_outside_row_axes=pair_shards(pod, ("data",)),
+        pod_copy_primary=copy.primary,
+        rank=dist.get_rank(),
         pod_in_row_axes=pair_shards(pod, ("pod", "data")),
         shape=tuple(mesh.mesh.shape),
         coordinate=tuple(mesh.get_coordinate()),
     )
+
+
+def case_pod(x) -> dict:
+    """The TLR loglik (block-cyclic), serving and the exact form on a
+    (2, 1, 2) ("pod", "data", "model") mesh, with row_axes ("data",) (the
+    pods hold copies) and ("pod", "data") (the pods split the pairs)."""
+    from repro_torch.core import dist_cholesky as dc
+    from repro_torch.core import dist_tlr as td
+    from repro_torch.distribution.block_cyclic import pair_shards
+    from repro_torch.launch.mesh import POD_AXES, make_mesh
+    from repro_torch.serving import cokrige_service as svc
+
+    mesh = make_mesh((2, 1, 2), POD_AXES, device_type="cpu")
+    out = {}
+    for tag, rows in (("data", ("data",)), ("pod_data", ("pod", "data"))):
+        res = td.dist_tlr_loglik(
+            None, x["z_small"], locs=x["small"], params=params(), from_tiles=True,
+            tile_size=SMALL["tile"], max_rank=48, nugget=NUGGET, tol=1e-7,
+            gen="plain", device="cpu", mesh=mesh, row_axes=rows,
+            **LOGLIK_FORMS["block_cyclic"],
+        )
+        out[f"loglik_{tag}"] = dict(
+            loglik=res.loglik, logdet=res.logdet, quad=res.quad,
+            status=_status(res.status), shards=pair_shards(mesh, rows),
+        )
+        cfg = svc.CokrigeServeConfig(**SERVE, row_axes=rows)
+        factor = svc.fit_factor(
+            x["accept"], x["z_accept"], params(), cfg, mesh, device="cpu"
+        )
+        pred = svc.predict_batch(factor, x["pred"], cfg, mesh)
+        out[f"serve_{tag}"] = dict(
+            status=_status(factor.status), alpha=factor.alpha,
+            **{f: getattr(pred, f) for f in ("mean", "variance", "lower", "upper")},
+        )
+    res = dc.dist_exact_loglik(
+        x["dists"], x["z_accept"], params(), nugget=NUGGET, panel=EXACT_PANEL,
+        mesh=mesh, device="cpu",
+    )
+    out["exact"] = dict(loglik=res.loglik, logdet=res.logdet, quad=res.quad)
+    return out
 
 
 def case_permuted(x, carried) -> dict:
@@ -395,6 +433,7 @@ def run_all(mesh, carried) -> dict:
     out["faults"] = case_faults(mesh, x)
     if mesh is not None and tuple(mesh.mesh.shape) == (2, 2):
         out["permuted"] = case_permuted(x, carried)
+        out["pod"] = case_pod(x)
     return out
 
 
