@@ -358,19 +358,50 @@ Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
             in the timed prefill, all ``wgmma_bf16``.  Per rank it prints
             the peak memory, the prefill and step seconds and the time in
             every collective of ``launch.mesh`` (``time_collectives``),
-            beside the single-device numbers.  On one card it tests
-            placement and collectives, not scaling.
+            beside the single-device numbers.  Before the train steps each
+            rank also runs a cached prefill of 512 tokens and 16 decode
+            steps (``init_caches(..., mesh=)``: the rank's row, the KV head
+            its query heads read), each step's logits within 5e-2
+            (LM_DECODE_GAP) of the single device's, with the seconds a step
+            and a rank's cache bytes beside one device's.  On one card it
+            tests placement and collectives, not scaling.
+18. dryrun  ``repro_torch.launch.dryrun``: three calibration cells (the
+            exact loglik at n = 16384, the TLR pipeline at n = 4096, qwen3-4b's
+            prefill of (2, 4096) at full width and depth in bf16 through the
+            flash kernel) run for real on one rank, alone; then worker
+            processes trace them on fake CUDA tensors: the trace's FLOPs
+            must equal the real run's (``FlopCounterMode``) and its peak be
+            within 25% of ``torch.cuda.max_memory_allocated``; the roofline
+            time is printed beside the measured one.  The workers also
+            trace production cells on rank 0 of a fake 256-rank mesh
+            (qwen3-4b's three shapes, mixtral's prefill_32k, mamba2's
+            long_500k, geostat-tlr's mle_65k with its phases) and of a fake
+            512-rank one (geostat-exact's pred_131k), each record's fields
+            present, and start the next phase's CPU reference.  No worker
+            runs beside an earlier phase or a timed real run.
+19. lowerables  the registry (``repro_torch.lowerables``): its eight cells
+            at a bivariate n = 4096 (m = 8192, nb 256, kmax 128), float32,
+            on a one-rank NCCL mesh, chained as serving chains them
+            (compress into factorize, fit into predict), each against the
+            same cell on the CPU (the worker processes, a chain of cells
+            each): logliks and the GEN / compress outputs within 1e-4,
+            predictions within 1e-3; each cell must launch the
+            ``halfint`` / ``fma_f32`` instances of the kernels it runs.  Then
+            ``dist_cholesky_lowerable`` at m = 16384 must write L into
+            Sigma's storage and peak below 1.25x Sigma's bytes.
 
 Before each path runs, every kernel's launch count is set to 0, and read
-after it: the kernels of a path must have launched during it.  Then a
-``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
+after it: the kernels of a path must have launched during it.  After the
+phases a ``phase_s`` JSON line (each phase's seconds and the run's), then
+a ``kernels`` JSON line (the per-kernel summary; ``launches`` sums the main,
 serve, exact (panel 512), exact4096, exact_f32, grad, mle, recover (the
 resumed fit and the fault checks; the killed child's launches are another
 process's), assess, dist (its five evaluations), examples (the card's runs),
 mesh (every rank's evaluations, both backends), lm and lm_<arch> runs,
 where each lm run is the timed prefill forward
 and the engine's ``generate``, the train run (its full-width steps) and
-lm_mesh (every rank's timed sharded prefill);
+lm_mesh (every rank's timed sharded prefill), dryrun (the calibration's
+real runs) and lowerables (the eight cells on the card);
 ``launches_by_path`` splits them and
 ``launches_by_instance_by_path`` splits each path's by instance), the
 nvidia-smi line, and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -388,6 +419,7 @@ during it: every order of their GEN runs in matern_tile or matern_corr.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -715,6 +747,48 @@ LM_MESH_BATCH, LM_MESH_STEPS = (2, 4096), 3
 LM_MESH_MOE, LM_MESH_MOE_LAYERS, LM_MESH_MOE_SEED = "mixtral-8x7b", 2, 32
 LM_MESH_SAMPLE, LM_MESH_TIMEOUT_S = 64, 600.0
 LM_MESH_OFF_SHARE = (0.75, 0.2)
+
+# Worker processes of the CPU work of the dryrun and lowerables phases (the
+# fake traces, the CPU reference of the registry's cells), started once the
+# card's timed runs are done (phase_dryrun), each of the CPU reference's
+# chains with LOWERABLES_CPU_THREADS threads.
+LAUNCH_WORKERS, LOWERABLES_CPU_THREADS = 8, 2
+# The lowerables phase: the registry's eight cells at a bivariate n of
+# LOWERABLES_N (m = 8192, the registry's tiles nb 256 and kmax 128),
+# float32, on a one-rank mesh, on locations of spacing LOWERABLES_SPACING
+# (at the registry's range 0.09 the float32 factorization holds), each
+# against the same body on the CPU: logliks and the compress / gen
+# outputs at LOWERABLES_LOGLIK_TOL relative, predictions (cokriging, the
+# serving fit's alpha and predict's mean and variance) at
+# LOWERABLES_PRED_TOL; then dist_cholesky_lowerable at CHOLESKY_M must
+# peak below CHOLESKY_PEAK_SHARE of Sigma's bytes (the factor in Sigma's
+# storage).
+LOWERABLES_N, LOWERABLES_SPACING = 4096, 0.1
+LOWERABLES_LOGLIK_TOL, LOWERABLES_PRED_TOL = 1e-4, 1e-3
+CHOLESKY_M, CHOLESKY_PEAK_SHARE = 16384, 1.25
+# The dryrun phase: the calibration cells (dist_loglik_lowerable at a
+# bivariate n of DRYRUN_CALIB_EXACT_N, the TLR pipeline at
+# DRYRUN_CALIB_TLR_N, qwen3-4b's prefill of DRYRUN_CALIB_PREFILL at full
+# width and depth in bf16), whose fake trace must count the real run's
+# FLOPs and peak within DRYRUN_PEAK_TOL of torch.cuda.max_memory_allocated,
+# and the production cells traced on the fake meshes.
+DRYRUN_CALIBRATION = ("exact_loglik", "tlr_pipeline", "qwen3-4b_prefill")
+DRYRUN_CALIB_EXACT_N, DRYRUN_CALIB_TLR_N = 16384, 4096
+DRYRUN_CALIB_PREFILL = (2, 4096)
+DRYRUN_PEAK_TOL = 0.25
+DRYRUN_CELLS = (
+    ("qwen3-4b", "train_4k", "pod"),
+    ("qwen3-4b", "prefill_32k", "pod"),
+    ("qwen3-4b", "decode_32k", "pod"),
+    ("mixtral-8x7b", "prefill_32k", "pod"),
+    ("mamba2-780m", "long_500k", "pod"),
+    ("geostat-tlr", "mle_65k", "pod"),
+    ("geostat-exact", "pred_131k", "multipod"),
+)
+# The lm_mesh phase's cached calls: a prefill of LM_DECODE_PREFILL tokens of
+# each row, then LM_DECODE_STEPS decode steps (the next tokens, teacher
+# forced), each step's logits within LM_DECODE_GAP of the single device's.
+LM_DECODE_PREFILL, LM_DECODE_STEPS, LM_DECODE_GAP = 512, 16, 5e-2
 
 # Clock cycles of the sleep that cuda_ms queues its runs behind.
 QUEUE_SLEEP_CYCLES = 5_000_000
@@ -4518,14 +4592,14 @@ def train_reduced_archs(torch) -> dict:
     weights, and remat=True against remat=False on the card."""
     import copy
 
-    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.configs import LM_ARCH_NAMES, get_arch
     from repro_torch.models import init_model
     from repro_torch.training.train_step import TrainConfig, grads_fn
 
     dev = torch.device("cuda")
     remat, plain = TrainConfig(remat=True), TrainConfig(remat=False)
     archs = {}
-    for i, name in enumerate(ARCHS):
+    for i, name in enumerate(LM_ARCH_NAMES):
         cfg = get_arch(name).reduced()
         gen = torch.Generator().manual_seed(TRAIN_SEED + i)
         cpu_model = init_model(cfg, generator=gen, device="cpu")
@@ -4726,6 +4800,41 @@ def lm_mesh_batches(cfg) -> list:
     return [data.batch(i) for i in range(LM_MESH_STEPS)]
 
 
+def lm_decode(torch, model, cfg, tokens, batch: int, mesh=None) -> dict:
+    """A cached prefill of LM_DECODE_PREFILL tokens of ``tokens`` (this
+    rank's rows of a ``batch``), then LM_DECODE_STEPS decode steps fed the
+    next tokens: the whole vocabulary's logits at the prefill's last
+    position and each step, (rows, 1 + steps, V) f32 on the host, the
+    seconds a step and the caches' bytes (this rank's on a mesh)."""
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models.settings import fsdp_gather
+
+    dev = tokens.device
+    total = LM_DECODE_PREFILL + LM_DECODE_STEPS
+    with torch.inference_mode(), fsdp_gather(mesh):
+        caches = init_caches(cfg, batch, total, device=dev, mesh=mesh)
+        pre = torch.arange(LM_DECODE_PREFILL, dtype=torch.int32, device=dev)[None]
+        out = forward(model, cfg, tokens[:, :LM_DECODE_PREFILL], positions=pre,
+                      caches=caches)
+        logits, caches = [out.logits[:, -1]], out.caches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(LM_DECODE_PREFILL, total):
+            step, caches = decode_step(model, cfg, caches, tokens=tokens[:, pos], pos=pos)
+            logits.append(step)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / LM_DECODE_STEPS
+        if mesh is not None:
+            logits = [sh.gather_logits(x, cfg, mesh) for x in logits]
+        logits = torch.stack(logits, 1).float().cpu().numpy()
+    cache_bytes = sum(
+        t.numel() * t.element_size()
+        for c in caches for t in (c.values() if isinstance(c, dict) else c)
+    )
+    return dict(logits=logits, step_s=step_s, cache_bytes=cache_bytes)
+
+
 def lm_mesh_single(torch, ref_path: str) -> dict:
     """The lm_mesh phase's single-device references on the card: qwen3-4b's
     prefill (last-token logits, ms) and train steps (losses, seconds, peak;
@@ -4760,6 +4869,9 @@ def lm_mesh_single(torch, ref_path: str) -> dict:
         out["last_logits"] = logits[:, -1].float().cpu().numpy()
         out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
         del logits
+    dec = lm_decode(torch, model, cfg, toks, LM_MESH_BATCH[0])
+    out.update(decode_logits=dec["logits"], decode_step_s=dec["step_s"],
+               decode_cache_bytes=dec["cache_bytes"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     opt = adamw_init(model)
@@ -4884,6 +4996,17 @@ def _lm_mesh_rank(mesh, payload: dict, clock: dict) -> dict:
     out["prefill_finite"] = bool(torch.isfinite(last).all())
     out["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
     del logits, last
+    torch.cuda.empty_cache()
+
+    # the cached prefill and decode steps
+    collectives_s()
+    dec = lm_decode(torch, model, cfg, local, LM_MESH_BATCH[0], mesh)
+    want = payload["decode_logits"][rows]
+    out["decode_rel_gap"] = float(np.abs(dec["logits"] - want).max() / np.abs(want).max())
+    out["decode_finite"] = bool(np.isfinite(dec["logits"]).all())
+    out["decode_step_s"] = dec["step_s"]
+    out["decode_cache_bytes"] = dec["cache_bytes"]
+    out["decode_collectives_s"] = collectives_s()
     torch.cuda.empty_cache()
 
     # the train steps
@@ -5019,7 +5142,7 @@ def phase_lm_mesh(torch, st, plant: bool = False):
         single_s = time.perf_counter() - t0
         keys = (
             "last_logits", "losses", "grad_norms", "moe_sampled", "moe_routing",
-            "param_moved", "param_magnitude",
+            "param_moved", "param_magnitude", "decode_logits",
         )
         payload = {k: single[k] for k in keys}
         payload.update(ref_path=ref_path, plant=plant)
@@ -5053,6 +5176,9 @@ def phase_lm_mesh(torch, st, plant: bool = False):
             math.isfinite(x) for x in r["losses"]
         ) and max(r["loss_rel_gaps"] + r["grad_norm_rel_gaps"]) <= LM_BF16_GAP
         checks[f"{tag}:moe_gap"] = r["moe_finite"] and r["moe_rel_gap"] <= LM_BF16_GAP
+        checks[f"{tag}:decode_gap"] = (
+            r["decode_finite"] and r["decode_rel_gap"] <= LM_DECODE_GAP
+        )
         checks[f"{tag}:moe_flips"] = (
             max(r["moe_flip_share_by_layer"]) <= LM_ROUTING_FLIP_SHARE
             and len(r["moe_flip_share_by_layer"]) == n_moe
@@ -5094,7 +5220,17 @@ def phase_lm_mesh(torch, st, plant: bool = False):
         "ranks": ranks,
         "launches": launches,
         "launches_by_instance": instances,
+        "decode": {
+            "prefill": LM_DECODE_PREFILL,
+            "steps": LM_DECODE_STEPS,
+            "single_device_step_s": single["decode_step_s"],
+            "single_device_cache_bytes": single["decode_cache_bytes"],
+            "rank_step_s": [r["decode_step_s"] for r in ranks],
+            "rank_cache_bytes": [r["decode_cache_bytes"] for r in ranks],
+            "rank_rel_gap": [r["decode_rel_gap"] for r in ranks],
+        },
         "gates": {
+            "decode_logits": LM_DECODE_GAP,
             "logits_losses_grad_norms": LM_BF16_GAP,
             "flip_share": LM_ROUTING_FLIP_SHARE,
             "param_off_share_1e-2_1e-1": LM_MESH_OFF_SHARE,
@@ -5108,6 +5244,410 @@ def phase_lm_mesh(torch, st, plant: bool = False):
     if failed:
         raise AssertionError(f"lm_mesh failed its checks: {failed}")
 
+
+# ---------------------------------------------------------------------------
+# The launch tooling: the lowerables registry and the dry-run
+# ---------------------------------------------------------------------------
+
+
+def lowerables_inputs(nx: int, ny: int):
+    """(locations, z, prediction locations) of the lowerables phase: an
+    nx x ny jittered grid of spacing LOWERABLES_SPACING, Morton-ordered,
+    float32."""
+    from repro_torch.core.covariance import morton_order
+    from repro_torch.core.simulate import grid_locations
+
+    locs = grid_locations(nx, ny, jitter=0.3, seed=7)
+    locs = locs * np.array([nx, ny]) * LOWERABLES_SPACING
+    locs = locs[morton_order(locs)].astype(np.float32)
+    rng = np.random.default_rng(7)
+    z = rng.standard_normal(2 * nx * ny).astype(np.float32)
+    pred = rng.uniform(0.0, 1.0, size=(512, 2)) * np.array([nx, ny]) * LOWERABLES_SPACING
+    return locs, z, pred.astype(np.float32)
+
+
+def lowerables_cells(torch, mesh, dev, data, counts=None, only=None) -> dict:
+    """The eight registered cells at ``data``'s n on ``mesh`` (or the cells
+    ``only`` names: a group of LOWERABLES_CPU_GROUPS), chained as the
+    serving path chains them (compress into factorize, fit into predict):
+    each cell's outputs as numpy, and, given ``counts``, each cell's
+    launches by kernel instance."""
+    from repro_torch.configs.base import GeoStatShape
+    from repro_torch.kernels import ops
+    from repro_torch.lowerables import build, names
+
+    shape = GeoStatShape("lowerables", len(data[0]), 2, "mle")
+    locs, z, pred = (torch.as_tensor(x, device=dev) for x in data)
+    cells = {}
+    for name in names():
+        cells.update(build(name, shape, mesh))
+    out = {}
+
+    def run(cell, *args):
+        ops.reset_launch_counts()
+        res = cells[cell].fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if counts is not None:
+            counts[cell] = ops.instance_counts()
+        return res
+
+    def host(x):  # a copy: the factorize cell then overwrites the tiles
+        return x.detach().to("cpu", torch.float32, copy=True).numpy()
+
+    want = set(cells if only is None else only)
+    if "dist_tlr_pipeline_lowerable" in want:
+        res = run("dist_tlr_pipeline_lowerable", locs, z)
+        out["dist_tlr_pipeline_lowerable"] = host(res.loglik)
+    if "dist_tlr_gen_lowerable" in want:
+        out["dist_tlr_gen_lowerable"] = host(run("dist_tlr_gen_lowerable", locs))
+    if "dist_tlr_compress_lowerable" in want:
+        tiles = run("dist_tlr_compress_lowerable", locs)
+        out["dist_tlr_compress_lowerable"] = host(tiles[0])
+        res, _ = run("dist_tlr_lowerable", *tiles, z)  # the factor in the tiles
+        out["dist_tlr_lowerable"] = host(res.loglik)
+    if "dist_loglik_lowerable" in want:
+        res = run("dist_loglik_lowerable", locs, z)
+        out["dist_loglik_lowerable"] = host(res.loglik)
+    if "dist_cokrige_lowerable" in want:
+        npred = cells["dist_cokrige_lowerable"].specs[1].shape[0]
+        out["dist_cokrige_lowerable"] = host(
+            run("dist_cokrige_lowerable", locs, pred[:npred], z)
+        )
+    if "serve_fit" in want:
+        factor = run("serve_fit", locs, z)
+        out["serve_fit"] = host(factor[4])
+        mean, var, _, _ = run("serve_predict", *factor, locs, pred)
+        out["serve_predict"] = np.stack([host(mean), host(var)])
+    return out
+
+
+# The CPU reference's cells in groups, one worker process a group (each
+# group one chain).
+LOWERABLES_CPU_GROUPS = (
+    ("dist_tlr_pipeline_lowerable",),
+    ("dist_tlr_compress_lowerable", "dist_tlr_lowerable"),
+    ("serve_fit", "serve_predict"),
+    ("dist_tlr_gen_lowerable", "dist_loglik_lowerable", "dist_cokrige_lowerable"),
+)
+
+
+def lowerables_cpu_group(group: tuple, data, threads: int) -> dict:
+    """A worker process of the lowerables phase: ``group``'s cells on the
+    CPU (the plain versions) on a one-rank gloo mesh."""
+    import torch
+
+    from repro_torch.launch.dryrun import _real_world
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(threads)
+    with _real_world(1, "cpu"):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        return lowerables_cells(torch, mesh, torch.device("cpu"), data, only=group)
+
+
+def worker_pool(n: int):
+    """A pool of ``n`` worker processes, started with spawn (this process
+    holds CUDA and threads)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        n, mp_context=multiprocessing.get_context("spawn")
+    )
+
+
+# (cell, its outputs' limit, the kernels it must launch)
+LOWERABLES_GATES = {
+    "dist_tlr_pipeline_lowerable": ("loglik", ("matern_tile", "potrf", "trsm", "tlr_mm")),
+    "dist_tlr_gen_lowerable": ("loglik", ("matern_tile",)),
+    "dist_tlr_compress_lowerable": ("loglik", ("matern_tile",)),
+    "dist_tlr_lowerable": ("loglik", ("potrf", "trsm", "tlr_mm")),
+    "dist_loglik_lowerable": ("loglik", ("matern_corr", "potrf", "trsm", "syrk")),
+    "dist_cokrige_lowerable": ("pred", ("matern_corr", "potrf", "trsm", "syrk")),
+    "serve_fit": ("pred", ("matern_tile", "potrf", "trsm", "tlr_mm")),
+    "serve_predict": ("pred", ("matern_tile", "trsm")),
+}
+# the instance of each kernel the float32 cells run
+LOWERABLES_INSTANCES = {
+    "matern_tile": "halfint", "matern_corr": "halfint", "potrf": "fma_f32",
+    "trsm": "fma_f32", "syrk": "fma_f32", "tlr_mm": "fma_f32",
+}
+
+
+def cholesky_in_place(torch) -> dict:
+    """``dist_cholesky_lowerable`` at CHOLESKY_M, float32, on a one-rank
+    mesh: its peak allocation against Sigma's bytes (the factor written
+    into Sigma's storage) and its factor against ``torch.linalg.cholesky``
+    in float64."""
+    from repro_torch.core.covariance import MaternParams, build_sigma
+    from repro_torch.core.dist_cholesky import dist_cholesky_lowerable
+    from repro_torch.launch.dryrun import _real_world
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    locs, _, _ = lowerables_inputs(CHOLESKY_M // 128, 64)
+    params = MaternParams.bivariate(a=0.09, nu11=0.5, nu22=2.5, beta=0.5,
+                                    dtype=torch.float32, device=dev)
+    sigma = build_sigma(torch.as_tensor(locs, device=dev), params, nugget=1e-6)
+    want = torch.linalg.cholesky(sigma.double())
+    want_max = float(want.abs().max())
+    want = want.cpu()
+    torch.cuda.empty_cache()
+    panel = max(512, CHOLESKY_M // 64)
+    with _real_world(1, "cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        fn, specs = dist_cholesky_lowerable(CHOLESKY_M, panel=panel, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(sigma)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    sigma_bytes = sigma.numel() * sigma.element_size()
+    gap = float((out.double().cpu() - want).abs().max()) / want_max
+    rec = dict(
+        m=CHOLESKY_M, panel=panel, s=secs, peak_bytes=peak, sigma_bytes=sigma_bytes,
+        peak_share=peak / sigma_bytes, in_place=out.data_ptr() == sigma.data_ptr(),
+        factor_rel_gap_vs_f64=gap, syrk="addmm_ on the rows' strided views",
+    )
+    del sigma, out, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def start_lowerables_cpu(pool):
+    """The lowerables phase's inputs and its CPU reference, one chain of
+    cells a worker of ``pool``: (data, futures)."""
+    data = lowerables_inputs(64, LOWERABLES_N // 64)
+    return data, [
+        pool.submit(lowerables_cpu_group, g, data, LOWERABLES_CPU_THREADS)
+        for g in LOWERABLES_CPU_GROUPS
+    ]
+
+
+def phase_lowerables(torch, st):
+    """The registry's eight cells on the card (one-rank NCCL mesh) against
+    the same bodies on the CPU (worker processes, a chain of cells each,
+    started by the dryrun phase once its timed runs were done, so they may
+    still run beside these cells: ``card_s`` is no measurement), their
+    launches per kernel instance, and the in-place Cholesky's peak."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import _real_world
+    from repro_torch.launch.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    pool = None
+    if "lowerables_cpu" in st:
+        data, cpu = st.pop("lowerables_cpu")
+    else:  # the phase alone (scripts/launch_tooling.py)
+        pool = worker_pool(len(LOWERABLES_CPU_GROUPS))
+        data, cpu = start_lowerables_cpu(pool)
+    with pool or contextlib.nullcontext():
+        counts = {}
+        dev = torch.device("cuda", torch.cuda.current_device())
+        with _real_world(1, "cuda"):
+            mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+            t0 = time.perf_counter()
+            got = lowerables_cells(torch, mesh, dev, data, counts)
+            card_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        chol = cholesky_in_place(torch)
+        t0 = time.perf_counter()
+        want = {}
+        for f in cpu:
+            want.update(f.result())
+        wait_s = time.perf_counter() - t0
+    checks, gaps, launches, by_inst = {}, {}, {}, {}
+    for cell, (kind, kernels) in LOWERABLES_GATES.items():
+        g, w = np.asarray(got[cell], np.float64), np.asarray(want[cell], np.float64)
+        gaps[cell] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-300))
+        limit = LOWERABLES_LOGLIK_TOL if kind == "loglik" else LOWERABLES_PRED_TOL
+        checks[f"{cell}:gap"] = bool(np.isfinite(g).all()) and gaps[cell] <= limit
+        for k in kernels:
+            inst = LOWERABLES_INSTANCES[k]
+            checks[f"{cell}:{k}:{inst}"] = counts[cell][k][inst] > 0
+        for k, per in counts[cell].items():
+            for inst, c in per.items():
+                by_inst.setdefault(k, {}).setdefault(inst, 0)
+                by_inst[k][inst] += c
+    launches = {k: sum(v.values()) for k, v in by_inst.items()}
+    checks["cholesky:in_place"] = chol["in_place"]
+    checks["cholesky:peak"] = chol["peak_share"] < CHOLESKY_PEAK_SHARE
+    checks["cholesky:factor"] = chol["factor_rel_gap_vs_f64"] <= LOWERABLES_PRED_TOL
+    st.setdefault("launches", {})["lowerables"] = launches
+    st.setdefault("instances", {})["lowerables"] = by_inst
+    failed = [k for k, v in checks.items() if not v]
+    rec = {
+        "phase": "lowerables", "ok": not failed, "failed": failed,
+        "n": LOWERABLES_N, "m": 2 * LOWERABLES_N, "dtype": "float32",
+        "mesh": "one rank (NCCL)",
+        "cpu_reference": "the same cells on the CPU: one-rank gloo meshes in "
+        "worker processes, a chain of cells each",
+        "cpu_threads": LOWERABLES_CPU_THREADS,
+        "gaps": gaps,
+        "gates": {"loglik": LOWERABLES_LOGLIK_TOL, "pred": LOWERABLES_PRED_TOL,
+                  "cholesky_peak_share": CHOLESKY_PEAK_SHARE},
+        "launches_by_cell": counts, "launches": launches, "cholesky": chol,
+        "card_s": card_s, "cpu_wait_s": wait_s, "checks": checks,
+        "s": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    print(f"chip_smoke: lowerables {rec['s']:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"lowerables failed its checks: {failed}")
+
+
+DRYRUN_FIELDS = ("peak_bytes", "fits", "hlo_flops_per_chip", "hlo_bytes_per_chip",
+                 "collective_breakdown", "compute_s", "memory_s", "collective_s",
+                 "dominant", "model_flops_global", "trace_s", "param_bytes",
+                 "opt_bytes", "other_bytes", "status")
+
+
+def _calibration_cell(name: str):
+    """(kind, args) of a calibration cell: a registered lowerable at a
+    GeoStatShape, or qwen3-4b's prefill."""
+    from repro_torch.configs.base import GeoStatShape, ShapeConfig
+
+    if name == "qwen3-4b_prefill":
+        b, s = DRYRUN_CALIB_PREFILL
+        return "prefill", ShapeConfig("calib", s, b, "prefill")
+    lname, n = {
+        "exact_loglik": ("dist_loglik_lowerable", DRYRUN_CALIB_EXACT_N),
+        "tlr_pipeline": ("dist_tlr_pipeline_lowerable", DRYRUN_CALIB_TLR_N),
+    }[name]
+    return lname, GeoStatShape("calib", n, 2, "mle")
+
+
+def dryrun_trace(job: tuple) -> dict:
+    """A worker process of the dryrun phase: one trace on fake CUDA tensors,
+    a production cell (``("cell", arch, shape, mesh)``) or a calibration
+    cell (``("calib", name)``), as a dict of numbers."""
+    from repro_torch.launch import dryrun as dr
+
+    if job[0] == "cell":
+        _, arch, shape, mesh = job
+        rec = dr.run_cell(arch, shape, mesh, out_dir=None)
+        out = {k: rec[k] for k in DRYRUN_FIELDS}
+        if "tlr_phases" in rec:
+            out["tlr_phases"] = {
+                k: {f: v for f, v in ph.items() if f in (
+                    "flops", "bytes", "coll", "temp_bytes", "fits", "trace_s",
+                    "predictions_per_sec")}
+                for k, ph in rec["tlr_phases"].items()
+                if isinstance(ph, dict) and "temp_bytes" in ph
+            }
+        return out
+    kind, shape = _calibration_cell(job[1])
+    if kind == "prefill":
+        rec = dr.run_cell("qwen3-4b", "calib", "pod", world=(1, 1), shape=shape,
+                          out_dir=None, attn_impl="kernel", device="cuda")
+        return dict(flops=rec["hlo_flops_per_chip"], peak=rec["peak_bytes"],
+                    roofline_s=max(rec["compute_s"], rec["memory_s"],
+                                   rec["collective_s"]),
+                    binds=rec["dominant"], trace_s=rec["trace_s"])
+    res = dr.run_lowerable(kind, shape, device="cuda")
+    return dict(flops=res["flops"], peak=res["peak_bytes"], roofline_s=res["roofline_s"],
+                binds=res["dominant"], trace_s=res["trace_s"])
+
+
+def dryrun_real(torch, name: str) -> dict:
+    """A calibration cell run for real on one rank of the card: its FLOPs
+    (``FlopCounterMode``), ``torch.cuda.max_memory_allocated``, seconds and
+    launches by kernel instance."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    kind, shape = _calibration_cell(name)
+    if kind == "prefill":
+        rec = dr.run_cell("qwen3-4b", "calib", "pod", world=(1, 1), shape=shape,
+                          out_dir=None, attn_impl="kernel", device="cuda", fake=False)
+        out = dict(flops=rec["hlo_flops_per_chip"], peak=rec["device_peak_bytes"],
+                   measured_s=rec["step_s"])
+    else:
+        res = dr.run_lowerable(kind, shape, device="cuda", fake=False)
+        out = dict(flops=res["flops"], peak=res["device_peak_bytes"],
+                   measured_s=res["step_s"])
+    out["launches"] = ops.instance_counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_jobs() -> list:
+    """The dryrun phase's traces: the calibration cells, then the
+    production cells."""
+    jobs = [("calib", n) for n in DRYRUN_CALIBRATION]
+    return jobs + [("cell", *c) for c in DRYRUN_CELLS]
+
+
+def phase_dryrun(torch, st, lowerables_next: bool = False):
+    """The dry-run (``repro_torch.launch.dryrun``): the calibration cells
+    run for real on one rank of the card, alone; then, in LAUNCH_WORKERS
+    worker processes (``st["pool"]``), their traces and the production
+    cells', on fake tensors (rank 0 of a fake 256-rank "pod" or 512-rank
+    "multipod" mesh), and, with ``lowerables_next``, beside them the
+    lowerables phase's CPU reference (``st["lowerables_cpu"]``)."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    jobs = dryrun_jobs()
+    real = {name: dryrun_real(torch, name) for name in DRYRUN_CALIBRATION}
+    real_s = time.perf_counter() - t_phase
+    workers = LAUNCH_WORKERS
+    pool = st["pool"] = worker_pool(workers)
+    if lowerables_next:
+        st["lowerables_cpu"] = start_lowerables_cpu(pool)
+    traced = {job: pool.submit(dryrun_trace, job) for job in jobs}
+    traced = {job: f.result() for job, f in traced.items()}
+    calib, checks = {}, {}
+    for name in DRYRUN_CALIBRATION:
+        fake, run = traced[("calib", name)], real[name]
+        rec = dict(
+            flops=(fake["flops"], run["flops"]), peak=(fake["peak"], run["peak"]),
+            roofline_s=fake["roofline_s"], measured_s=run["measured_s"],
+            binds=fake["binds"], trace_s=fake["trace_s"],
+        )
+        rec["flops_equal"] = rec["flops"][0] == rec["flops"][1] > 0
+        rec["peak_rel_gap"] = abs(fake["peak"] - run["peak"]) / run["peak"]
+        calib[name] = rec
+        checks[f"{name}:flops"] = rec["flops_equal"]
+        checks[f"{name}:peak"] = rec["peak_rel_gap"] <= DRYRUN_PEAK_TOL
+    by_inst = {}
+    for run in real.values():
+        for k, per in run["launches"].items():
+            for inst, c in per.items():
+                by_inst.setdefault(k, {}).setdefault(inst, 0)
+                by_inst[k][inst] += c
+    launches = {k: sum(v.values()) for k, v in by_inst.items()}
+    st.setdefault("launches", {})["dryrun"] = launches
+    st.setdefault("instances", {})["dryrun"] = by_inst
+    cells = {}
+    for job in jobs[len(DRYRUN_CALIBRATION):]:
+        key = "__".join(job[1:])
+        cells[key] = rec = traced[job]
+        checks[f"{key}:traced"] = rec["status"] == "ok" and all(
+            f in rec for f in DRYRUN_FIELDS)
+        if job[1] == "geostat-tlr":
+            checks[f"{key}:phases"] = {
+                "serve_fit", "serve_predict", "factorize_bc", "gen_compress_sharded"
+            } <= set(rec.get("tlr_phases", {}))
+    ops.reset_launch_counts()
+    failed = [k for k, v in checks.items() if not v]
+    rec = {
+        "phase": "dryrun", "ok": not failed, "failed": failed,
+        "card": st["smi"], "constants": "H100 datasheet (launch.roofline.CARD)",
+        "workers": workers, "real_s": real_s, "calibration": calib,
+        "peak_tol": DRYRUN_PEAK_TOL,
+        "cells": cells, "launches": launches, "checks": checks,
+        "s": time.perf_counter() - t_phase,
+    }
+    emit(rec)
+    print(f"chip_smoke: dryrun {rec['s']:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"dryrun failed its checks: {failed}")
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5152,15 +5692,26 @@ def main() -> int:
         ("lm_families", lambda: phase_lm_families(torch, st)),
         ("train", lambda: phase_train(torch, st)),
         ("lm_mesh", lambda: phase_lm_mesh(torch, st)),
+        ("dryrun", lambda: phase_dryrun(torch, st, lowerables_next=True)),
+        ("lowerables", lambda: phase_lowerables(torch, st)),
     )
-    for name, fn in phases:
-        st["phase"] = name
-        try:
-            fn()
-        except Exception as exc:  # report every phase, then fail the run
-            traceback.print_exc()
-            emit({"phase": name, "ok": False, "error": repr(exc)})
-            failed.append(name)
+    phase_s = {}
+    t_run = time.perf_counter()
+    try:
+        for name, fn in phases:
+            st["phase"] = name
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception as exc:  # report every phase, then fail the run
+                traceback.print_exc()
+                emit({"phase": name, "ok": False, "error": repr(exc)})
+                failed.append(name)
+            phase_s[name] = time.perf_counter() - t0
+    finally:
+        if "pool" in st:
+            st["pool"].shutdown(cancel_futures=True)
+    emit({"phase_s": phase_s, "run_s": time.perf_counter() - t_run})
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1

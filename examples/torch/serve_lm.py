@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs import LM_ARCH_NAMES, get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
 from repro_torch.serving.engine import make_serve_fns
@@ -45,7 +45,7 @@ def _sync(dev) -> None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="mixtral-8x7b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="mixtral-8x7b", choices=sorted(LM_ARCH_NAMES))
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -20,7 +20,7 @@ import tempfile
 
 import torch
 
-from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs import LM_ARCH_NAMES, get_arch
 from repro_torch.dataio.tokens import SyntheticTokens
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
@@ -31,7 +31,7 @@ from repro_torch.training.trainer import Trainer, TrainerConfig
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen3-4b", choices=sorted(LM_ARCH_NAMES))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument(
         "--full",

@@ -1,10 +1,19 @@
-"""Config registry of the LM port: ``get_arch(name)``.
+"""Config registry: ``get_arch(name)``, ``get_shape(arch, name)`` and
+``iter_cells()``.
 
-The reference registry's ten LM architectures.  The geostatistics
-configurations are not part of it (ROADMAP Queue 1 item 8).
+The reference registry's ten LM architectures and its two geostatistics
+configurations, with the same cells.
 """
 
-from .base import LM_SHAPES, ArchConfig, ShapeConfig
+from .base import (
+    GEOSTAT_SHAPES,
+    LM_SHAPES,
+    ArchConfig,
+    GeoStatConfig,
+    GeoStatShape,
+    ShapeConfig,
+)
+from .geostat import GEOSTAT_EXACT, GEOSTAT_TLR
 from .granite_34b import GRANITE_34B
 from .llama4_maverick import LLAMA4_MAVERICK
 from .mamba2_780m import MAMBA2_780M
@@ -29,11 +38,32 @@ ARCHS = {
         LLAMA4_MAVERICK,
         RECURRENTGEMMA_9B,
         PIXTRAL_12B,
+        GEOSTAT_EXACT,
+        GEOSTAT_TLR,
     ]
 }
 
+LM_ARCH_NAMES = [c for c in ARCHS if not c.startswith("geostat")]
 
-def get_arch(name: str) -> ArchConfig:
+
+def get_arch(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(arch, name: str):
+    """The shape ``name`` of ``arch`` (a config or its name)."""
+    if isinstance(arch, str):
+        arch = get_arch(arch)
+    if getattr(arch, "family", "") == "geostat":
+        return GEOSTAT_SHAPES[name]
+    return LM_SHAPES[name]
+
+
+def iter_cells():
+    """Every (arch, shape, supported) cell, geostatistics included."""
+    for arch in ARCHS.values():
+        shapes = GEOSTAT_SHAPES if arch.family == "geostat" else LM_SHAPES
+        for shape in shapes.values():
+            yield arch, shape, arch.supports_shape(shape)

@@ -1,8 +1,9 @@
 """Architecture and shape configuration (``--arch`` / ``--shape``).
 
-A copy of the LM half of ``repro.configs.base``: ``ShapeConfig``,
-``LM_SHAPES`` and ``ArchConfig`` with its ``reduced()`` CPU configuration.
-The geostatistics configurations are not part of the LM port.
+A copy of ``repro.configs.base``: ``ShapeConfig``, ``LM_SHAPES`` and
+``ArchConfig`` with its ``reduced()`` CPU configuration, and the paper's
+own workloads, ``GeoStatShape``, ``GeoStatConfig`` and ``GEOSTAT_SHAPES``
+(one registry and one dry-run path for both).
 """
 
 from __future__ import annotations
@@ -105,3 +106,55 @@ class ArchConfig:
             lru_width=64 if self.lru_width or "rglru" in self.layer_pattern else 0,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoStatShape:
+    name: str
+    n_locations: int  # observation locations (Morton-ordered)
+    p: int  # number of variables
+    kind: str  # mle | predict
+    n_pred: int = 0
+
+    @property
+    def matrix_dim(self) -> int:
+        return self.n_locations * self.p
+
+
+@dataclasses.dataclass(frozen=True)
+class GeoStatConfig:
+    """The paper's own workload as a first-class --arch."""
+
+    name: str
+    backend: str  # exact | tlr
+    source: str = "Salvana et al. 2020 (this paper)"
+    family: str = "geostat"
+    tile_size: int = 2048
+    max_rank: int = 128
+    tol: float = 1e-7
+    super_panels: int = 1  # >1: two-level TLR Cholesky
+    # Block-cyclic pair placement for the TLR factorization (the
+    # strict-lower pair batch instead of the masked T^2 grid).
+    block_cyclic: bool = False
+    dtype: str = "float32"  # the production path; CPU validation runs f64
+    shapes: tuple = ()
+
+    def supports_shape(self, shape) -> bool:
+        return True
+
+    def reduced(self) -> GeoStatConfig:
+        return dataclasses.replace(
+            self, name=self.name + "-reduced", tile_size=64, max_rank=16
+        )
+
+
+GEOSTAT_SHAPES = {
+    # One MLE iteration (the unit the paper benchmarks) at paper-scale n,
+    # rounded to powers of two so panels and tiles divide evenly on the mesh
+    # (paper n: 63,001 / 116,100 / 260,100-325k).
+    "mle_65k": GeoStatShape("mle_65k", 65536, 2, "mle"),
+    "mle_131k": GeoStatShape("mle_131k", 131072, 2, "mle"),
+    "mle_262k": GeoStatShape("mle_262k", 262144, 2, "mle"),
+    # Cokriging prediction (Tables 1-2): ~90/10 observation/prediction split.
+    "pred_131k": GeoStatShape("pred_131k", 131072, 2, "predict", n_pred=8192),
+}

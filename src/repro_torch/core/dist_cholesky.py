@@ -36,9 +36,15 @@ step, and return the whole solution on every rank.  ``dist_exact_loglik``
 builds only the rank's own block rows of Sigma, from the rectangular slice
 of ``dists``, with the nugget on the global diagonal only.
 
-Not ported: the dry-run lowerables ``dist_loglik_lowerable``,
-``dist_cokrige_lowerable`` and ``dist_cholesky_lowerable`` (ROADMAP Queue 1
-item 8, the tooling analogues).
+The dry-run lowerables (``launch.dryrun``, ``lowerables``) are
+``dist_loglik_lowerable`` (GEN -> Cholesky -> solve from locations),
+``dist_cokrige_lowerable`` (GEN -> Cholesky -> both solves -> c0^T beta)
+and ``dist_cholesky_lowerable`` (Sigma -> L written into Sigma's own
+storage: the reference's donation, an in-place update here).  Each returns
+``(fn, specs)``, ``specs`` the inputs' global (shape, dtype) stand-ins
+(``Spec``); on a mesh ``fn`` takes each input at its placement
+(``lowerables``: replicated, or the rank's block rows for
+``dist_cholesky_lowerable``) and every rank calls it.
 """
 
 from __future__ import annotations
@@ -52,7 +58,14 @@ from ..device import as_tensor
 from ..distribution.block_cyclic import PairShard, pair_shard
 from ..kernels import ops
 from ..launch.mesh import broadcast_
-from .covariance import MaternParams, _pair_correlations, build_sigma
+from ..lowerables import Spec
+from .covariance import (
+    MaternParams,
+    _pair_correlations,
+    build_c0,
+    build_sigma,
+    pairwise_distances,
+)
 from .likelihood import LoglikResult
 from .tlr import _lap
 
@@ -282,12 +295,21 @@ def forward_substitution(lfac, z, panel: int, *, device=None) -> torch.Tensor:
 
 
 def _sigma_rows(
-    dists, params: MaternParams, representation: str, nugget, r0: int, r1: int, c1: int
+    dists,
+    params: MaternParams,
+    representation: str,
+    nugget,
+    r0: int,
+    r1: int,
+    c1: int,
+    *,
+    locs=None,
 ) -> torch.Tensor:
     """Rows [r0, r1), columns [0, c1) of ``build_sigma(dists=dists)``, from
     the distances of the locations they involve only, with the nugget on
-    the global diagonal."""
-    n, p = dists.shape[0], params.p
+    the global diagonal.  Given ``locs`` (and ``dists`` None) those
+    distances are formed from the locations, never the (n, n) matrix."""
+    n, p = (dists if locs is None else locs).shape[0], params.p
     rows, cols = np.arange(r0, r1), np.arange(c1)
     if representation.upper() == "I":
         (lr, vr), (lc, vc) = divmod(rows, p), divmod(cols, p)
@@ -297,9 +319,12 @@ def _sigma_rows(
         raise ValueError(f"unknown representation {representation!r}")
     ur, ir = np.unique(lr, return_inverse=True)
     uc, ic = np.unique(lc, return_inverse=True)
-    dev = dists.device
+    dev = (dists if locs is None else locs).device
     idx = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    sub = dists[idx(ur)][:, idx(uc)]
+    if locs is None:
+        sub = dists[idx(ur)][:, idx(uc)]
+    else:
+        sub = pairwise_distances(locs[idx(ur)], locs[idx(uc)])
     sig = torch.sqrt(params.sigma2)
     amp = sig[:, None] * sig[None, :]
     blocks = amp[:, :, None, None] * _pair_correlations(sub, params)
@@ -321,31 +346,15 @@ def _dist_loglik_body(
     row_axes=("data",),
     *,
     times: dict | None = None,
+    locs=None,
 ) -> LoglikResult:
     """GEN -> panel Cholesky -> forward solve; the factor stays in panel
-    form.  On a mesh each rank generates only its own block rows."""
-    shard = pair_shard(mesh, row_axes)
-    t0 = _lap(times, None, 0.0, dists)
-    if shard is None:
-        sigma = build_sigma(
-            None, params, representation=representation, nugget=nugget, dists=dists
-        )
-        t0 = _lap(times, "gen", t0, sigma)
-        panels = blocked_cholesky_panels(sigma, panel)
-        del sigma
-    else:
-        m = dists.shape[0] * params.p
-        if m % panel:
-            raise ValueError(f"panel={panel} does not divide m={m}")
-
-        def rows(i):
-            r0, r1 = i * panel, (i + 1) * panel
-            return _sigma_rows(dists, params, representation, nugget, r0, r1, r1)
-
-        dtype = torch.promote_types(dists.dtype, params.sigma2.dtype)
-        dtype = torch.promote_types(dtype, params.a.dtype)
-        like = torch.empty((), dtype=dtype, device=dists.device)
-        panels = _panels_on_ranks(rows, m, panel, shard, like)
+    form.  On a mesh each rank generates only its own block rows.  Given
+    ``locs`` instead of ``dists``, the distances are formed from them (on a
+    mesh a block row's only)."""
+    panels, t0 = _factor_panels(
+        dists, params, nugget, panel, representation, mesh, row_axes, times, locs
+    )
     t0 = _lap(times, "factorize", t0, panels[-1][0])
     alpha = panels_forward_solve(panels, z, panel, mesh, row_axes)
     quad = torch.sum(alpha * alpha)
@@ -354,6 +363,40 @@ def _dist_loglik_body(
     ll = -0.5 * (m * math.log(2.0 * math.pi) + logdet + quad)
     _lap(times, "solve", t0, ll)
     return LoglikResult(ll, logdet, quad, None)
+
+
+def _factor_panels(
+    dists, params, nugget, panel, representation, mesh, row_axes, times, locs=None
+):
+    """GEN -> panel Cholesky of Sigma from ``dists`` (or ``locs``): the
+    panels (a mesh: the rank's own rows) and the time mark."""
+    shard = pair_shard(mesh, row_axes)
+    src = dists if locs is None else locs
+    t0 = _lap(times, None, 0.0, src)
+    if shard is None:
+        if dists is None:
+            dists = pairwise_distances(locs)
+        sigma = build_sigma(
+            None, params, representation=representation, nugget=nugget, dists=dists
+        )
+        t0 = _lap(times, "gen", t0, sigma)
+        panels = blocked_cholesky_panels(sigma, panel)
+        del sigma
+        return panels, t0
+    m = src.shape[0] * params.p
+    if m % panel:
+        raise ValueError(f"panel={panel} does not divide m={m}")
+
+    def rows(i):
+        r0, r1 = i * panel, (i + 1) * panel
+        return _sigma_rows(
+            dists, params, representation, nugget, r0, r1, r1, locs=locs
+        )
+
+    dtype = torch.promote_types(src.dtype, params.sigma2.dtype)
+    dtype = torch.promote_types(dtype, params.a.dtype)
+    like = torch.empty((), dtype=dtype, device=src.device)
+    return _panels_on_ranks(rows, m, panel, shard, like), t0
 
 
 def dist_exact_loglik(
@@ -380,3 +423,151 @@ def dist_exact_loglik(
     return _dist_loglik_body(
         dists, z, params, nugget, panel, representation, mesh, times=times
     )
+
+
+# ---------------------------------------------------------------------------
+# Dry-run lowerables (launch.dryrun, lowerables)
+# ---------------------------------------------------------------------------
+
+
+def dist_loglik_lowerable(
+    n: int,
+    p: int,
+    params: MaternParams,
+    *,
+    panel: int,
+    mesh,
+    nugget: float = 1e-6,
+    dtype=torch.float32,
+    row_axes=("data",),
+):
+    """(fn, specs) of the full GEN -> Cholesky -> solve pipeline from
+    location coordinates: ``fn(locs, z)``, both replicated, gives the
+    ``LoglikResult``.  On a mesh each rank forms only the distances of its
+    own block rows."""
+
+    def fn(locs, z):
+        return _dist_loglik_body(
+            None, z, params, nugget, panel, "I", mesh, row_axes, locs=locs
+        )
+
+    return fn, (Spec((n, 2), dtype), Spec((n * p,), dtype))
+
+
+def dist_cokrige_lowerable(
+    n: int,
+    n_pred: int,
+    p: int,
+    params: MaternParams,
+    *,
+    panel: int,
+    mesh,
+    nugget: float = 1e-6,
+    dtype=torch.float32,
+    row_axes=("data",),
+):
+    """(fn, specs) of cokriging (Eq. 3): GEN -> Cholesky -> the forward and
+    backward panel solves -> c0^T beta for every prediction location at
+    once.  ``fn(obs_locs, pred_locs, z)`` (all replicated) gives the
+    (n_pred, p) predictions.  The reference constrains the whole (m,
+    n_pred p) c0 to ``P(row, "model")``; here each rank generates the c0
+    rows of its own block rows and one ``all_reduce`` sums their products."""
+
+    def fn(obs_locs, pred_locs, z):
+        panels, _ = _factor_panels(
+            None, params, nugget, panel, "I", mesh, row_axes, None, locs=obs_locs
+        )
+        alpha = panels_forward_solve(panels, z, panel, mesh, row_axes)
+        beta = panels_backward_solve(panels, alpha, panel, mesh, row_axes)
+        shard = pair_shard(mesh, row_axes)
+        nk = n * p // panel
+        mine = range(nk) if shard is None else _own_blocks(nk, shard)
+        nbl = panel // p
+        preds = beta.new_zeros((n_pred * p,))
+        for i in mine:
+            c0 = build_c0(pred_locs, obs_locs[i * nbl : (i + 1) * nbl], params)
+            c0 = c0.movedim(0, 1).reshape(panel, n_pred * p)
+            preds += beta[i * panel : (i + 1) * panel] @ c0
+        if shard is not None:
+            preds = shard.sum(preds)
+        return preds.reshape(n_pred, p)
+
+    specs = (Spec((n, 2), dtype), Spec((n_pred, 2), dtype), Spec((n * p,), dtype))
+    return fn, specs
+
+
+def dist_cholesky_lowerable(
+    m: int, *, panel: int, mesh, dtype=torch.float32, row_axes=("data",)
+):
+    """(fn, specs) of the assembled-factor Cholesky, Sigma -> L, in place.
+
+    ``fn(sigma)`` writes the lower factor into ``sigma``'s own storage and
+    returns it: the reference's donation of Sigma (XLA aliasing the factor
+    into the donated input) is an in-place update here.  On a mesh
+    ``sigma`` is the rank's own block rows stacked (panel rows i = d, d + S,
+    ...), as ``blocked_cholesky_panels`` deals them, and so is the factor.  Each step: the owner's POTRF of the head block
+    (written in place, broadcast), the TRSM of the rank's rows of the
+    panel (written in place), one ``all_gather`` of the panel, and the
+    SYRK of the rank's rows by ``addmm_`` on their strided views: the
+    ``syrk`` kernel writes a new trail, not a view of a larger matrix, and
+    the reference forms this product with XLA's ``pan @ pan.T``, not its
+    Pallas ``syrk``.  The strict upper triangle is zeroed at the end."""
+    if m % panel:
+        raise ValueError(f"panel={panel} does not divide m={m}")
+
+    def fn(sigma):
+        shard = pair_shard(mesh, row_axes)
+        nk = m // panel
+        mine = list(range(nk)) if shard is None else _own_blocks(nk, shard)
+        if sigma.shape != (len(mine) * panel, m):
+            raise ValueError(
+                f"sigma of shape {tuple(sigma.shape)}: this rank holds "
+                f"{len(mine)} block rows of {panel} x {m}"
+            )
+        with torch.no_grad():
+            _cholesky_rows_in_place(sigma, mine, nk, panel, shard)
+        return sigma
+
+    return fn, (Spec((m, m), dtype),)
+
+
+def _cholesky_rows_in_place(w, mine, nk: int, panel: int, shard):
+    """The right-looking panel Cholesky on the block rows ``mine`` held in
+    ``w`` (block n of ``w`` is global block row mine[n]), in place: each
+    TRSM a block row at a time, each update on views of ``w`` (on one
+    rank the panel is read where it lies), so no step holds a copy of a
+    whole panel but the mesh's gathered one."""
+    for k in range(nk):
+        c0, c1 = k * panel, (k + 1) * panel
+        owner = k if shard is None else k % shard.count
+        if shard is None or owner == shard.index:
+            n = mine.index(k)
+            head = w[n * panel : (n + 1) * panel, c0:c1]
+            lkk = ops.potrf(head[None])[0]
+            head.copy_(lkk)
+        else:
+            lkk = w.new_empty((panel, panel))
+        if shard is not None:
+            broadcast_(lkk, shard.ranks[owner], group=shard.group)
+        if k + 1 == nk:
+            break
+        below = [n for n, i in enumerate(mine) if i > k]
+        for n in below:
+            blk = w[n * panel : (n + 1) * panel, c0:c1]
+            blk.copy_(ops.trsm(lkk[None], blk.mT.contiguous()[None])[0].mT)
+        if shard is None:
+            full = w[c1:, c0:c1]  # blocks k+1.. in order
+        else:
+            rows = [w[n * panel : (n + 1) * panel, c0:c1] for n in below]
+            pan = torch.cat(rows) if rows else w.new_zeros((0, panel))
+            full = _gather_rows(pan, k, nk, panel, shard)
+        for n in below:
+            i = mine[n]
+            own = w[n * panel : (n + 1) * panel, c0:c1]
+            cols = w[n * panel : (n + 1) * panel, c1 : (i + 1) * panel]
+            cols.addmm_(own, full[: (i - k) * panel].mT, alpha=-1.0)
+    for n, i in enumerate(mine):
+        rows = w[n * panel : (n + 1) * panel]
+        rows[:, (i + 1) * panel :] = 0
+        diag = rows[:, i * panel : (i + 1) * panel]
+        diag.copy_(torch.tril(diag))

@@ -13,7 +13,13 @@ UV tiles, as in the reference:
 ``dist_compress_tiles`` fills either from the Matérn generator (``col_block``
 columns to one SVD batch, U/V at a ``dtype_policy``'s narrow dtype), and
 ``dist_tlr_loglik`` runs compress -> factorize -> forward solve -> Eq. 1 in
-either placement, with ``super_panels`` super-steps.
+either placement, with ``super_panels`` super-steps.  The dry-run
+lowerables (``launch.dryrun``, ``lowerables``) are the pipeline's phases
+as ``(fn, specs)``: ``dist_tlr_gen_lowerable``, ``dist_tlr_compress_lowerable``,
+``dist_tlr_lowerable`` (factorize + solve from tiles, whose ``return_factor``
+form writes the factor into its tile inputs: the reference's donation) and
+``dist_tlr_pipeline_lowerable``; ``dist_tlr_in_shardings`` gives the
+placements of ``dist_tlr_lowerable``'s inputs.
 
 The reference's masked full-grid batch and its unrolled super-panel trace
 exist to give XLA static shapes; the port runs eagerly and its panel
@@ -62,6 +68,7 @@ import torch
 
 from ..device import as_tensor
 from ..distribution.block_cyclic import (
+    PairPlacement,
     PairLayout,
     PairShard,
     column_owner_tables,
@@ -74,9 +81,10 @@ from ..distribution.block_cyclic import (
 from ..distribution.compress_svd import svd_truncate_batch
 from ..distribution.pair_qr import warn_fallback_once
 from ..kernels import ops
+from ..lowerables import Spec
 from .covariance import MaternParams, build_sigma_panel
 from .likelihood import LoglikResult
-from .precision import uv_dtype
+from .precision import resolve_policy, uv_dtype
 from .tlr import (
     TLRMatrix,
     _lap,
@@ -452,9 +460,14 @@ def dist_tlr_cholesky_pairs(
     own_slots: bool = False,
     track_status: bool = False,
     times: dict | None = None,
+    in_place: bool = False,
 ):
     """Pair-native TLR Cholesky: (diag, U, V, ranks) in pair-major storage
     in, the factor in the same storage out, never the (T, T) grid.
+    ``in_place`` writes the factor into the inputs themselves (the
+    reference's donated tile inputs; the pair tensors must then hold the
+    slots the factorization keeps: every slot, or with ``own_slots`` and
+    ``shard_recompress`` the rank's own).
 
     The panel steps (``tlr.pair_panel_loop``) update a copy of the inputs
     in place, in ``super_panels`` super-steps
@@ -473,6 +486,8 @@ def dist_tlr_cholesky_pairs(
         pairs = tuple(_slots_of(x, layout, shard, own_slots) for x in pairs)
     if own_slots and not split:  # the replicated factorization takes every slot
         pairs = tuple(gather_pairs(x, shard) for x in pairs)
+    if in_place and any(a is not b for a, b in zip(pairs, (up, vp, ranks))):
+        raise ValueError("in_place=True needs the pair tensors the factor keeps")
     up, vp, ranks = pairs
     if not split:
         shard = None
@@ -489,6 +504,7 @@ def dist_tlr_cholesky_pairs(
         times=times,
         mesh=mesh if shard is not None else None,
         shard=shard,
+        in_place=in_place,
     )
 
 
@@ -533,6 +549,7 @@ def _tlr_cholesky_super_pairs(
     times,
     mesh=None,
     shard: PairShard | None = None,
+    in_place: bool = False,
 ):
     """The block-cyclic factorization in super-steps, as
     ``_tlr_cholesky_super`` on pair-major storage.  The reference remaps the
@@ -562,6 +579,7 @@ def _tlr_cholesky_super_pairs(
         super_panels=super_panels,
         track_status=track_status,
         times=times,
+        in_place=in_place,
     )
     if shard is None or not track_status:
         return out
@@ -860,3 +878,268 @@ def dist_tlr_loglik(
     res = _loglik_of(diag_l, alpha, t.shape[0], status=status)
     _lap(times, "solve", t0, res.loglik)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Dry-run lowerables (launch.dryrun, lowerables): the pipeline's phases,
+# each as (fn, specs) so the dry-run can count GEN, compress and factorize
+# apart.  The reference's gen="xla" is the port's "kernel" generator here
+# (the matern_tile kernel on the card, its plain version on the CPU).
+# ---------------------------------------------------------------------------
+
+
+def _dtypes(dtype, dtype_policy):
+    """(wide, U/V) dtypes: the policy's, else ``dtype`` for both."""
+    policy = resolve_policy(dtype_policy)
+    if policy is None:
+        return dtype, dtype
+    return policy.wide_dtype, policy.narrow_dtype
+
+
+def dist_tlr_lowerable(
+    n_tiles: int,
+    tile_size: int,
+    kmax: int,
+    *,
+    tol: float,
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+    super_panels: int = 1,
+    block_cyclic: bool = False,
+    return_factor: bool = False,
+    shard_recompress: bool = True,
+    dtype_policy=None,
+):
+    """(fn, specs) of the factorize + solve stage from pre-compressed tiles:
+    ``fn(diag, u, v, ranks, z)`` gives the ``LoglikResult``, and with
+    ``return_factor`` also the factor ``(diag_L, u, v, ranks)``, written
+    into the tile inputs themselves (the reference donates them).
+
+    ``block_cyclic=True`` takes the tiles in pair-major storage; on a mesh
+    ``u``, ``v`` and ``ranks`` are the rank's own slots
+    (``dist_tlr_in_shardings``), factored there (``shard_recompress``) or,
+    without it, gathered and factored whole on every rank, the rank's own
+    slots of the factor then copied back.  The grid form takes the whole
+    (T, T) grid on every rank; its factor (gathered on a mesh) is copied
+    back into the inputs.  ``dtype_policy`` gives diag/z the policy's wide
+    dtype and U/V its narrow one (``dtype`` is then ignored)."""
+    T, nb = n_tiles, tile_size
+    wide, narrow = _dtypes(dtype, dtype_policy)
+
+    if block_cyclic:
+        shard0 = pair_shard(mesh, row_axes)
+        layout = pair_layout(T, 1 if shard0 is None else shard0.count)
+
+        def fn(diag, u, v, ranks, z):
+            shard = pair_shard(mesh, row_axes)
+            split = shard is not None and shard_recompress
+            with torch.no_grad():
+                diag_l, uf, vf, rf = dist_tlr_cholesky_pairs(
+                    diag,
+                    u,
+                    v,
+                    ranks,
+                    layout=layout,
+                    tol=tol,
+                    scale=1.0,
+                    mesh=mesh,
+                    row_axes=row_axes,
+                    super_panels=super_panels,
+                    shard_recompress=shard_recompress,
+                    own_slots=shard is not None,
+                    in_place=return_factor and (split or shard is None),
+                )
+                alpha = dist_tlr_solve_lower_pairs(
+                    diag_l, uf, vf, z, layout=layout, mesh=mesh,
+                    row_axes=row_axes, own_slots=split,
+                )
+                res = _loglik_of(diag_l, alpha, T * nb)
+                if not return_factor:
+                    return res
+                if shard is not None and not split:  # whole factor: own slots back
+                    own = shard.owns(layout)
+                    for dst, src in ((u, uf), (v, vf), (ranks, rf)):
+                        dst.copy_(src[own])
+                    diag.copy_(diag_l)
+                return res, (diag, u, v, ranks)
+
+        specs = (
+            Spec((T, nb, nb), wide),
+            Spec((layout.length, nb, kmax), narrow),
+            Spec((layout.length, nb, kmax), narrow),
+            Spec((layout.length,), torch.int32),
+            Spec((T * nb,), wide),
+        )
+        return fn, specs
+
+    def fn(diag, u, v, ranks, z):
+        with torch.no_grad():
+            diag_l, uf, vf, rf = dist_tlr_cholesky(
+                diag, u, v, ranks, tol=tol, scale=1.0, mesh=mesh,
+                row_axes=row_axes, super_panels=super_panels,
+            )
+            alpha = dist_tlr_solve_lower(diag_l, uf, vf, z)
+            res = _loglik_of(diag_l, alpha, T * nb)
+            if not return_factor:
+                return res
+            for dst, src in ((diag, diag_l), (u, uf), (v, vf), (ranks, rf)):
+                dst.copy_(src)
+            return res, (diag, u, v, ranks)
+
+    specs = (
+        Spec((T, nb, nb), wide),
+        Spec((T, T, nb, kmax), narrow),
+        Spec((T, T, nb, kmax), narrow),
+        Spec((T, T), torch.int32),
+        Spec((T * nb,), wide),
+    )
+    return fn, specs
+
+
+def dist_tlr_in_shardings(*, mesh, row_axes=("data",), block_cyclic: bool = False):
+    """The placements of ``dist_tlr_lowerable``'s inputs: diag and z
+    replicated, and in pair-major storage u/v/ranks as the rank's own slots
+    (``PairPlacement``); the grid form's inputs are all replicated (the
+    reference shards the grid ``P(row, "model")``; the port's mesh form of
+    the grid factors the pair slots, ROADMAP Queue 3)."""
+    from ..distribution.sharding import Sharding
+
+    rep = Sharding(mesh, ())
+    if block_cyclic:
+        pairs = PairPlacement(mesh, tuple(row_axes))
+        return (rep, pairs, pairs, pairs, rep)
+    return (rep,) * 5
+
+
+def _row_range(n: int, shard: PairShard | None) -> tuple[int, int]:
+    """This shard's contiguous block of ``n`` rows (all without a shard)."""
+    if shard is None:
+        return 0, n
+    bounds = np.linspace(0, n, shard.count + 1).round().astype(int)
+    return int(bounds[shard.index]), int(bounds[shard.index + 1])
+
+
+def dist_tlr_gen_lowerable(
+    n: int,
+    p: int,
+    params,
+    *,
+    tile_size: int,
+    gen: str = "kernel",
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+    d_spatial: int = 2,
+):
+    """The GEN phase alone: every column panel generated and reduced to a
+    checksum, sum(panel^2), so the generation is counted without the SVD.
+    On a mesh each rank generates its contiguous block of the locations'
+    rows of every panel (the reference's ``P(row, "model")`` panel) and one
+    ``all_reduce`` sums the checksums.  No nugget (the compress phase's)."""
+    m = n * p
+    nb = choose_tile_size(m, tile_size, multiple_of=p)
+    nbl, T = nb // p, m // nb
+
+    def fn(locs):
+        shard = pair_shard(mesh, row_axes)
+        lo, hi = _row_range(n, shard)
+        acc = torch.zeros((), dtype=dtype, device=locs.device)
+        for j in range(T):
+            if hi > lo:
+                panel = build_sigma_panel(
+                    locs[lo:hi], locs[j * nbl : (j + 1) * nbl], params,
+                    d_spatial=d_spatial, gen=gen,
+                )
+                acc = acc + torch.sum(panel * panel).to(dtype)
+        if shard is not None:
+            acc = shard.sum(acc.reshape(1).clone())[0]
+        return acc
+
+    return fn, (Spec((n, 2), dtype),)
+
+
+def dist_tlr_compress_lowerable(
+    n: int,
+    p: int,
+    params,
+    *,
+    tile_size: int,
+    max_rank: int,
+    tol: float,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+    block_cyclic: bool = False,
+    col_block: int = 1,
+    shard_svd: bool = True,
+    dtype_policy=None,
+):
+    """GEN + compress: ``fn(locs)`` gives the fixed-kmax (diag, u, v,
+    ranks), a grid or (``block_cyclic``) pair-major, on a mesh with
+    ``shard_svd`` the rank's own slots.  ``shard_svd=False`` compresses the
+    whole matrix on every rank (the reference's replicated truncation
+    batch).  ``dtype_policy``: generated wide, U/V stored narrow, the
+    locations at the wide dtype."""
+    layout = None
+    if block_cyclic:
+        m = n * p
+        nb = choose_tile_size(m, tile_size, multiple_of=p)
+        shard = pair_shard(mesh, row_axes)
+        layout = pair_layout(m // nb, 1 if shard is None else shard.count)
+    if dtype_policy is not None:
+        dtype = resolve_policy(dtype_policy).wide_dtype
+
+    def fn(locs):
+        with torch.no_grad():
+            t = dist_compress_tiles(
+                locs, params, tile_size=tile_size, tol=tol, max_rank=max_rank,
+                nugget=nugget, gen=gen, mesh=mesh, row_axes=row_axes,
+                layout=layout, col_block=col_block, shard_svd=shard_svd,
+                dtype_policy=dtype_policy,
+            )
+        return t.diag, t.u, t.v, t.ranks
+
+    return fn, (Spec((n, 2), dtype),)
+
+
+def dist_tlr_pipeline_lowerable(
+    n: int,
+    p: int,
+    params,
+    *,
+    tile_size: int,
+    max_rank: int,
+    tol: float,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+    super_panels: int = 1,
+    block_cyclic: bool = False,
+    col_block: int = 1,
+    shard_recompress: bool = True,
+    shard_svd: bool = True,
+    dtype_policy=None,
+):
+    """The generator-direct pipeline end to end: ``fn(locs, z)`` (both
+    replicated) -> GEN -> compress -> factorize -> loglik
+    (``dist_tlr_loglik``, status tracked), with real Matérn tiles."""
+    if dtype_policy is not None:
+        dtype = resolve_policy(dtype_policy).wide_dtype
+
+    def fn(locs, z):
+        with torch.no_grad():
+            return dist_tlr_loglik(
+                None, z, locs=locs, params=params, from_tiles=True,
+                tile_size=tile_size, max_rank=max_rank, nugget=nugget, gen=gen,
+                tol=tol, mesh=mesh, row_axes=row_axes, super_panels=super_panels,
+                block_cyclic=block_cyclic, col_block=col_block,
+                shard_recompress=shard_recompress, shard_svd=shard_svd,
+                dtype_policy=dtype_policy,
+            )
+
+    return fn, (Spec((n, 2), dtype), Spec((n * p,), dtype))

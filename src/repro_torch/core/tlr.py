@@ -860,21 +860,34 @@ def super_steps(n_tiles: int, super_panels: int) -> list[tuple[int, int]]:
 
 
 def factorize(
-    loop, diag, u, v, ranks, *, super_panels=1, track_status=False, times=None
+    loop,
+    diag,
+    u,
+    v,
+    ranks,
+    *,
+    super_panels=1,
+    track_status=False,
+    times=None,
+    in_place=False,
 ):
     """A right-looking TLR factorization driven by ``loop`` (``panel_loop``
     or ``pair_panel_loop`` with its keywords bound), returning
     ``(diag_L, u, v, ranks)``, plus the merged ``FactorStatus`` with
     ``track_status``.
 
-    The inputs are cloned once; the panel steps then update the copy in
-    place (while autograd records the tensors, each step builds new ones
-    instead), in ``super_panels`` super-steps (``super_steps``), each with its
+    The inputs are cloned once (not with ``in_place``: the factor is then
+    written into the inputs' own storage); the panel steps then update the
+    copy in place (while autograd records the tensors, each step builds new
+    ones instead), in ``super_panels`` super-steps (``super_steps``), each with its
     own status accumulation, merged as the reference merges its slices'.
     The last tile needs only its POTRF (the ``potrf`` kernel).
     """
     T = diag.shape[0]
-    diag, u, v, ranks = (x.clone() for x in (diag, u, v, ranks))
+    if not in_place:
+        diag, u, v, ranks = (x.clone() for x in (diag, u, v, ranks))
+    elif ops.records_grad(diag, u, v):
+        raise ValueError("in_place=True factors without autograd")
     t0 = _lap(times, None, 0.0, diag)
     status = None
     for k_lo, k_hi in super_steps(T, super_panels):

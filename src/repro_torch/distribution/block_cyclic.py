@@ -195,12 +195,21 @@ class PairShard:
         return parts[torch.as_tensor(self.ranks, device=parts.device)]
 
 
-@functools.lru_cache(maxsize=None)
 def _pair_shard(mesh, axes: tuple) -> PairShard:
     """This rank's ``PairShard`` over the mesh axes ``axes``.  Every rank
     along a mesh axis outside ``axes`` holds a copy of its shard (the
-    reference replicates over it)."""
+    reference replicates over it).  Cached for the process group that is
+    current (meshes of one shape compare equal across groups)."""
     import torch.distributed as dist
+
+    return _pair_shard_of(mesh, tuple(axes), dist.group.WORLD)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_shard_of(mesh, axes: tuple, world) -> PairShard:
+    import torch.distributed as dist
+
+    from ..launch.mesh import mesh_grid
 
     names = tuple(mesh.mesh_dim_names)
     unknown = [a for a in axes if a not in names]
@@ -208,19 +217,18 @@ def _pair_shard(mesh, axes: tuple) -> PairShard:
         raise ValueError(f"axes {unknown} are not axes of the mesh {names}")
     outside = [a for a in names if a not in axes]
     world = dist.get_world_size()
-    if mesh.mesh.numel() != world:
-        raise ValueError(
-            f"the mesh holds {mesh.mesh.numel()} ranks of {world}: it must span all"
-        )
+    grid = mesh_grid(mesh)
+    if grid.size != world:
+        raise ValueError(f"the mesh holds {grid.size} ranks of {world}: it must span all")
     order = [names.index(a) for a in axes + tuple(outside)]
-    count = math.prod(int(mesh.mesh.shape[names.index(a)]) for a in axes)
-    grid = mesh.mesh.permute(*order).reshape(count, -1)
-    index, copy = (int(i) for i in torch.nonzero(grid == dist.get_rank())[0])
+    count = math.prod(int(grid.shape[names.index(a)]) for a in axes)
+    grid = grid.transpose(*order).reshape(count, -1)
+    index, copy = (int(i) for i in np.argwhere(grid == dist.get_rank())[0])
     return PairShard(
         axes=axes,
         count=count,
         index=index,
-        ranks=tuple(int(r) for r in grid[:, 0].tolist()),
+        ranks=tuple(int(r) for r in grid[:, 0]),
         group=dist.group.WORLD,
         primary=copy == 0,
     )
@@ -236,6 +244,23 @@ def pair_shard(mesh, row_axes=("data",)) -> PairShard | None:
     if mesh is None:
         return None
     return _pair_shard(mesh, pair_axis(mesh, row_axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class PairPlacement:
+    """A pair-major tensor placed as each rank's own slots on the pair axis
+    of ``mesh`` (the reference's pair ``NamedSharding``): the leading axis,
+    built for ``pair_shards(mesh, row_axes)`` shards, split into as many
+    equal runs, shard d holding run d."""
+
+    mesh: object
+    row_axes: tuple = ("data",)
+
+    def local_shape(self, shape) -> tuple:
+        count = pair_shards(self.mesh, self.row_axes)
+        if shape[0] % count:
+            raise ValueError(f"{shape[0]} slots do not split over {count} shards")
+        return (shape[0] // count,) + tuple(shape[1:])
 
 
 def gather_pairs(x: torch.Tensor, shard: PairShard | None) -> torch.Tensor:

@@ -44,7 +44,9 @@ def pair_shard_count(mesh, axes) -> int:
     """Ranks the pair axis spans: the product of the given mesh axes."""
     if mesh is None or not axes:
         return 1
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    from ..launch.mesh import mesh_grid
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh_grid(mesh).shape))
     return math.prod(int(sizes[a]) for a in axes)
 
 

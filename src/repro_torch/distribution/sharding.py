@@ -40,6 +40,15 @@ class Sharding:
     mesh: object
     spec: tuple
 
+    def local_shape(self, shape) -> tuple:
+        """The shape of this rank's shard of a tensor of ``shape``."""
+        if not self.spec:
+            return tuple(shape)
+        return tuple(
+            n // axis_size(self.mesh, entry_axes(e)) if entry_axes(e) else n
+            for n, e in zip(shape, self.spec, strict=True)
+        )
+
 
 def param_specs(cfg) -> dict:
     """The storage spec of every parameter of ``init_model(cfg)``, by its

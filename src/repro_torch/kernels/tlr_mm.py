@@ -60,12 +60,17 @@ def _span(t: torch.Tensor) -> tuple[int, int]:
 def check_out(out: torch.Tensor, acc: torch.Tensor, inputs) -> None:
     """Refuse an ``out`` that cannot take the result: another shape or
     dtype than ``acc``, or memory shared with any argument other than
-    ``acc`` itself (the same storage, whole)."""
+    ``acc`` itself (the same storage, whole).  Fake tensors (a shape-only
+    trace) have no memory to compare."""
+    from torch._subclasses.fake_tensor import is_fake
+
     if out.shape != acc.shape or out.dtype != acc.dtype or out.device != acc.device:
         raise ValueError(
             f"out must match acc: {tuple(acc.shape)} {acc.dtype} on {acc.device}, "
             f"got {tuple(out.shape)} {out.dtype} on {out.device}"
         )
+    if is_fake(out):
+        return
     lo, hi = _span(out)
     for name, t in (*inputs, ("acc", acc)):
         t_lo, t_hi = _span(t)

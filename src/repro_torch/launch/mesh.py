@@ -139,7 +139,9 @@ def make_mesh(shape, names, *, device_type=None):
         raise ValueError(
             f"a mesh {shape} over {names} needs {need} ranks, the group has {world}"
         )
-    return init_device_mesh(_device_type(device_type), shape, mesh_dim_names=names)
+    mesh = init_device_mesh(_device_type(device_type), shape, mesh_dim_names=names)
+    mesh_grid(mesh)
+    return mesh
 
 
 def make_mesh_for_devices(
@@ -173,9 +175,23 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
     return make_mesh(shape, names, device_type=device_type)
 
 
+def mesh_grid(mesh) -> np.ndarray:
+    """The mesh's global ranks as a numpy array of its shape (cached on the
+    mesh).  The host bookkeeping of the mesh forms reads it, never the
+    mesh's rank tensor, so it also runs inside a trace of fake tensors."""
+    grid = mesh.__dict__.get("_repro_grid")
+    if grid is None:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            grid = np.asarray(mesh.mesh.tolist())
+        mesh.__dict__["_repro_grid"] = grid
+    return grid
+
+
 def mesh_chip_count(mesh) -> int:
     """Ranks in the mesh (one a device in production)."""
-    return int(mesh.mesh.numel())
+    return int(mesh_grid(mesh).size)
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +202,9 @@ def mesh_chip_count(mesh) -> int:
 # The wall seconds of this module's collectives by kind while
 # ``time_collectives`` is on, else None.
 _CLOCK: dict | None = None
+# The bytes of this module's collectives while ``count_collectives`` is on
+# (by kind, and by the mesh axes each group spans), else None.
+_COUNTS: dict | None = None
 
 
 @contextlib.contextmanager
@@ -204,9 +223,68 @@ def time_collectives():
         _CLOCK = None
 
 
-def _clocked(kind: str, t: torch.Tensor, run):
+@contextlib.contextmanager
+def count_collectives(mesh=None):
+    """Within it, each ``broadcast_``, ``all_reduce_`` and ``all_gather``
+    adds the bytes of its operand (the tensor a rank sends: the reference's
+    HLO operand sizes) to the dict it yields: ``by_kind`` (kind -> bytes,
+    ``counts`` kind -> calls) and ``by_axis``, keyed by the axes of
+    ``mesh`` along which the group's ranks differ ("data", "model",
+    "data+model", ...), each ``{"bytes", "calls", "ranks", "link_bw"}``
+    with the group's size and the per-GPU rate of the link it spans
+    (``roofline.link_bw``).  Without a mesh the key is "world".  Works on
+    fake tensors (a fake process group), since it reads only shapes."""
+    global _COUNTS
+    _COUNTS = dict(by_kind={}, counts={}, by_axis={}, mesh=mesh, _groups={})
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS.pop("_groups", None)
+        _COUNTS.pop("mesh", None)
+        _COUNTS = None
+
+
+def _group_axes(group) -> tuple[str, tuple]:
+    """(axis key, global ranks) of a process group in the counted mesh."""
+    dist = _dist()
+    cache = _COUNTS["_groups"]
+    key = id(group)
+    if key not in cache:
+        if group is None or group is dist.group.WORLD:
+            ranks = tuple(range(dist.get_world_size()))
+        else:
+            ranks = tuple(dist.get_process_group_ranks(group))
+        mesh = _COUNTS["mesh"]
+        name = "world"
+        if mesh is not None:
+            grid = mesh_grid(mesh)
+            coords = np.array([np.argwhere(grid == r)[0] for r in ranks])
+            names = tuple(mesh.mesh_dim_names)
+            varied = [names[d] for d in range(len(names)) if len(set(coords[:, d])) > 1]
+            name = "+".join(varied) or "none"
+        cache[key] = (name, ranks)
+    return cache[key]
+
+
+def _counted(kind: str, t: torch.Tensor, group) -> None:
+    from .roofline import link_bw
+
+    nbytes = t.numel() * t.element_size()
+    _COUNTS["by_kind"][kind] = _COUNTS["by_kind"].get(kind, 0) + nbytes
+    _COUNTS["counts"][kind] = _COUNTS["counts"].get(kind, 0) + 1
+    name, ranks = _group_axes(group)
+    rec = _COUNTS["by_axis"].setdefault(
+        name, dict(bytes=0, calls=0, ranks=len(ranks), link_bw=link_bw(ranks))
+    )
+    rec["bytes"] += nbytes
+    rec["calls"] += 1
+
+
+def _clocked(kind: str, t: torch.Tensor, run, group=None):
     """``run()``, timed into ``_CLOCK[kind]`` while ``time_collectives`` is
-    on."""
+    on, its bytes counted while ``count_collectives`` is."""
+    if _COUNTS is not None:
+        _counted(kind, t, group)
     if _CLOCK is None:
         return run()
     if t.is_cuda:
@@ -238,7 +316,7 @@ def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     def run(x):
         dist.broadcast(x, src, group=group)
 
-    return _clocked("broadcast", t, lambda: _in_place(t, run))
+    return _clocked("broadcast", t, lambda: _in_place(t, run), group)
 
 
 def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
@@ -249,7 +327,7 @@ def all_reduce_(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     def run(x):
         dist.all_reduce(x, op=rop, group=group)
 
-    return _clocked("all_reduce", t, lambda: _in_place(t, run))
+    return _clocked("all_reduce", t, lambda: _in_place(t, run), group)
 
 
 def group_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -263,7 +341,7 @@ def all_gather(t: torch.Tensor, group=None) -> list[torch.Tensor]:
     dist = _dist()
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    _clocked("all_gather", t, lambda: dist.all_gather(parts, t, group=group))
+    _clocked("all_gather", t, lambda: dist.all_gather(parts, t, group=group), group)
     return parts
 
 
@@ -313,9 +391,9 @@ def axis_group(mesh, axes):
             dims = [names.index(a) for a in live]
             rest = [d for d in range(len(names)) if d not in dims]
             size = math.prod(mesh.size(d) for d in dims)
-            grid = mesh.mesh.permute(*rest, *dims).reshape(-1, size)
+            grid = mesh_grid(mesh).transpose(*rest, *dims)
             me, mine = dist.get_rank(), None
-            for row in grid.tolist():
+            for row in grid.reshape(-1, size).tolist():
                 group = dist.new_group(ranks=row)
                 if me in row:
                     mine = group

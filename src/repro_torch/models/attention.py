@@ -14,14 +14,23 @@ masked path over the ring buffer, whatever ``impl`` says, as in the
 reference.  Caches are updated in place.
 
 On a mesh (``tp``, a ``shardspecs.ModelParallel``) the layer is
-tensor-parallel over "model": this rank's query heads, and its KV heads
-(GQA groups kept whole), or K and V whole where the axis does not divide
-the KV heads (``shardspecs.kv_whole``); ``wo`` row-parallel, then the sum
-over the axis.  ``impl="kernel"`` runs the flash kernel on this rank's
-heads.  A cached call takes no mesh.
+tensor-parallel over "model": this rank's query heads and the KV heads
+they read (``head_split``); ``wo`` row-parallel, then the sum over the
+axis.  Where the axis does not divide the query heads (llama4's 40 and
+musicgen's 24 on 16) a rank takes ceil(H / size) of them in order and the
+last ranks fewer or none, the padding of GSPMD's uneven split; its rows of
+``wq``, ``wo`` (and of ``wk``, ``wv`` where the axis does not divide the KV
+heads) are taken from the whole weights (``shardspecs.gather_layer_params``).
+``impl="kernel"`` runs the flash kernel on this rank's heads.  A cached call
+on a mesh keeps the KV heads its query heads read in a cache of this rank's
+batch rows (``init_attention_cache``'s ``kv_heads``); the
+reference's dry-run instead keeps K/V's heads whole on every "model" rank
+(a difference by design, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -132,16 +141,17 @@ def _kernel_attention(q, k, v, *, causal, window):
 
 
 def init_attention_cache(
-    cfg, batch: int, max_len: int, layer_window: int, dtype, *, device
+    cfg, batch: int, max_len: int, layer_window: int, dtype, *, device, kv_heads=None
 ):
-    """Unified (ring-buffer) KV cache.
+    """Unified (ring-buffer) KV cache of ``kv_heads`` heads (default: all).
 
     Global attention: slots == max_len (the ring is a dense cache).  Windowed
     attention: slots == window, so memory stays O(window) however long the
     stream runs.
     """
     slots = min(layer_window, max_len) if layer_window else max_len
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    kvh = cfg.num_kv_heads if kv_heads is None else kv_heads
+    shape = (batch, slots, kvh, cfg.resolved_head_dim)
     return dict(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -177,24 +187,52 @@ def _cache_insert(cache, k, v, positions):
     return cache
 
 
-def _local_heads(cfg, tp):
-    """(query heads, KV heads computed, KV heads kept) on this rank and the
-    first KV head it keeps of those computed."""
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """A rank's share of the heads on the "model" axis: query heads
+    [q0, q0 + q) and the KV heads [kv0, kv0 + kv) they read.  ``q_whole``:
+    ``wq`` and ``wo`` come whole (an uneven split) and the layer takes its
+    rows of them; ``kv_whole``: ``wk`` and ``wv`` come whole, K and V are
+    computed whole and the layer keeps its heads of them."""
+
+    q0: int
+    q: int
+    kv0: int
+    kv: int
+    q_whole: bool = False
+    kv_whole: bool = False
+
+
+def head_split(cfg, tp) -> HeadSplit:
+    """This rank's heads: ceil(H / size) query heads a rank in order, as
+    GSPMD pads an uneven split (llama4's 40 on 16: 3 a rank on ranks 0-12,
+    1 on rank 13, none on 14 and 15), and the KV heads they read."""
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     if tp is None:
-        return h, kvh, kvh, 0
-    if h % tp.size:
-        raise ValueError(f"{tp.size} model-parallel ranks do not divide {h} heads")
-    hl = h // tp.size
-    if kvh % tp.size == 0:
-        return hl, kvh // tp.size, kvh // tp.size, 0
-    group = h // kvh  # K and V whole: keep the one KV head of this rank's group
-    if group % hl:
-        raise ValueError(
-            f"{tp.size} model-parallel ranks split the query heads of a GQA group "
-            f"of {group} across KV heads ({h} heads, {kvh} KV heads)"
-        )
-    return hl, kvh, 1, tp.rank * hl // group
+        return HeadSplit(0, h, 0, kvh)
+    per = -(-h // tp.size)
+    q0 = min(tp.rank * per, h)
+    q = min(q0 + per, h) - q0
+    group = h // kvh
+    kv0 = q0 // group if q else 0
+    kv = (q0 + q - 1) // group + 1 - kv0 if q else 0
+    q_whole = h % tp.size != 0
+    return HeadSplit(q0, q, kv0, kv, q_whole, q_whole or kvh % tp.size != 0)
+
+
+def cache_kv_heads(cfg, tp) -> int:
+    """The KV heads a rank's cache holds (all without a mesh)."""
+    return head_split(cfg, tp).kv
+
+
+def _kv_index(sp: HeadSplit, group: int):
+    """None where the rank's query heads read its KV heads in equal groups
+    in order (the inner attentions' GQA layout); else, for each query head,
+    the KV head it reads among the rank's."""
+    idx = [i // group - sp.kv0 for i in range(sp.q0, sp.q0 + sp.q)]
+    if sp.q % sp.kv == 0 and idx == [j // (sp.q // sp.kv) for j in range(sp.q)]:
+        return None
+    return idx
 
 
 def multihead_attention(
@@ -217,16 +255,18 @@ def multihead_attention(
     """
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kv_all, kvh, kv0 = _local_heads(cfg, tp)
+    sp = head_split(cfg, tp)
     group = None if tp is None else tp.group
-    if cache is not None and group is not None:
-        raise ValueError("a cached call does not run on a mesh")
+    wq, wk, wv, wo = params.wq, params.wk, params.wv, params.wo
+    if sp.q_whole:  # this rank's rows of the whole weights
+        rows = slice(sp.q0 * hd, (sp.q0 + sp.q) * hd)
+        wq, wo = wq[rows], wo[:, rows]
     x = copy_to_region(x, group)
-    q = apply_linear(x, params.wq).reshape(b, s, h, hd)
-    k = apply_linear(x, params.wk).reshape(b, s, kv_all, hd)
-    v = apply_linear(x, params.wv).reshape(b, s, kv_all, hd)
-    if kvh != kv_all:
-        k, v = k[:, :, kv0 : kv0 + kvh], v[:, :, kv0 : kv0 + kvh]
+    q = apply_linear(x, wq).reshape(b, s, sp.q, hd)
+    k = apply_linear(x, wk).reshape(b, s, -1, hd)
+    v = apply_linear(x, wv).reshape(b, s, -1, hd)
+    if sp.kv_whole:
+        k, v = k[:, :, sp.kv0 : sp.kv0 + sp.kv], v[:, :, sp.kv0 : sp.kv0 + sp.kv]
     if cfg.qk_norm:
         q = rms_norm(q, params.q_norm, cfg.norm_eps)
         k = rms_norm(k, params.k_norm, cfg.norm_eps)
@@ -236,12 +276,22 @@ def multihead_attention(
     k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
+    idx = _kv_index(sp, cfg.num_heads // cfg.num_kv_heads) if sp.q else None
     if cache is not None:
         new_cache = _cache_insert(cache, k, v, positions)
+        k, v = new_cache["k"], new_cache["v"]
+    if idx is not None:  # each query head's KV head, in the layout's order
+        k, v = k[:, :, idx], v[:, :, idx]
+    if sp.q == 0:
+        # a padding rank of an uneven split: its empty K and V still join
+        # the graph, so the backward collectives of their weights' gathers
+        # run here as on the other ranks
+        out = q + (k.sum() + v.sum())
+    elif cache is not None:
         out = _naive_attention(
             q,
-            new_cache["k"],
-            new_cache["v"],
+            k,
+            v,
             causal=True,
             window=layer_window,
             kv_positions=new_cache["kpos"],
@@ -257,5 +307,5 @@ def multihead_attention(
         raise ValueError(
             f"attention impl must be naive, chunked or kernel, got {impl!r}"
         )
-    out = apply_linear(out.reshape(b, s, h * hd), params.wo)
+    out = apply_linear(out.reshape(b, s, sp.q * hd), wo)
     return reduce_from_region(out, group), new_cache

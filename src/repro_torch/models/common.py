@@ -42,12 +42,9 @@ def embed_init(shape, dtype, *, generator, device):
 def linear(fan_in: int, fan_out: int, dtype, *, generator, device) -> nn.Linear:
     """A bias-free ``nn.Linear`` whose weight (out, in) is the transpose of
     ``dense_init((fan_in, fan_out))``: the reference's ``x @ w``."""
-    layer = nn.utils.skip_init(
-        nn.Linear, fan_in, fan_out, bias=False, device=device, dtype=dtype
-    )
+    layer = nn.Linear(fan_in, fan_out, bias=False, device="meta", dtype=dtype)
     w = dense_init((fan_in, fan_out), dtype, generator=generator, device=device)
-    with torch.no_grad():
-        layer.weight.copy_(w.T)
+    layer.weight = nn.Parameter(w.T.contiguous())
     return layer
 
 

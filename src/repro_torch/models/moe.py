@@ -148,6 +148,30 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
             )
         e0 = tp.rank * (e // tp.size)
         e1 = e0 + e // tp.size
+    if settings.MOE_AT_CAPACITY:
+        picked = _dispatch_at_capacity(params, xf, group, flat_e, slot, keep, k, e0, e1, cap)
+    else:
+        picked = _dispatch(params, xf, group, flat_e, keep, k, e0, e1)
+    # combine in float32 (summed over the experts' ranks), then cast; each
+    # rank's experts give a part of the gates' gradient
+    gate = copy_to_region(gate_vals, group)
+    y = (picked.reshape(t, k, d).float() * gate[..., None].float()).sum(dim=1)
+    y = reduce_from_region(y, group).to(x.dtype)
+    if params.shared is not None:
+        y = y + mlp(params.shared, xf, "swiglu", tp)
+    return y.reshape(b, s, d), aux_loss
+
+
+def _expert(params, i, xe):
+    """Expert i's SwiGLU of its rows ``xe`` (i may index a batch of them)."""
+    h = F.silu(xe @ params.w_gate[i]) * (xe @ params.w_up[i])
+    return h @ params.w_down[i]
+
+
+def _dispatch(params, xf, group, flat_e, keep, k: int, e0: int, e1: int):
+    """(T k, d): each kept pair's expert output (zero elsewhere), each of
+    this rank's experts computing only its kept rows."""
+    t, d = xf.shape
     # the kept pairs of these experts grouped by expert, each in slot order
     pairs = torch.nonzero(keep & (flat_e >= e0) & (flat_e < e1))[:, 0]
     order = torch.sort(flat_e[pairs], stable=True).indices
@@ -158,17 +182,26 @@ def moe_block(params: MoE, x, cfg, dropless: bool = False):
     start = 0
     for i, n in enumerate(counts):
         if n:
-            xe = rows[start : start + n]
-            h = F.silu(xe @ params.w_gate[i]) * (xe @ params.w_up[i])
-            out[start : start + n] = h @ params.w_down[i]
+            out[start : start + n] = _expert(params, i, rows[start : start + n])
         start += n
-    picked = torch.zeros((t * k, d), dtype=x.dtype, device=x.device)
+    picked = torch.zeros((t * k, d), dtype=xf.dtype, device=xf.device)
     picked[pairs] = out
-    # combine in float32 (summed over the experts' ranks), then cast; each
-    # rank's experts give a part of the gates' gradient
-    gate = copy_to_region(gate_vals, group)
-    y = (picked.reshape(t, k, d).float() * gate[..., None].float()).sum(dim=1)
-    y = reduce_from_region(y, group).to(x.dtype)
-    if params.shared is not None:
-        y = y + mlp(params.shared, xf, "swiglu", tp)
-    return y.reshape(b, s, d), aux_loss
+    return picked
+
+
+def _dispatch_at_capacity(params, xf, group, flat_e, slot, keep, k, e0, e1, cap):
+    """``_dispatch`` at static shapes (``settings.moe_at_capacity``): every
+    pair of this rank's experts is copied into an (E_local C, d) buffer at
+    its slot, each expert computes all C rows of its buffer, and each kept
+    pair reads its row back: the reference's capacity buffer, with no shape
+    that depends on the routing."""
+    d = xf.shape[1]
+    el = e1 - e0
+    mine = keep & (flat_e >= e0) & (flat_e < e1)
+    dump = el * cap  # the row of every pair this rank does not compute
+    dest = torch.where(mine, (flat_e - e0) * cap + slot, dump)
+    rows = copy_to_region(xf, group).repeat_interleave(k, dim=0)
+    buf = xf.new_zeros((dump + 1, d)).index_copy(0, dest, rows)
+    out = _expert(params, slice(None), buf[:dump].reshape(el, cap, d))
+    out = torch.cat([out.reshape(dump, d), out.new_zeros((1, d))])
+    return out[dest]

@@ -20,10 +20,10 @@ so the stacked leading None goes away.
 What each layer computes on the "model" factor (``models.attention``,
 ``models.mlp``, ``models.moe``):
 
-* attention: ``wq``/``wk``/``wv`` column-parallel (this rank's heads, GQA
-  groups whole), ``wo`` row-parallel; K and V are computed whole where the
-  model axis does not divide the KV heads (their weights are gathered over
-  "model" too);
+* attention: ``wq``/``wk``/``wv`` column-parallel (this rank's heads and
+  the KV heads they read), ``wo`` row-parallel; where the model axis does
+  not divide the KV heads, or the query heads (``heads_uneven``), those
+  weights are gathered over "model" and each rank takes its rows;
 * mlp: ``w_gate``/``w_up`` column-parallel, ``w_down`` row-parallel;
 * moe: experts over "model" (EP) where ``PRODUCTION_TP`` divides their
   number, else tensor-parallel inside each expert;
@@ -35,6 +35,7 @@ What each layer computes on the "model" factor (``models.attention``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import SimpleNamespace
 
 from torch import nn
@@ -58,10 +59,30 @@ RECURRENT_MIXERS = ("ssm", "rglru")
 
 def batch_axes(mesh) -> tuple:
     """Mesh axes the global batch is sharded over (the DP axes; none
-    without a mesh)."""
+    without a mesh).  While ``settings.fsdp_gather(mesh, dp_axes=...)``
+    names fewer for this mesh, those."""
     if mesh is None:
         return ()
+    from . import settings
+
+    if settings.DP_AXES is not None and settings.FSDP_GATHER_MESH is mesh:
+        return settings.DP_AXES
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def dp_axes(mesh, batch: int) -> tuple:
+    """The DP axes a global batch of ``batch`` rows splits over: every DP
+    axis where the batch divides over them all, else ("data",) where it
+    divides over that, else none (every rank holds every row; the
+    reference's dry-run rule)."""
+    if mesh is None:
+        return ()
+    names = tuple(mesh.mesh_dim_names)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    size = lambda axes: math.prod(mesh.size(names.index(a)) for a in axes)  # noqa: E731
+    if batch % size(dp):
+        dp = ("data",) if batch % size(("data",)) == 0 else ()
+    return dp
 
 
 def vocab_parallel(cfg) -> bool:
@@ -226,6 +247,15 @@ def gather_axes(t, spec, mesh, axes, reduce_grad: bool = True):
     return t
 
 
+def heads_uneven(cfg, tp: ModelParallel | None) -> bool:
+    """True where the model axis does not divide the query heads (llama4's
+    40 and musicgen's 24 on the production axis of 16): each rank then
+    takes its rows of the whole attention weights, ceil(H / size) heads
+    in order and the last ranks fewer or none (``attention.head_split``),
+    as GSPMD pads an uneven split."""
+    return tp is not None and cfg.num_heads % tp.size != 0
+
+
 def kv_whole(cfg, tp: ModelParallel | None) -> bool:
     """True where the model axis does not divide the KV heads: K and V are
     then computed whole on every rank of the axis (reduced configs' one KV
@@ -257,12 +287,15 @@ def gather_layer_params(layer, cfg, kind: str, use_moe: bool, mesh):
     gathered (its gradient reduce-scattered over "data"), and the "model"
     factor also where the layer computes whole on it: the ssd and rglru
     mixers (every rank computes the same gradient: each keeps its slice)
-    and K/V where ``kv_whole`` (each rank's heads give a part of the
-    gradient: summed over "model").  A namespace shaped as the layer, a
-    linear's weight where the layer holds an ``nn.Linear``."""
+    and where a rank takes its rows of a whole weight: K/V where
+    ``kv_whole``, all four attention weights where ``heads_uneven`` (each
+    rank's heads give a part of the gradient: summed over "model").  A
+    namespace shaped as the layer, a linear's weight where the layer holds
+    an ``nn.Linear``."""
     specs = layer_specs(cfg, kind, use_moe)
     tp = model_parallel(mesh)
     kv = kv_whole(cfg, tp)
+    uneven = heads_uneven(cfg, tp)
 
     def one(name, p):
         spec = specs[name]
@@ -270,7 +303,9 @@ def gather_layer_params(layer, cfg, kind: str, use_moe: bool, mesh):
         mixer = name.split(".", 1)[0]
         if mixer in RECURRENT_MIXERS:
             t = gather_axes(t, compute_spec(spec), mesh, ("model",), reduce_grad=False)
-        elif kv and name in ("attn.wk.weight", "attn.wv.weight"):
+        elif (uneven and mixer == "attn") or (
+            kv and name in ("attn.wk.weight", "attn.wv.weight")
+        ):
             t = gather_axes(t, compute_spec(spec), mesh, ("model",))
         return t
 

@@ -26,7 +26,11 @@ lookup, then the sum over "model") and the head column-parallel, so the
 logits come back as this rank's slice of the vocabulary
 (``sharding.gather_logits`` joins them).  Where ``PRODUCTION_TP`` does not
 divide the vocabulary (mamba2's 50280) the table is gathered whole and the
-logits are whole.
+logits are whole.  Cached calls (a prefill into caches, ``decode_step``) run
+on a mesh too: ``init_caches(..., mesh=)`` gives each rank the caches of its
+batch rows (over ``shardspecs.batch_axes``), with the KV heads its query
+heads read and the ssd / rglru states whole, since those mixers compute
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -335,14 +339,13 @@ def forward(
     activations in the backward pass instead of keeping them (the values
     are the same: MoE dispatch is deterministic, so the recompute routes
     the same tokens); a cached call cannot take it.  On a mesh (module
-    note) ``tokens``/``embeds`` are this rank's batch rows and the logits
-    its slice of the vocabulary; no cache.
+    note) ``tokens``/``embeds`` are this rank's batch rows, the caches its
+    caches (``init_caches(..., mesh=)``) and the logits its slice of the
+    vocabulary.
     """
     if remat and caches is not None:
         raise ValueError("remat=True is for training; a cached call cannot take it")
     mesh = _on_mesh(model)
-    if mesh is not None and caches is not None:
-        raise ValueError("a cached call does not run on a mesh")
     if dropless is None:
         dropless = caches is not None
     dev = model.embed.device
@@ -383,11 +386,12 @@ def decode_step(
     attn_impl: str = "naive",
 ):
     """One-token serve step.  tokens: (B,); pos: the global position of
-    this token.  Returns (logits (B, V), caches)."""
+    this token.  Returns (logits (B, V), caches); on a mesh B is this
+    rank's rows and V its slice of the vocabulary (``forward``)."""
     dev = model.embed.device
     if embeds is None:
-        x = take_embedding(model.embed, torch.as_tensor(tokens, device=dev))
-        x = x[:, None, :]
+        tokens = torch.as_tensor(tokens, device=dev)[:, None]
+        x = _embed(model, cfg, tokens, _on_mesh(model))
     else:
         x = embeds[:, None, :].to(dtype_of(cfg.dtype))
     positions = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(1, 1)
@@ -397,12 +401,28 @@ def decode_step(
     return out.logits[:, 0], out.caches
 
 
-def init_caches(cfg, batch: int, max_len: int, *, device=None):
+def init_caches(cfg, batch: int, max_len: int, *, device=None, mesh=None):
     """One cache a layer: a ring-buffer KV cache (``init_attention_cache``)
     for attention, the zero (conv, SSM) state for ``ssd`` and (conv, h) for
-    ``rglru``."""
+    ``rglru``.  On a ``mesh`` the caches of this rank: ``batch`` (the
+    global batch) split over ``shardspecs.batch_axes(mesh)`` (call it where
+    the model runs, under ``settings.fsdp_gather``), the KV heads this
+    rank's query heads read, the recurrent states whole."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.dtype)
+    kv_heads = None
+    if mesh is not None:
+        from ..launch.mesh import axis_size
+        from .attention import cache_kv_heads
+        from .shardspecs import batch_axes
+
+        k = axis_size(mesh, batch_axes(mesh))
+        if batch % k:
+            raise ValueError(f"a batch of {batch} rows over {k} data-parallel ranks")
+        batch //= k
+        tp = model_parallel(mesh)
+        if any(kind in ATTN_KINDS for kind in cfg.layer_pattern):
+            kv_heads = cache_kv_heads(cfg, tp)
 
     def layer_cache(kind):
         if kind == "ssd":
@@ -410,7 +430,8 @@ def init_caches(cfg, batch: int, max_len: int, *, device=None):
         if kind == "rglru":
             return init_rglru_state(cfg, batch, dtype, device=dev)
         return init_attention_cache(
-            cfg, batch, max_len, _window(cfg, kind), dtype, device=dev
+            cfg, batch, max_len, _window(cfg, kind), dtype, device=dev,
+            kv_heads=kv_heads,
         )
 
     return [layer_cache(cfg.layer_kind(i)) for i in range(cfg.num_layers)]

@@ -29,8 +29,11 @@ health check, the jitter ladder of degraded mode) reads the status, which
 is whole on every rank, so all ranks take it the same way.
 
 PyTorch runs eagerly, so ``make_cokrige_serve_fns`` returns the two
-functions bound to one configuration, with nothing compiled.  The
-reference's lowerables (dry-run and lint tooling) are not ported.
+functions bound to one configuration, with nothing compiled.  The two
+serving phases as dry-run lowerables (``launch.dryrun``, ``lowerables``) are
+``cokrige_fit_lowerable`` and ``cokrige_predict_lowerable``: the bodies
+without the request validation and the recovery ladder, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ from ..core.prediction import CokrigeFactor
 from ..core.tlr import _lap, choose_tile_size
 from ..device import as_tensor
 from ..distribution.block_cyclic import pair_layout, pair_shard, pair_shards
-from ..launch.mesh import all_reduce_
+from ..launch.mesh import all_reduce_, mesh_grid
 
 __all__ = [
     "CokrigeServeConfig",
@@ -264,7 +267,7 @@ def _c0_row_block(T: int, mesh, row_axes) -> tuple[int, int]:
     generated by the rank at "model" coordinate 0 of its row coordinate; an
     empty range on the others."""
     names = tuple(mesh.mesh_dim_names)
-    sizes = dict(zip(names, mesh.mesh.shape))
+    sizes = dict(zip(names, mesh_grid(mesh).shape))
     coord = dict(zip(names, mesh.get_coordinate()))
     rows = [a for a in row_axes if a in names]
     if any(coord[a] for a in names if a not in rows):
@@ -493,3 +496,96 @@ def predict_batch(
                 )
     _, predict = make_cokrige_serve_fns(cfg, mesh)
     return predict(factor, pred_locs, generator=generator, n_draws=n_draws)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run lowerables: the two serving phases as (fn, specs)
+# ---------------------------------------------------------------------------
+
+
+def cokrige_fit_lowerable(
+    n: int,
+    p: int,
+    params,
+    *,
+    tile_size: int,
+    max_rank: int,
+    tol: float,
+    nugget: float = 0.0,
+    gen: str = "kernel",
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+):
+    """(fn, specs) of the prefill phase: ``fn(locs, z)`` (both replicated)
+    gives the factor's raw ``(diag_l, u, v, ranks, alpha)``, on a mesh u/v/
+    ranks the rank's own pair slots, so they chain into
+    ``cokrige_predict_lowerable``'s inputs.  The status rides along unread
+    (no host check: the recovery ladder is not part of the body)."""
+    from ..lowerables import Spec
+
+    cfg = CokrigeServeConfig(
+        tile_size=tile_size, max_rank=max_rank, tol=tol, nugget=nugget, gen=gen,
+        row_axes=tuple(row_axes),
+    )
+
+    def fn(locs, z):
+        with torch.no_grad():
+            f = fit_factor(locs, z, params, cfg, mesh=mesh)
+        return f.diag_l, f.u, f.v, f.ranks, f.alpha
+
+    return fn, (Spec((n, 2), dtype), Spec((n * p,), dtype))
+
+
+def cokrige_predict_lowerable(
+    n: int,
+    p: int,
+    params,
+    *,
+    tile_size: int,
+    max_rank: int,
+    batch: int = 512,
+    gen: str = "kernel",
+    mesh,
+    dtype=torch.float32,
+    row_axes=("data",),
+    interval: float = 0.95,
+):
+    """(fn, specs) of the decode phase: ``fn(diag_l, u, v, ranks, alpha,
+    locs, pred_locs)`` gives (mean, variance, lower, upper) of ``batch``
+    points.  The factor arrives as inputs, not updated (reuse across
+    requests is the serving contract): u/v/ranks in pair-major storage, on
+    a mesh the rank's own slots (``block_cyclic.PairPlacement``), the rest
+    replicated."""
+    from ..lowerables import Spec
+
+    m = n * p
+    nb = choose_tile_size(m, tile_size, multiple_of=p)
+    T = m // nb
+    kmax = min(max_rank, nb) if max_rank > 0 else max(8, nb // 4)
+    layout = pair_layout(T, pair_shards(mesh, row_axes))
+
+    def fn(diag_l, u, v, ranks, alpha, locs, pred_locs):
+        shard = pair_shard(mesh, row_axes)
+        factor = CokrigeFactor(
+            diag_l=diag_l, u=u, v=v, ranks=ranks, alpha=alpha, locs=locs,
+            params=params, kind="tlr", n_shards=layout.n_shards,
+            shard=None if shard is None else shard.index,
+        )
+        with torch.no_grad():
+            out = predict_with_factor(
+                factor, pred_locs, interval=interval, gen=gen, mesh=mesh,
+                row_axes=tuple(row_axes),
+            )
+        return out.mean, out.variance, out.lower, out.upper
+
+    specs = (
+        Spec((T, nb, nb), dtype),
+        Spec((layout.length, nb, kmax), dtype),
+        Spec((layout.length, nb, kmax), dtype),
+        Spec((layout.length,), torch.int32),
+        Spec((m,), dtype),
+        Spec((n, 2), dtype),
+        Spec((batch, 2), dtype),
+    )
+    return fn, specs

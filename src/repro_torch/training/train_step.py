@@ -260,14 +260,24 @@ def _compress(grads, errors, shardings, leaves):
 
 
 def train_step(
-    model, opt_state, grad_errors, batch, *, cfg, tcfg: TrainConfig, mesh=None
+    model,
+    opt_state,
+    grad_errors,
+    batch,
+    *,
+    cfg,
+    tcfg: TrainConfig,
+    mesh=None,
+    check_finite: bool = True,
 ):
     """(model, opt_state, grad_errors, metrics), the first two updated in
     place; metrics ``loss``, ``nll``, ``aux``, ``tokens``, ``grad_norm``,
     ``lr`` as float32 scalars on the device.  A non-finite loss applies
     nothing (see the module note).  On ``mesh`` every argument is this
     rank's shard and the metrics are the global batch's, the same on every
-    rank."""
+    rank.  ``check_finite=False`` skips that host read of the loss and
+    applies the step (a shape-only trace, ``launch.dryrun``, has no value
+    to read)."""
     shardings = None
     if mesh is None:
         grads, metrics = grads_fn(model, cfg, batch, tcfg)
@@ -282,7 +292,7 @@ def train_step(
     if tcfg.compress_cross_pod:
         leaves = reference_leaves(model, cfg)
         grads, new_errors = _compress(grads, grad_errors, shardings, leaves)
-    if not bool(torch.isfinite(metrics["loss"])):
+    if check_finite and not bool(torch.isfinite(metrics["loss"])):
         metrics.update(
             grad_norm=global_norm(grads, shardings),
             lr=lr_schedule(tcfg.optimizer, opt_state.step + 1),

@@ -69,6 +69,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.core.recovery import init_status
     from repro_torch.core.tlr import tlr_loglik
     from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
     from repro_torch.models import init_caches, init_model
     from repro_torch.serving.cokrige_service import CokrigeServeConfig, fit_factor
     from repro_torch.serving.engine import generate
@@ -96,13 +97,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lambda: init_model(cfg),
         lambda: init_caches(cfg, 1, 8),
         lambda: generate(model, cfg, np.zeros((1, 4), np.int64), 2),
+        lambda: dryrun.run_cell("qwen3-4b", "decode_32k", "pod", out_dir=None),
+        lambda: dryrun.main(["--arch", "qwen3-4b", "--shape", "decode_32k"]),
     ]
     for path in EXAMPLES:
         spec = importlib.util.spec_from_file_location(f"_example_{path.stem}", path)
         example = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(example)
         calls.append(lambda main=example.main: main([]))
-    assert len(calls) == 20  # 15 entry points and 5 examples
+    assert len(calls) == 22  # 17 entry points and 5 examples
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

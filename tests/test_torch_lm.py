@@ -190,15 +190,14 @@ def test_reference_windowed_prefill_fault_is_recorded():
 
 
 def test_unported_configs_and_options_raise():
-    """All ten LM architectures resolve and an unknown arch is a KeyError;
-    training's ``remat=True`` gives the logits of ``remat=False``, and a
+    """All ten LM architectures and the two geostatistics configurations
+    resolve and an unknown arch is a KeyError; training's ``remat=True`` gives the logits of ``remat=False``, and a
     cached call refuses it."""
     for name in LM_ARCH_NAMES:
         assert get_arch(name).name == name
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("geostat-tlr")
+    assert get_arch("geostat-tlr").family == "geostat"
     _, _, cfg, model, tokens = _setup("qwen3-mqa")
     with torch.inference_mode():
         remat = forward(model, cfg, torch.as_tensor(tokens), remat=True).logits

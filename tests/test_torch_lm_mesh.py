@@ -74,6 +74,16 @@ FORWARD = (
     ("recurrentgemma-9b", "chunked"),
 )
 FORWARD_POD = ("qwen3-4b", "mixtral-8x7b")
+# the cached prefill and decode on the mesh: the five families
+DECODE = tuple(ARCHS)
+# the dry-run's reduced LM cells (tests/test_torch_launch.py), run for real
+# on the ranks and traced on a fake 4-rank mesh here
+DRYRUN = (
+    ("prefill", "qwen3-4b", ("prefill", 16, 4, "prefill")),
+    ("decode", "qwen3-4b", ("decode", 16, 4, "decode")),
+    ("train", "qwen3-4b", ("train", 16, 4, "train")),
+)
+DECODE_TOL = 2e-3  # tests/test_torch_lm.py's cached tolerance
 TRAIN_KEYS = tuple(ARCHS) + ("microbatches", "pod", "compress")
 REF_TOL, OWN_TOL, TOL = 1e-4, 1e-5, 1e-5
 
@@ -169,6 +179,42 @@ def _reference_train(arch, extra, **tkw):
     return dict(metrics=metrics, params=dict(zip(names, master)))
 
 
+def _reference_decode(arch):
+    """The reference's mesh=None cached prefill of R.DECODE_PREFILL tokens
+    and R.DECODE_STEPS decode steps: the logits of the prefill's last
+    position and of each step, (B, 1 + steps, V)."""
+    from repro.models import decode_step as j_decode_step
+    from repro.models import init_caches as j_init_caches
+
+    overrides = ARCHS[arch][0]
+    jcfg, params = _jcfg(arch, overrides), _weights(arch)[0]
+    tokens = jnp.asarray(R.forward_tokens(R.config(arch, overrides)))
+    b, seq = R.FWD_BATCH
+    pre = R.DECODE_PREFILL
+    prefill = jax.jit(lambda p, t, c: j_forward(
+        p, jcfg, tokens=t, positions=jnp.arange(pre)[None], caches=c))
+    step = jax.jit(lambda p, c, t, pos: j_decode_step(p, jcfg, c, tokens=t, pos=pos))
+    out = prefill(params, tokens[:, :pre], j_init_caches(jcfg, b, seq))
+    logits, caches = [np.asarray(out.logits[:, -1])], out.caches
+    for pos in range(pre, pre + R.DECODE_STEPS):
+        lg, caches = step(params, caches, tokens[:, pos], jnp.asarray(pos, jnp.int32))
+        logits.append(np.asarray(lg))
+    return np.stack(logits, 1)
+
+
+def _fake_dryrun():
+    """The DRYRUN cells traced on a fake (2, 2) mesh (rank 0)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+
+    out = {}
+    for key, arch, shape in DRYRUN:
+        sh_ = ShapeConfig(*shape)
+        out[key] = run_cell(arch, sh_.name, "pod", out_dir=None, device="cpu",
+                            world=(2, 2), cfg=get_arch(arch).reduced(), shape=sh_)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The spawn runs while the references and the port's single-device
@@ -181,6 +227,8 @@ def runs(tmp_path_factory):
         forward_pod=FORWARD_POD,
         train=[(a, ARCHS[a][1]) for a in ARCHS],
         tmp=tmp,
+        decode=DECODE,
+        dryrun=DRYRUN,
     )
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         future = pool.submit(
@@ -189,6 +237,8 @@ def runs(tmp_path_factory):
         )
         ref = {"forward": {a: _reference_forward(a) for a, _ in FORWARD}, "train": {}}
         ref["moe"] = {a: _reference_moe(a) for a in ARCHS if j_get_arch(a).moe}
+        ref["decode"] = {a: _reference_decode(a) for a in DECODE}
+        ref["dryrun"] = _fake_dryrun()
         for a in ARCHS:
             ref["train"][a] = _reference_train(a, ARCHS[a][1])
         ref["train"]["compress"] = _reference_train(
@@ -504,3 +554,77 @@ def test_launcher_trains_on_the_mesh(runs):
         out = r["launcher"]
         assert out["mesh"] == {"data": 2, "model": 2}
         assert out["final_step"] == 2 and out["nan_restores"] == 0
+
+
+# ---------------------------------------------------------------------------
+# cached calls on the mesh, and the dry-run's collectives
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", DECODE)
+def test_cached_prefill_and_decode_on_the_mesh_match_the_reference(runs, arch):
+    """A cached prefill and four decode steps on the (2, 2) mesh (each rank
+    its batch rows' caches, the KV heads its query heads read, the
+    recurrent states whole) against the reference's mesh=None forward and
+    decode_step, at the cached tolerance of tests/test_torch_lm.py; the
+    first arch also with one row, which every rank holds (no DP split, no
+    sum over the copies)."""
+    want = runs["ref"]["decode"][arch]
+    keys = [arch] + ([arch + "@b1"] if arch == DECODE[0] else [])
+    for key in keys:
+        for r in _ranks(runs):
+            got = r["decode"][key]
+            rows = got["rows"]
+            np.testing.assert_allclose(got["logits"], want[rows], rtol=DECODE_TOL,
+                                       atol=DECODE_TOL)
+    if arch == DECODE[0]:
+        # a rank's caches: its rows (2 of 4 over "data", or the one row)
+        # and the one KV head its query heads read; k, v f32 and kpos int32
+        cfg = R.config(arch, ARCHS[arch][0])
+        seq, hd = R.FWD_BATCH[1], cfg.resolved_head_dim
+
+        def cache_bytes(rows):
+            return cfg.num_layers * (2 * rows * seq * 1 * hd * 4 + seq * 4)
+
+        r0 = _ranks(runs)[0]["decode"]
+        assert r0[arch]["cache_bytes"] == cache_bytes(2)
+        assert r0[arch + "@b1"]["cache_bytes"] == cache_bytes(1)
+
+
+def test_attention_splits_unevenly_where_the_model_axis_does_not_divide_the_heads(
+    runs,
+):
+    """Nine query heads of three KV heads, and one head, on a "model" axis
+    of two (the production case of llama4's 40 and musicgen's 24 heads on
+    16): each rank takes ceil(H / 2) heads in order, the last fewer or
+    none.  The forward, three train steps and the cached prefill and
+    decode steps on the mesh equal the port's single-device ones (float32):
+    the logits and metrics at 1e-5, the parameters by the share of a leaf's
+    elements off by more than 1e-5 of its magnitude, at most 1e-3 (the
+    measure of the compressed train steps above)."""
+    for r in _ranks(runs):
+        assert set(r["heads_uneven"]) == {"9/3", "1/1"}
+        for gaps in r["heads_uneven"].values():
+            assert gaps["logits"] <= OWN_TOL and gaps["metrics"] <= OWN_TOL, gaps
+            assert gaps["decode"] <= OWN_TOL, gaps
+            assert gaps["param_off_share"] <= 1e-3, gaps
+
+
+def test_cached_refusals_still_raise_on_the_mesh(runs):
+    """The Queue 3 refusals hold on a mesh as on one device."""
+    for r in _ranks(runs):
+        msgs = r["cached_refusals"]
+        assert "windowed ring-cache prefill fault" in msgs["recurrentgemma-9b"]
+        assert "recurrent prefill fault" in msgs["mamba2-780m"]
+
+
+@pytest.mark.parametrize("key", [k for k, _, _ in DRYRUN])
+def test_dry_run_collectives_equal_a_real_four_rank_run(runs, key):
+    """The dry-run's fake 4-rank trace of a reduced cell counts the bytes
+    and calls of each collective, by kind and by mesh axis, that rank 0 of
+    the real gloo spawn counts running the same cell, and its FLOPs."""
+    fake = runs["ref"]["dryrun"][key]
+    real = _ranks(runs)[0]["dryrun"][key]
+    assert fake["collectives"] == real["collectives"]
+    assert fake["hlo_flops_per_chip"] == real["flops"] > 0
+    assert fake["collectives"]["by_kind"]

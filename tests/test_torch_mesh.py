@@ -133,6 +133,21 @@ def _jax_references(x, jt):
     return out
 
 
+def _fake_dryrun():
+    """R.DRYRUN's cells traced on a fake (2, 2) mesh (rank 0)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GeoStatShape
+    from repro_torch.launch.dryrun import run_cell
+
+    out = {}
+    for key, arch, shape in R.DRYRUN:
+        gs = GeoStatShape(*shape)
+        out[key] = run_cell(arch, gs.name, "pod", out_dir=None, device="cpu",
+                            world=(2, 2), cfg=get_arch(arch).reduced(), shape=gs,
+                            correct_costs=False)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Both spawns run while the references are computed here; the port's
@@ -146,6 +161,7 @@ def runs():
         )
         futures = {w: pool.submit(spawn, w) for w in WORLDS}
         ref = _jax_references(x, jt)
+        ref["dryrun"] = _fake_dryrun()
         own = R.run_all(None, carried)
         ranks = {w: f.result() for w, f in futures.items()}
     return dict(x=x, ref=ref, own=own, ranks=ranks)
@@ -511,3 +527,16 @@ def test_the_launchers_take_the_card_unless_the_cpu_is_named(tmp_path, monkeypat
         assert mesh.device_type == "cpu" and tuple(mesh.mesh_dim_names) == lm.AXES
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("key", [k for k, _, _ in R.DRYRUN])
+def test_dry_run_collectives_equal_a_real_four_rank_run(runs, key):
+    """The dry-run's fake 4-rank trace of a reduced geostat cell counts the
+    bytes and calls of each collective, by kind and by mesh axis, and the
+    FLOPs, that rank 0 of the real gloo spawn counts running the same
+    cell."""
+    fake = runs["ref"]["dryrun"][key]
+    real = _each(runs, 4)[0]["dryrun"][key]
+    assert fake["collectives"] == real["collectives"]
+    assert fake["collectives"]["by_kind"]
+    assert fake["hlo_flops_per_chip"] == real["flops"]

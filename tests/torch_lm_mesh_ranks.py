@@ -420,12 +420,152 @@ def case_launcher(mesh, tmp: str) -> dict:
     return train_on_mesh(mesh, opts)
 
 
+# The cached calls: a prefill of DECODE_PREFILL tokens of forward_tokens,
+# then DECODE_STEPS decode steps, into caches of FWD_BATCH[1] positions.
+DECODE_PREFILL, DECODE_STEPS = 12, 4
+
+
+def run_decode(mesh, cfg, state: dict, rows: int = FWD_BATCH[0]) -> dict:
+    """A cached prefill and DECODE_STEPS decode steps of the first ``rows``
+    rows of ``forward_tokens`` (mesh None: on one device): the whole
+    vocabulary's logits of this rank's rows at the prefill's last position
+    and each step.  The batch splits over ``dp_axes`` (one row: none, every
+    rank holds it)."""
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.models import decode_step, forward, init_caches
+    from repro_torch.models.settings import fsdp_gather
+    from repro_torch.models.shardspecs import dp_axes
+
+    tokens = torch.as_tensor(forward_tokens(cfg))[:rows]
+    model = model_from(cfg, state)
+    dp = dp_axes(mesh, rows)
+    if mesh is not None:
+        sh.shard_params(model, cfg, mesh)
+        with fsdp_gather(mesh, dp):
+            tokens = sh.shard_batch({"tokens": tokens}, mesh)["tokens"]
+    seq = FWD_BATCH[1]
+    out_logits = []
+    with torch.no_grad(), fsdp_gather(mesh, dp if mesh is not None else None):
+        caches = init_caches(cfg, rows, seq, device="cpu", mesh=mesh)
+        pre = torch.arange(DECODE_PREFILL, dtype=torch.int32)[None]
+        out = forward(model, cfg, tokens[:, :DECODE_PREFILL], positions=pre,
+                      caches=caches)
+        caches = out.caches
+        out_logits.append(out.logits[:, -1])
+        for pos in range(DECODE_PREFILL, DECODE_PREFILL + DECODE_STEPS):
+            logits, caches = decode_step(model, cfg, caches, tokens=tokens[:, pos],
+                                         pos=pos)
+            out_logits.append(logits)
+        if mesh is not None:
+            out_logits = [sh.gather_logits(x, cfg, mesh) for x in out_logits]
+        cache_bytes = sum(
+            t.numel() * t.element_size() for c in caches for t in
+            (c.values() if isinstance(c, dict) else c)
+        )
+    rank_rows = dp_rows(mesh, rows) if dp else slice(0, rows)
+    return dict(logits=torch.stack(out_logits, 1), rows=rank_rows,
+                cache_bytes=cache_bytes)
+
+
+def case_cached_refusals(mesh, archs: dict) -> dict:
+    """The Queue 3 refusals on the mesh: a windowed prefill longer than the
+    window, and a cached call of several tokens after position 0 on a
+    recurrent model; each message, or None where nothing was refused."""
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.models import forward, init_caches
+    from repro_torch.models.settings import fsdp_gather
+
+    out = {}
+    for arch, tokens_len, start in (("recurrentgemma-9b", 65, 0), ("mamba2-780m", 2, 4)):
+        overrides, state = archs[arch]
+        cfg = config(arch, overrides)
+        model = sh.shard_params(model_from(cfg, state), cfg, mesh)
+        tokens = torch.zeros((FWD_BATCH[0] // 2, tokens_len), dtype=torch.int64)
+        pos = torch.arange(start, start + tokens_len, dtype=torch.int32)[None]
+        try:
+            with torch.no_grad(), fsdp_gather(mesh):
+                caches = init_caches(cfg, FWD_BATCH[0], 80, device="cpu", mesh=mesh)
+                forward(model, cfg, tokens, positions=pos, caches=caches)
+            out[arch] = None
+        except ValueError as exc:
+            out[arch] = str(exc)
+    return out
+
+
+# (query heads, KV heads) of qwen3-4b reduced that the "model" axis of 2
+# does not divide: 9 of 3 KV heads (ranks take 5 and 4 query heads, whose
+# GQA groups straddle the ranks) and 1 (the second rank computes no head)
+UNEVEN_HEADS = ((9, 3), (1, 1))
+
+
+def case_heads_uneven(mesh) -> dict:
+    """qwen3-4b reduced to each of UNEVEN_HEADS: the forward, TRAIN_STEPS
+    train steps and the cached prefill and decode steps on the mesh against
+    the port's single-device ones (seeded weights): the largest gaps of the
+    logits (this rank's rows) and the metrics, the final parameters'
+    largest share of a leaf's elements off, and the cached logits' gap."""
+    from repro_torch.models import init_model
+
+    out = {}
+    for heads, kv_heads in UNEVEN_HEADS:
+        cfg = config("qwen3-4b", {"num_heads": heads, "num_kv_heads": kv_heads})
+        model = init_model(cfg, generator=torch.Generator().manual_seed(5), device="cpu")
+        state = {n: p.detach().numpy() for n, p in model.named_parameters()}
+        fwd = run_forward(mesh, cfg, state, "naive")
+        one = run_forward(None, cfg, state, "naive")
+        want = one["logits"][fwd["rows"]]
+        trained = run_train(mesh, cfg, state, {})
+        single = run_train(None, cfg, state, {})
+        dec = run_decode(mesh, cfg, state)
+        dec_want = run_decode(None, cfg, state)["logits"][dec["rows"]]
+        gaps = dict(
+            logits=float((fwd["logits"] - want).abs().max() / want.abs().max()),
+            metrics=max(
+                abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                for a, b in zip(trained["metrics"], single["metrics"]) for k in b
+            ),
+            decode=float((dec["logits"] - dec_want).abs().max()
+                         / dec_want.abs().max()),
+        )
+        # AdamW's first steps move an element by about lr whatever its
+        # gradient's size, so the parameters are held by the share of each
+        # leaf's elements off by more than 1e-5 of its magnitude, as
+        # tests/test_torch_training.py holds its fast steps
+        # (a norm scale w, which starts at 0, as the 1 + w the model applies)
+        off = []
+        for n, p in single["params"].items():
+            one = 1.0 if "norm" in n.rsplit(".", 1)[-1] else 0.0
+            g, w = trained["params"][n] + one, p + one
+            off.append(float(((g - w).abs() > 1e-5 * w.abs().max()).double().mean()))
+        gaps["param_off_share"] = max(off)
+        out[f"{heads}/{kv_heads}"] = gaps
+    return out
+
+
+def case_dryrun(mesh, cells) -> dict:
+    """The dry-run's reduced LM cells run for real on this rank
+    (``launch.dryrun.trace_cell``): the FLOPs and the collectives counted
+    where they are issued."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import trace_cell
+
+    out = {}
+    for key, arch, shape in cells:
+        res = trace_cell(get_arch(arch).reduced(), ShapeConfig(*shape), mesh,
+                         device="cpu", fake=False)[0]
+        out[key] = dict(flops=res["flops"], collectives=res["collectives"])
+    return out
+
+
 def run_all(mesh, payload: dict) -> dict:
     """Every case once.  ``payload``: ``archs`` (name -> (config overrides,
     the weights by name)), ``forward`` ((arch, impl) pairs), ``forward_pod``
     (archs also run on the pod mesh), ``train`` ((arch, overrides of the
-    train steps) pairs, qwen3-4b first) and ``tmp`` (a directory every rank
-    sees)."""
+    train steps) pairs, qwen3-4b first), ``tmp`` (a directory every rank
+    sees), ``decode`` (archs of the cached prefill and decode, the first
+    also with one row) and ``dryrun`` ((key, arch, ShapeConfig fields) of
+    the dry-run's reduced cells)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import POD_AXES, make_mesh
@@ -473,6 +613,16 @@ def run_all(mesh, payload: dict) -> dict:
         trained = {k: trained[k] for k in ("step", "final_step")}
     out["trainer"] = trained
     out["launcher"] = case_launcher(mesh, tmp)
+    out["decode"] = {}
+    for arch in payload["decode"]:
+        overrides, state = archs[arch]
+        cfg = config(arch, overrides)
+        out["decode"][arch] = run_decode(mesh, cfg, state)
+        if arch == payload["decode"][0]:
+            out["decode"][arch + "@b1"] = run_decode(mesh, cfg, state, rows=1)
+    out["cached_refusals"] = case_cached_refusals(mesh, archs)
+    out["heads_uneven"] = case_heads_uneven(mesh)
+    out["dryrun"] = case_dryrun(mesh, payload["dryrun"])
     from repro_torch.distribution.sharding import shard_batch
 
     try:  # three rows over two data-parallel ranks

@@ -419,6 +419,33 @@ def case_permuted(x, carried) -> dict:
     return out
 
 
+# The dry-run's reduced geostat cells (tests/test_torch_launch.py): (key,
+# arch, GeoStatShape fields).
+DRYRUN = (
+    ("exact", "geostat-exact", ("exact", 256, 2, "mle")),
+    ("tlr", "geostat-tlr", ("tlr", 256, 2, "mle")),
+)
+
+
+def case_dryrun(mesh) -> dict:
+    """The DRYRUN cells run for real on this rank
+    (``launch.dryrun.trace_cell``; tests/test_torch_launch.py traces the TLR
+    cell's phases): FLOPs and the collectives counted where they are
+    issued."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GeoStatShape
+    from repro_torch.launch.dryrun import trace_cell
+
+    out = {}
+    for key, arch, shape in DRYRUN:
+        res = trace_cell(
+            get_arch(arch).reduced(), GeoStatShape(*shape), mesh, device="cpu",
+            fake=False, phases=False,
+        )[0]
+        out[key] = dict(flops=res["flops"], collectives=res["collectives"])
+    return out
+
+
 def run_all(mesh, carried) -> dict:
     """Every case once on ``mesh``; ``carried`` is the reference's compressed
     grid matrix (diag, u, v, ranks) of the small geometry."""
@@ -434,6 +461,7 @@ def run_all(mesh, carried) -> dict:
     if mesh is not None and tuple(mesh.mesh.shape) == (2, 2):
         out["permuted"] = case_permuted(x, carried)
         out["pod"] = case_pod(x)
+        out["dryrun"] = case_dryrun(mesh)
     return out
 
 
